@@ -12,7 +12,9 @@ object per line:
 * ``checks``   — every kernel against its plain PyTorch version on CUDA
   tensors: 256x128x128, small and ragged periodic levels and an odd one,
   float32 and float64, constant Dirichlet / Neumann / continuous /
-  plane-valued faces, NaN-filled pads;
+  plane-valued faces, NaN-filled pads; the double-float residual on the
+  same shapes (float32, equal power-of-two spacing, constant faces, with
+  and without lam, with a boundary-value override);
   ``max_ulp`` must be 0 (the kernels repeat the plain arithmetic
   operation by operation, built with --fmad=false);
 * ``main_path`` — ``PoissonSolver(3, (512,)*3, 16, dtype=float32)``, zero
@@ -21,12 +23,32 @@ object per line:
   have-guess FMGs; residual history, ms per FMG, unknowns/s, kernel
   launches, peak memory;
 * ``fmg_stages`` — device and host time of each FMG stage by level;
+* ``refined_path`` — the same solver's f64-class mode: a seeded float64
+  right-hand side through ``solve_refined(rhs, n_outer=10)``; the norm
+  history must fall to 1e-10 of its first entry, the double-float
+  residual kernel must have been launched n_outer + 1 times and the
+  other five kernels of this path at least once (``update_coarse`` and
+  its ``residual_restrict_dense`` do not run from a zero guess; over
+  both parts of the main path all seven must have run); then a timed
+  ``RefinedPoisson.solve`` (ms per outer, unknowns/s, contraction
+  factors, peak memory) and the device time of one outer's pieces;
+* ``df32_exactness`` — the double-float residual kernel against the
+  native float64 residual of ``x_hi + x_lo`` (the float64 stencil
+  kernel), x near a solution; a plain float32 residual must be at least
+  50 times worse;
+* ``refined_vs_f64`` — at 256^3 the refined solution against the native
+  float64 solve run to its floor on the same right-hand side;
+* ``fused_mode`` — ``MGConfig.fmg_mode="fused"`` (one CUDA graph per FMG
+  and per refined outer) beside the eager default: same bits, ms per FMG
+  and per outer of both;
 * ``cpu_agreement`` — the solver at 64^3 in float64 on the card and on
   the CPU (plain versions), three FMGs;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
-  shape: launches on the main path, max_abs_err against the plain
-  version, ms (median, CUDA events), plain_ms, bound_ms (bytes over
-  3.35 TB/s or flops over 67 TFLOP/s, whichever is larger), library_ms;
+  shape: launches on its path (the float32 solve for the six stencil
+  kernels, the refined solve for the double-float residual),
+  max_abs_err against the plain version, ms (median, CUDA events),
+  plain_ms, bound_ms (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
+  whichever is larger), library_ms;
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -53,6 +75,7 @@ SOURCES = {
     "residual_restrict_dense": "octree_mg_tpu_torch/csrc/downsweep.cu",
     "restrict_dense": "octree_mg_tpu_torch/csrc/restrict.cu",
     "prolong_correct_dense": "octree_mg_tpu_torch/csrc/prolong_correct.cu",
+    "residual_df32_dense": "octree_mg_tpu_torch/csrc/residual_df32.cu",
 }
 REPLACES = {
     "pair_sweep_dense": "octree_mg_tpu/ops/dense_kernels.py:932",
@@ -61,7 +84,14 @@ REPLACES = {
     "residual_restrict_dense": "octree_mg_tpu/ops/dense_kernels.py:1043",
     "restrict_dense": "octree_mg_tpu/ops/dense_kernels.py:1157",
     "prolong_correct_dense": "octree_mg_tpu/ops/dense_kernels.py:1213",
+    "residual_df32_dense": "octree_mg_tpu/ops/df32.py:285",
 }
+#: the kernels of the float32 FMG path, and of the refined path: its inner
+#: FMG starts from a zero guess with A(0) = 0, so its coarse right-hand
+#: sides come from restrict_dense alone and update_coarse (the caller of
+#: residual_restrict_dense) never runs
+FMG_KERNELS = tuple(k for k in SOURCES if k != "residual_df32_dense")
+REFINED_KERNELS = tuple(k for k in SOURCES if k != "residual_restrict_dense")
 
 
 def emit(obj) -> None:
@@ -90,12 +120,17 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max())
 
 
-def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True):
+def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
+              equal_pow2=False):
     """A level config with random fields on the card.  Pads are NaN
-    except where a periodic axis makes them wrapped copies."""
+    except where a periodic axis makes them wrapped copies.
+    equal_pow2: one power-of-two spacing on all axes (the double-float
+    residual's gate) instead of 1/extent per axis."""
     X, Y, Z = dims
     g = torch.Generator(device="cuda").manual_seed(seed)
     dr = (1.0 / X, 1.0 / Y, 1.0 / Z)
+    if equal_pow2:
+        dr = (2.0 ** -int(np.ceil(np.log2(max(dims)))),) * 3
     idr2 = tuple(1.0 / h ** 2 for h in dr)
     if bc_kind == "dirichlet":
         bc = [(2.0, -1.0, 0.0)] * 6
@@ -197,7 +232,7 @@ def variants(dk, cfg, field, planes, lam):
     return out
 
 
-def phase_checks(dk, quick):
+def phase_checks(dk, df, quick):
     rows, worst = [], 0
     shapes = [((256, 128, 128), (False, False, False)),
               ((16, 8, 8), (True, True, True)),
@@ -225,6 +260,31 @@ def phase_checks(dk, quick):
                     rows.append({"kernel": name, "dims": dims,
                                  "periodic": per, "dtype": str(dtype)[6:],
                                  "bc": bc_kind, "lam": lam, "max_ulp": u})
+    # the double-float residual: float32, constant faces, equal spacing
+    for dims, per in shapes:
+        for bc_kind in ("dirichlet", "neumann", "continuous"):
+            seed += 1
+            cfg, field, _ = make_case(dk, dims, per, bc_kind, torch.float32,
+                                      seed, equal_pow2=True)
+            if not df.df32_ok(cfg):
+                fail(f"df32 case {dims} {bc_kind} is outside df32_ok")
+            xhi, rhi = field(cfg), field(cfg)
+            xlo, rlo = field(cfg) * 2.0 ** -25, field(cfg) * 2.0 ** -25
+            override = [0.5, -0.25, 0.1, 0.3, 0.0, 1.0]
+            for lam, bvals in ((0.0, None), (0.37, None), (0.0, override)):
+                kw = dict(cbs=df._cb_pairs(cfg, bvals),
+                          lam_pair=df.split_lam(lam))
+                got = df.residual_df32_dense(cfg, xhi, xlo, rhi, rlo, **kw)
+                want = df.residual_df32(cfg, xhi, xlo, rhi, rlo, **kw)
+                torch.cuda.synchronize()
+                u = ulp_diff(got[dk._ISL], want[dk._ISL])
+                u = u if u >= 0 else 1 << 62
+                worst = max(worst, u)
+                rows.append({"kernel": "residual_df32", "dims": dims,
+                             "periodic": per, "dtype": "float32",
+                             "bc": bc_kind, "lam": lam,
+                             "bc_values_override": bvals is not None,
+                             "max_ulp": u})
     bad = [r for r in rows if r["max_ulp"] != 0]
     emit({"checks": {"cases": len(rows), "max_ulp": worst,
                      "expected_max_ulp": 0, "nan_pads": True,
@@ -270,11 +330,18 @@ def work_model(name, n_f, n_c, item):
         "restrict_dense": ((n_f + n_c) * item, n_f),
         # phi_c, iold_c, phi_f in; phi_f out
         "prolong_correct_dense": ((2 * n_c + 2 * n_f) * item, 40 * n_c),
+        # x_hi, x_lo, rhs_hi, rhs_lo in; r_hi out.  Per cell and axis a
+        # TwoSum of the neighbours, a TwoSum into the accumulator and the
+        # compensation and x_lo terms (22), then two TwoSums for 6*idr2*x
+        # and the closing terms (21): 87 flops on an interior cell
+        "residual_df32_dense": (5 * n_f * item, 87 * n_f),
     }[name]
 
 
-def phase_kernel_times(dk, launches):
-    """Every entry point at the main path's top-level shape."""
+def phase_kernel_times(dk, df, launches, launches_refined):
+    """Every entry point at the main path's top-level shape.  launches:
+    counts of the float32 solve; launches_refined: of the refined solve
+    (the path of the double-float residual)."""
     import torch.nn.functional as F
     dtype, n = torch.float32, 512
     per = (False,) * 3
@@ -320,6 +387,15 @@ def phase_kernel_times(dk, launches):
          lambda: dk._prolong_correct_plain(cfg_c, phi_c, iold_c, phi,
                                            planes_c), None),
     ]
+    # the double-float residual: x_lo and rhs_lo one pair ulp below
+    xlo, rlo = phi * 2.0 ** -25, rhs * 2.0 ** -25
+    cbs = df._cb_pairs(cfg)
+    r_out = torch.empty_like(phi)
+    cases.append((
+        "residual_df32_dense",
+        lambda: df.residual_df32_dense(cfg, phi, xlo, rhs, rlo, cbs=cbs,
+                                       out=r_out),
+        lambda: df.residual_df32(cfg, phi, xlo, rhs, rlo, cbs=cbs), None))
     rows = []
     for name, kern, plain, lib in cases:
         if name == "prolong_correct_dense":
@@ -351,7 +427,10 @@ def phase_kernel_times(dk, launches):
         t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": (launches_refined if name == "residual_df32_dense"
+                         else launches)[name],
+            "launches_in_refined_solve": launches_refined[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_b, t_f),
             "bound_by": "bytes" if t_b >= t_f else "operations",
@@ -395,7 +474,7 @@ def phase_main_path(pkg, dk):
     for a, b in zip(hist, hist[1:]):
         if a > floor and not b < a:
             fail(f"main path: residual history not monotone: {hist}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FMG_KERNELS if launches[k] == 0]
     if missing:
         fail(f"main path launched no kernel for {missing}")
 
@@ -419,7 +498,7 @@ def phase_main_path(pkg, dk):
         "unknowns_per_s": unknowns * n_timed / dt,
         "launches_in_solve": launches, "launches_per_fmg": per_fmg,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
-    return ps, launches
+    return ps, launches, 1e3 * dt / n_timed
 
 
 def phase_fmg_stages(ps):
@@ -458,6 +537,263 @@ def phase_fmg_stages(ps):
         for lvl in range(min_lvl, top + 1):
             run("vcycle_to", lvl, lambda: stage(lvl))
     emit({"fmg_stages": marks})
+
+
+# ---------------------------------------------------------------------------
+# the refined (f64-class) path
+# ---------------------------------------------------------------------------
+
+def event_ms(fn):
+    """Device time of one call of fn, CUDA events, starting synchronised."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def check_refined_history(norms, what):
+    if not all(np.isfinite(norms)):
+        fail(f"{what}: non-finite norm history {norms}")
+    floor = 10.0 * min(norms)
+    for a, b in zip(norms, norms[1:]):
+        if a > floor and not b < a:
+            fail(f"{what}: norm history not monotone: {norms}")
+    if not norms[-1] <= 1e-10 * norms[0]:
+        fail(f"{what}: norms fell only {norms[0]} -> {norms[-1]}, wanted "
+             f"1e-10 of the first")
+
+
+def timed_refined(rp, state, rh, rl, n_outer, reps=3):
+    """bench-style: warm, then whole ``rp.solve`` calls clocked on the
+    host with one synchronisation at the end; the best of reps."""
+    rp.solve(state, rh, rl, n_outer=n_outer)
+    best, norms = float("inf"), None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, norms, _ = rp.solve(state, rh, rl, n_outer=n_outer)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, norms
+
+
+def seeded_rhs64(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((n,) * 3, generator=g, dtype=torch.float64,
+                       device="cuda")
+
+
+def split_on_card(a64):
+    hi = a64.float()
+    return hi, (a64 - hi.double()).float()
+
+
+def phase_refined_path(ps, dk, df):
+    """The f64-class mode of the main path's solver, through
+    ``PoissonSolver.solve_refined``."""
+    n, n_outer = 512, 10
+    sv = ps.solver
+    torch.cuda.reset_peak_memory_stats()
+    rhs_dev = seeded_rhs64(n, 1)
+    rhs64 = rhs_dev.cpu().numpy()          # split on the host by the model
+    rh, rl = split_on_card(rhs_dev)        # the same pair, for the timed run
+    del rhs_dev
+
+    dk.reset_launch_counts()
+    phi, info = ps.solve_refined(rhs64, n_outer=n_outer)
+    launches = dk.launch_counts()
+    norms = info["residuals"]
+    if phi.shape != (n, n, n) or phi.dtype != np.float64 or \
+            not np.isfinite(phi).all():
+        fail("refined path: phi has a wrong shape, dtype or values")
+    check_refined_history(norms, "refined path")
+    if launches["residual_df32_dense"] != n_outer + 1:
+        fail(f"refined path: the double-float residual kernel ran "
+             f"{launches['residual_df32_dense']} times, expected "
+             f"{n_outer + 1}")
+    missing = [k for k in REFINED_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"refined path launched no kernel for {missing}")
+    del phi, rhs64
+
+    rp = ps._refined[1]
+    state = ps.state
+    dk.reset_launch_counts()
+    dt, norms_t = timed_refined(rp, state, rh, rl, n_outer)
+    per_outer = {k: v / (4 * n_outer) for k, v in dk.launch_counts().items()}
+    check_refined_history(norms_t, "refined path (timed run)")
+    x_pair = (rp.x_hi.clone(), rp.x_lo.clone())   # the pieces below go on
+    unknowns = float(sum(int(np.prod(sv.dims[l])) for l in sv.levels))
+
+    # device time of one outer's pieces, each starting synchronised
+    lam, top = sv._lam(0.0), sv.levels[-1]
+    with torch.no_grad():
+        pieces = {
+            "residual_kernel_ms": event_ms(lambda: df.residual_df32_dense(
+                rp.cfg, rp.x_hi, rp.x_lo, rp.rhs_hi, rp.rhs_lo, cbs=rp.cbs,
+                lam_pair=rp.lam_pair, out=state["rhs"][top])),
+            "max_norm_ms": event_ms(lambda: torch.linalg.vector_norm(
+                state["rhs"][top][dk._ISL], float("inf"))),
+            "inner_fmg_ms": event_ms(lambda: sv._fmg(
+                state, lam, have_guess=False, need_res=False)),
+            "accumulate_ms": event_ms(lambda: df.accumulate_df32_(
+                rp.x_hi, rp.x_lo, state["phi"][top], rp._scratch)),
+        }
+    emit({"refined_path": {
+        "model": "PoissonSolver(3, (512,)*3, 16, float32).solve_refined("
+                 "float64 rhs, n_outer=10), Dirichlet 0",
+        "norms": norms, "norms_timed_run": norms_t,
+        "contraction_factors": [a / b for a, b in zip(norms, norms[1:])],
+        "ms_per_outer": 1e3 * dt / n_outer,
+        "unknowns_per_s_refined": unknowns * n_outer / dt,
+        "launches_in_solve": launches, "launches_per_outer": per_outer,
+        "outer_pieces_device_ms": pieces,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
+    return launches, (rh, rl, dt / n_outer, norms_t, *x_pair)
+
+
+def phase_df32_exactness(dk, df):
+    """The kernel's r_hi against the native float64 residual of
+    x_hi + x_lo (the float64 stencil kernel), x near a solution.  Bound:
+    3e-7 * max|r| (r_hi's own float32 rounding) + 1e-11 * idr2 * max|x|
+    (the ~2^-45 double-float floor of the stencil terms)."""
+    n = 256
+    cfg, _, _ = make_case(dk, (n,) * 3, (False,) * 3, "dirichlet",
+                          torch.float32, 7, equal_pow2=True)
+    cfg64 = dk.DenseStencilConfig(cfg.dims, cfg.idr2, cfg.bc, cfg.periodic,
+                                  torch.float64, b_const=cfg.b_const)
+
+    def pad(v):
+        a = torch.zeros(cfg.pshape, dtype=v.dtype, device="cuda")
+        a[dk._ISL] = v
+        return a
+
+    xh, xl = split_on_card(seeded_rhs64(n, 2))
+    x_rep = pad(xh.double() + xl.double())
+    bp = [None] * 6
+    ax = dk.stencil_apply_dense(cfg64, x_rep, x_rep, 0.0, bp, False)[dk._ISL]
+    rh, rl = split_on_card(ax + 1e-6 * seeded_rhs64(n, 3))
+    rhs_rep = pad(rh.double() + rl.double())
+    r64 = dk.stencil_apply_dense(cfg64, x_rep, rhs_rep, 0.0, bp,
+                                 True)[dk._ISL]
+    r_df = df.residual_df32_dense(cfg, pad(xh), pad(xl), pad(rh),
+                                  pad(rl))[dk._ISL]
+    r_plain = dk.stencil_apply_dense(cfg, x_rep.float(), rhs_rep.float(),
+                                     0.0, bp, True)[dk._ISL]
+    rmax = float(r64.abs().max())
+    scale = cfg.idr2[0] * float(x_rep[dk._ISL].abs().max())
+    err = float((r_df.double() - r64).abs().max())
+    err_plain = float((r_plain.double() - r64).abs().max())
+    bound = 3e-7 * rmax + 1e-11 * scale
+    emit({"df32_exactness": {
+        "dims": [n] * 3, "max_abs_residual": rmax, "stencil_scale": scale,
+        "df32_max_abs_err": err, "bound": bound,
+        "plain_float32_max_abs_err": err_plain,
+        "plain_over_df32": err_plain / err}})
+    if not err <= bound:
+        fail(f"df32 residual off the float64 one by {err}, bound {bound}")
+    if not err_plain > 50 * err:
+        fail(f"plain float32 residual error {err_plain} is not 50x the "
+             f"double-float one {err}")
+
+
+def phase_refined_vs_f64(pkg):
+    """256^3: the refined solution x_hi + x_lo against the native float64
+    solve run to its floor on the same right-hand side.  Bound 1e-10 of
+    max|x|: each solution sits within its residual floor times the
+    operator's condition number (~0.4 N^2 = 2.7e4) of the exact one —
+    float64 ~ 3e-11, double-float (floor 2^-45 of the stencil terms)
+    ~ 6e-11 at worst; expected ~1e-13 (1.5e-14 at 64^3 on the CPU)."""
+    n, bound = 256, 1e-10
+    rhs64 = seeded_rhs64(n, 4).cpu().numpy()
+    ps = pkg.PoissonSolver(3, (n,) * 3, 16, dtype=torch.float32)
+    ps.set_dirichlet(0.0)
+    phi_r, info_r = ps.solve_refined(rhs64, n_outer=10)
+    check_refined_history(info_r["residuals"], "refined_vs_f64")
+    del ps
+    p64 = pkg.PoissonSolver(3, (n,) * 3, 16, dtype=torch.float64)
+    p64.set_dirichlet(0.0)
+    p64.set_rhs(arrays={p64.solver.levels[-1]: rhs64})
+    phi_64, info_64 = p64.solve(rtol=0.0, max_cycles=14)
+    phi_64 = phi_64.cpu().numpy()
+    del p64
+    torch.cuda.empty_cache()
+    diff = float(np.abs(phi_r - phi_64).max() / np.abs(phi_64).max())
+    emit({"refined_vs_f64": {
+        "dims": [n] * 3, "max_rel_diff": diff, "bound": bound,
+        "refined_norms": info_r["residuals"],
+        "float64_residuals": info_64["residuals"]}})
+    if not diff < bound:
+        fail(f"refined and float64 solutions differ by {diff} of max|x|")
+
+
+def phase_fused_mode(pkg, dk, ms_per_fmg_split, refined_split):
+    """``MGConfig.fmg_mode="fused"`` at 512^3: one CUDA graph per FMG and
+    per refined outer.  A replay must leave the bits of the eager cycle."""
+    n, n_timed, n_outer = 512, 8, 10
+    rh, rl, s_outer_split, norms_split, xhi_split, xlo_split = refined_split
+
+    def solver(mode):
+        ps = pkg.PoissonSolver(3, (n,) * 3, 16, dtype=torch.float32,
+                               fmg_mode=mode)
+        ps.set_dirichlet(0.0)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        ps.set_rhs(arrays={ps.solver.levels[-1]: torch.randn(
+            (n,) * 3, generator=g, dtype=torch.float32, device="cuda")})
+        return ps
+
+    def cycles(ps):
+        """zero-guess FMG, then three have-guess ones: in fused mode an
+        eager call, the capture with its first replay, and a replay."""
+        sv, st = ps.solver, ps._ensure_state()
+        for k in range(3):
+            sv.fas_fmg(st, have_guess=False, need_res=False)
+        for k in range(3):
+            sv.fas_fmg(st, have_guess=True, need_res=False)
+        return sv.interior(st, sv.levels[-1], "phi").clone()
+
+    ps = solver("split")
+    phi_split = cycles(ps)
+    del ps
+    ps = solver("fused")
+    sv = ps.solver
+    dk.reset_launch_counts()
+    phi_fused = cycles(ps)
+    counted = dk.launch_counts()
+    if not torch.equal(phi_split, phi_fused):
+        fail("fused FMG: a graph replay left other bits than the eager cycle")
+    del phi_split, phi_fused
+    graphs = [c for c in sv._graphs.values() if c is not None]
+    if len(graphs) != 2:
+        fail(f"fused FMG: expected 2 captured graphs, found {len(graphs)}")
+    state = ps.state
+    sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    ms_fmg_fused = 1e3 * (time.perf_counter() - t0) / n_timed
+
+    rp = pkg.RefinedPoisson(sv)
+    dt, norms = timed_refined(rp, state, rh, rl, n_outer)
+    if rp._graph is None:
+        fail("fused refined outer: no graph was captured")
+    if norms != norms_split or not (torch.equal(rp.x_hi, xhi_split)
+                                    and torch.equal(rp.x_lo, xlo_split)):
+        fail(f"fused refined solve differs from the eager one: norms "
+             f"{norms} against {norms_split}")
+    emit({"fused_mode": {
+        "bitwise_equal_to_split": True,
+        "ms_per_fmg": {"split": ms_per_fmg_split, "fused": ms_fmg_fused},
+        "ms_per_outer": {"split": 1e3 * s_outer_split,
+                         "fused": 1e3 * dt / n_outer},
+        "launches_counted_in_six_fmgs": counted,
+        "launches_per_replayed_outer": rp._graph.launches}})
 
 
 def phase_cpu_agreement(pkg):
@@ -506,30 +842,41 @@ def main(argv) -> int:
     import octree_mg_tpu_torch as pkg
     from octree_mg_tpu_torch.ops import _cuda_build
     from octree_mg_tpu_torch.ops import dense_kernels as dk
+    from octree_mg_tpu_torch.ops import df32 as df
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    _cuda_build.build_kernels(
+    paths = _cuda_build.build_kernels(
         extra_flags=("-Xptxas", "-v") if quick else (), verbose=quick)
     emit({"setup": {"card": smi, "torch": torch.__version__,
                     "cuda": torch.version.cuda,
                     "python": sys.version.split()[0],
+                    "sources_built": sorted(paths),
                     "build_s": _cuda_build.last_build_seconds}})
     t0 = time.perf_counter()
-    phase_checks(dk, quick)
+    phase_checks(dk, df, quick)
     if quick:
         print(smi)
         emit({"ok": True, "quick": True})
         return 0
-    ps, launches = phase_main_path(pkg, dk)
+    ps, launches, ms_per_fmg = phase_main_path(pkg, dk)
     phase_fmg_stages(ps)
+    launches_refined, refined_split = phase_refined_path(ps, dk, df)
+    never = [k for k in SOURCES if launches[k] + launches_refined[k] == 0]
+    if never:
+        fail(f"neither part of the main path launched {never}")
     del ps
     torch.cuda.empty_cache()
+    phase_fused_mode(pkg, dk, ms_per_fmg, refined_split)
+    del refined_split
+    torch.cuda.empty_cache()
+    phase_df32_exactness(dk, df)
+    phase_refined_vs_f64(pkg)
     phase_cpu_agreement(pkg)
-    rows, copy_bps = phase_kernel_times(dk, launches)
+    rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined)
     emit({"measured_copy_bytes_per_s": copy_bps,
           "seconds_after_build": time.perf_counter() - t0})
     emit({"kernels": rows})

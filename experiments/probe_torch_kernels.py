@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py
+    python3 experiments/probe_torch_kernels.py [tiles] [df32_blocks] [chunk]
 
-Rebuilds ``stencil_sweep.cu`` and ``downsweep.cu`` with other build-time
+Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu`` with other build-time
 constants (``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``,
 ``-DOMG_MIN_BLOCKS_PER_SM``) into ``build/probe`` and prints, one JSON
 object per line:
 
 * ``tiles``  — double pair and downsweep at 512^3 float32 for a list of
   (tile x, tile y, chunk z) shapes, median of 8, CUDA events;
+* ``df32_blocks`` — the double-float residual kernel
+  (``residual_df32.cu``) at 512^3 for a list of thread-block shapes
+  (``-DOMG_DF32_BX/BY/BZ``), median of 8, CUDA events, the shipped shape
+  first and last;
 * ``chunk``  — ms per have-guess FMG of the 512^3 float32 main path with
   the z chunk fixed at 64 against the shipped choice by level size,
   alternating inside one process (fixed, chosen, chosen, fixed, ...).
@@ -40,11 +44,12 @@ SHAPES = [(32, 16, 64), (32, 8, 64), (32, 16, 128), (32, 16, 32), (64, 8, 64),
           (64, 16, 64), (32, 32, 64), (16, 16, 64), (32, 12, 64)]
 
 
-def build(tag, flags):
-    """Both sources with extra flags; returns {symbol: ctypes function}."""
+def build(tag, flags, syms=SYMS):
+    """The sources of ``syms`` with extra flags; returns {symbol: ctypes
+    function}."""
     os.makedirs(OUT, exist_ok=True)
     procs = []
-    for name in SYMS:
+    for name in syms:
         so = os.path.join(OUT, f"{name}_{tag}.so")
         procs.append(subprocess.Popen(
             [cb._nvcc(), *cb.NVCC_FLAGS, *flags, "-I", CSRC, "-o", so,
@@ -53,7 +58,7 @@ def build(tag, flags):
         if p.wait() != 0:
             raise RuntimeError(f"nvcc failed for {tag}")
     fns = {}
-    for name, sym in SYMS.items():
+    for name, sym in syms.items():
         f = getattr(ctypes.CDLL(os.path.join(OUT, f"{name}_{tag}.so")), sym)
         f.argtypes, f.restype = dk._ARGTYPES[sym], ctypes.c_int
         fns[sym] = f
@@ -109,6 +114,45 @@ def probe_tiles():
     print(json.dumps({"tiles": rows}), flush=True)
 
 
+DF32_BLOCKS = [(32, 2, 2), (32, 1, 4), (32, 4, 1), (64, 2, 1), (32, 4, 2),
+               (32, 2, 4), (64, 2, 2), (128, 2, 1), (32, 4, 4), (64, 4, 2),
+               (128, 2, 2), (32, 8, 4), (32, 2, 2)]
+
+
+def probe_df32_blocks():
+    from octree_mg_tpu_torch.ops import df32 as df
+    n = 512
+    cfg = dk.DenseStencilConfig((n,) * 3, (float(n * n),) * 3,
+                                [(2.0, -1.0, 0.0)] * 6, (False,) * 3,
+                                torch.float32, b_const=[0.0] * 6)
+    xhi = torch.randn(cfg.pshape, device="cuda")
+    rhi = torch.randn(cfg.pshape, device="cuda")
+    xlo, rlo = xhi * 2.0 ** -25, rhi * 2.0 ** -25
+    out = torch.empty_like(xhi)
+    want = df.residual_df32_dense(cfg, xhi, xlo, rhi, rlo).clone()
+    st = torch.cuda.current_stream().cuda_stream
+    P = dk._params(cfg, 0.0, [None] * 6)
+    Q = df._Df32Params()
+    rows = []
+    for bx, by, bz in DF32_BLOCKS:
+        fn = build(f"{bx}_{by}_{bz}",
+                   [f"-DOMG_DF32_BX={bx}", f"-DOMG_DF32_BY={by}",
+                    f"-DOMG_DF32_BZ={bz}"],
+                   {"residual_df32": "omg_residual_df32"})["omg_residual_df32"]
+
+        def run():
+            e = fn(ctypes.byref(P), ctypes.byref(Q), xhi.data_ptr(),
+                   xlo.data_ptr(), rhi.data_ptr(), rlo.data_ptr(),
+                   out.data_ptr(), st)
+            assert e == 0, e
+
+        ms = time_ms(run)
+        rows.append({"block": [bx, by, bz], "ms": ms,
+                     "bitwise": bool(torch.equal(out[dk._ISL],
+                                                 want[dk._ISL]))})
+    print(json.dumps({"df32_blocks": rows}), flush=True)
+
+
 def probe_chunk():
     ps = pkg.PoissonSolver(3, (512,) * 3, 16, dtype=torch.float32)
     ps.set_dirichlet(0.0)
@@ -144,5 +188,9 @@ if __name__ == "__main__":
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
-    probe_tiles()
-    probe_chunk()
+    only = sys.argv[1:]
+    for name, probe in (("tiles", probe_tiles),
+                        ("df32_blocks", probe_df32_blocks),
+                        ("chunk", probe_chunk)):
+        if not only or name in only:
+            probe()

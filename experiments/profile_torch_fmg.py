@@ -13,6 +13,11 @@ per line:
   (summed kernel time over wall time; one stream, so kernels never
   overlap).  If the profiler reports no device time the line says so and
   carries no share;
+* ``profile_refined`` — the same pass over whole refined solves
+  (``RefinedPoisson.solve``, ``n_outer`` outers and the closing
+  residual): wall ms per outer, busy share, device time by kernel name
+  per outer — the eager accumulation shows as its ten elementwise
+  kernels beside ``residual_df32_kernel`` and the inner FMG's;
 * ``residual_cost`` — ms per cycle of ``fas_fmg(need_res=True)`` followed
   by ``float(res)`` (what ``PoissonSolver.solve`` does every cycle)
   against ``need_res=False`` with one synchronisation at the end,
@@ -69,29 +74,57 @@ def loop_ms(ps, n, need_res):
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def phase_profile(ps, n=4):
+def profiled(run, n, unit):
+    """``run()`` (returns wall ms per unit over n units) under
+    ``torch.profiler``: device time by kernel name per unit and the busy
+    share; ``run`` once more with the profiler off beside it."""
     from torch.profiler import ProfilerActivity, profile
-    loop_ms(ps, 2, False)
+    run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = loop_ms(ps, n, False)
+        wall = run()
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total",
                          getattr(ev, "cuda_time_total", 0.0))
         on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
         if on_device and dev_us > 0:
-            rows.append({"kernel": ev.key[:100], "calls_per_fmg": ev.count / n,
-                         "device_ms_per_fmg": 1e-3 * dev_us / n})
-    rows.sort(key=lambda r: -r["device_ms_per_fmg"])
-    busy = sum(r["device_ms_per_fmg"] for r in rows)
-    out = {"fmgs": n, "wall_ms_per_fmg_profiler_on": wall,
-           "wall_ms_per_fmg_profiler_off": loop_ms(ps, 8, False)}
+            rows.append({"kernel": ev.key[:100],
+                         f"calls_per_{unit}": ev.count / n,
+                         f"device_ms_per_{unit}": 1e-3 * dev_us / n})
+    rows.sort(key=lambda r: -r[f"device_ms_per_{unit}"])
+    busy = sum(r[f"device_ms_per_{unit}"] for r in rows)
+    out = {f"{unit}s": n, f"wall_ms_per_{unit}_profiler_on": wall,
+           f"wall_ms_per_{unit}_profiler_off": run()}
     if rows:
-        out.update(device_ms_per_fmg=busy, busy_share=busy / wall,
-                   by_kernel=rows[:16])
+        out.update({f"device_ms_per_{unit}": busy, "busy_share": busy / wall,
+                    "by_kernel": rows[:20]})
     else:
         out["device_time"] = "not measured: the profiler saw no device events"
-    emit({"profile": out})
+    return out
+
+
+def phase_profile(ps, n=4):
+    emit({"profile": profiled(lambda: loop_ms(ps, n, False), n, "fmg")})
+
+
+def phase_profile_refined(ps, n_outer=6):
+    """Whole refined solves on a seeded float64 right-hand side."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rhs = torch.randn((N,) * 3, generator=g, dtype=torch.float64,
+                      device="cuda")
+    rh = rhs.float()
+    rl = (rhs - rh.double()).float()
+    del rhs
+    rp = pkg.RefinedPoisson(ps.solver)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp.solve(ps.state, rh, rl, n_outer=n_outer)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n_outer
+
+    emit({"profile_refined": profiled(run, n_outer, "outer")})
 
 
 def phase_residual_cost(ps):
@@ -167,6 +200,7 @@ if __name__ == "__main__":
     emit({"card": smi, "torch": torch.__version__})
     solver = main_path()
     phase_profile(solver)
+    phase_profile_refined(solver)
     phase_residual_cost(solver)
     del solver
     torch.cuda.empty_cache()

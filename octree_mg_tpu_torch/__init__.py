@@ -4,9 +4,11 @@ Geometric FAS multigrid with the capabilities of the octree-mg
 Fortran/MPI library (Teunissen & Keppens, CPC 2019), for one NVIDIA
 Hopper GPU.  This package holds what has been brought over so far: the
 uniform 3D Poisson/Helmholtz solve on dense levels (FAS V-cycle and FMG,
-GSRB pair smoothing, direct eigenbasis coarse solve), whose stencil,
-restriction and prolongation passes are CUDA kernels written by hand
-(``csrc/``), each beside a plain PyTorch version that serves CPU tensors.
+GSRB pair smoothing, direct eigenbasis coarse solve) and its f64-class
+refined mode (exact double-float residual around the float32 FMG), whose
+stencil, restriction, prolongation and double-float residual passes are
+CUDA kernels written by hand (``csrc/``), each beside a plain PyTorch
+version that serves CPU tensors.
 
 It imports ``torch`` and ``numpy`` only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
@@ -18,15 +20,19 @@ from .core.tree import Tree, build_rectangle, box_r_min
 from .solve.multigrid import MGConfig
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
 from .models.poisson import PoissonSolver
-from .convert import state_from_numpy, state_to_numpy, direct_from_numpy
+from .solve.refine import RefinedPoisson, solve_refined
+from .ops.df32 import df32_ok, split_f64
+from .convert import (state_from_numpy, state_to_numpy, direct_from_numpy,
+                      df_pair_from_numpy, df_pair_to_numpy)
 
 __all__ = [
     "BCType", "Geometry", "Operator", "Smoother",
     "IPHI", "IRHS", "IOLD", "IRES", "NUM_VARS",
     "Tree", "build_rectangle", "box_r_min",
     "MGConfig", "DenseMGSolver", "dense_supported", "make_solver",
-    "PoissonSolver", "state_from_numpy", "state_to_numpy",
-    "direct_from_numpy",
+    "PoissonSolver", "RefinedPoisson", "solve_refined", "df32_ok",
+    "split_f64", "state_from_numpy", "state_to_numpy", "direct_from_numpy",
+    "df_pair_from_numpy", "df_pair_to_numpy",
 ]
 
 __version__ = "0.1.0"

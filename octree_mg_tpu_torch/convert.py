@@ -9,8 +9,18 @@ plain numpy arrays:
 ``state_from_numpy`` puts such a state on a solver's device in its
 dtype, checking every shape level by level; ``state_to_numpy`` is the
 reverse; ``direct_from_numpy`` does the same for the eigenbasis package
-of the direct coarse solve (``V``, ``Vinv``, ``d``, ``tiny``).  Nothing
-here imports JAX: the caller converts its arrays with ``np.asarray``.
+of the direct coarse solve (``V``, ``Vinv``, ``d``, ``tiny``).
+
+The refined solve's state crosses the same way: ``df_pair_from_numpy``
+puts a padded double-float pair (the solution ``(x_hi, x_lo)`` or the
+right-hand side) into a ``RefinedPoisson``'s own buffers, and
+``df_pair_to_numpy`` reads one back.  Its host constants need no
+conversion: ``RefinedPoisson.cbs`` (six ``(hi, lo)`` pairs) and
+``lam_pair`` are plain Python floats in both packages and can be
+compared or assigned as they are.
+
+Nothing here imports JAX: the caller converts its arrays with
+``np.asarray``.
 """
 from __future__ import annotations
 
@@ -75,3 +85,36 @@ def direct_from_numpy(solver, package: Dict) -> Dict:
     return {"V": _to_tensor(solver, V), "Vinv": _to_tensor(solver, Vinv),
             "d": _to_tensor(solver, d),
             "tiny": _to_tensor(solver, np.asarray(package["tiny"]))}
+
+
+def df_pair_from_numpy(refined, which: str, hi, lo):
+    """Write a padded double-float pair into ``refined``'s buffers, in
+    place: ``which`` is "x" for the solution pair or "rhs" for the
+    right-hand side.  ``hi``/``lo``: float32 arrays of the padded shape
+    [Z+16, Y+16, X].  Returns the two tensors."""
+    if which not in ("x", "rhs"):
+        raise ValueError(f"which must be 'x' or 'rhs', got {which!r}")
+    refined._alloc()
+    out = ((refined.x_hi, refined.x_lo) if which == "x"
+           else (refined.rhs_hi, refined.rhs_lo))
+    for t, a in zip(out, (hi, lo)):
+        a = np.asarray(a)
+        if a.dtype != np.float32:
+            raise TypeError(f"{which}: a double-float pair is float32, "
+                            f"got {a.dtype}")
+        if tuple(a.shape) != tuple(refined.pshape):
+            raise ValueError(f"{which}: shape {a.shape}, this solver has "
+                             f"{tuple(refined.pshape)}")
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a).copy()))
+    return out
+
+
+def df_pair_to_numpy(refined, which: str):
+    """The padded (hi, lo) pair "x" or "rhs" of ``refined`` as numpy
+    arrays on the host (copies)."""
+    if which not in ("x", "rhs"):
+        raise ValueError(f"which must be 'x' or 'rhs', got {which!r}")
+    refined._alloc()
+    pair = ((refined.x_hi, refined.x_lo) if which == "x"
+            else (refined.rhs_hi, refined.rhs_lo))
+    return tuple(t.detach().cpu().numpy().copy() for t in pair)

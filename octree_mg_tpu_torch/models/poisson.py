@@ -57,10 +57,12 @@ class PoissonSolver:
                                                  dtype=dtype, device=device,
                                                  **cfg_kwargs))
         self.state = None
+        self._refined = None   # (bc_values, RefinedPoisson) of solve_refined
 
     # -- BCs ------------------------------------------------------------
     def _set_bc(self, *args, **kwargs):
         self.solver.set_bc(*args, **kwargs)
+        self._refined = None
         if self.state is not None:
             # the state's boundary planes were evaluated at allocation
             for lvl in self.solver.levels:
@@ -131,11 +133,40 @@ class PoissonSolver:
         lvl = self.solver.levels[-1] if lvl is None else lvl
         return self.solver.interior(self.state, lvl, "phi").cpu().numpy()
 
-    def solve_refined(self, *args, **kwargs):
-        """The f64-class iteratively refined solve (double-float
-        residual, ops/df32 + solve/refine of the JAX package) is not
-        ported yet: it is next in ROADMAP.md's queue."""
-        raise NotImplementedError(
-            "solve_refined: ops/df32.py and solve/refine.py are still to be "
-            "ported (ROADMAP A6); float64 runs natively here with "
-            "dtype=torch.float64")
+    # -- f64-class solve with float32 kernels ------------------------------
+    def solve_refined(self, rhs, n_outer: int = 8, rtol: float = 0.0,
+                      bc_values: Optional[Sequence[float]] = None
+                      ) -> Tuple[np.ndarray, dict]:
+        """Iteratively refined solve to the f64 accuracy class with
+        float32 kernels and float32 fields (solve/refine.RefinedPoisson;
+        the reference is float64 throughout, m_data_structures.f90:8).
+
+        ``rhs``: a float64 interior array [Z, Y, X] (split into an
+        exact float32 pair), or an (rhs_hi, rhs_lo) float32 pair.
+        Requires ``dtype=torch.float32`` and the df32 gate (power-of-two
+        1/dx^2, constant-coefficient laplacian —
+        ``octree_mg_tpu_torch.df32_ok``).  Inhomogeneous boundary values
+        go through ``bc_values`` (6 face constants); the solver's own
+        BCs must be set with value 0 (the inner loop solves the
+        homogeneous error equation).  Returns (phi as float64 numpy
+        [Z, Y, X], info with the f64-class outer-residual history).
+
+        The ``RefinedPoisson`` and its buffers are kept between calls
+        with the same ``bc_values``."""
+        from ..ops.df32 import split_f64
+        from ..solve.refine import RefinedPoisson
+        state = self._ensure_state()
+        if isinstance(rhs, tuple):
+            rhs_hi, rhs_lo = rhs
+        else:
+            rhs_hi, rhs_lo = split_f64(np.asarray(rhs, np.float64))
+        key = None if bc_values is None else tuple(float(v) for v in bc_values)
+        if self._refined is None or self._refined[0] != key:
+            self._refined = (key, RefinedPoisson(self.solver,
+                                                 bc_values=bc_values))
+        rp = self._refined[1]
+        xhi, xlo, norms, state = rp.solve(state, rhs_hi, rhs_lo,
+                                          n_outer=n_outer, rtol=rtol)
+        self.state = state
+        phi = xhi.double().add_(xlo).cpu().numpy()
+        return phi, {"residuals": norms, "cycles": len(norms) - 1}

@@ -1,0 +1,374 @@
+"""Double-float (float32-pair) residual for f64-class iterative refinement.
+
+The mixed-precision outer loop (float32 sweeps + f64-class residual; the
+Fortran reference is float64 throughout, m_data_structures.f90:8) needs
+float64 accuracy in one place only, the residual
+
+    r = rhs - A(x),
+
+and A is linear.  This module evaluates it EXACTLY over a double-float
+representation x = x_hi + x_lo (two float32 arrays, ~2^-48 relative
+precision) using error-free transformations built from plain float32
+adds (Knuth TwoSum) — no float64 operation at all, so the refined solve
+keeps float32 kernels and float32 memory.
+
+Exactness gating (``df32_ok``): every stencil product must be exact in
+float32, which holds when
+
+* the operator is the constant-coefficient cartesian laplacian or
+  helmholtz (the +lam*x term rides an exact Dekker TwoProduct with lam
+  split on the host — ``split_lam``/``two_prod``) with equal grid
+  spacing per dim,
+* 1/dx^2 is a power of two (unit-cube power-of-two grids; den0 = 6/dx^2
+  splits into the exact 4/dx^2 + 2/dx^2 pair),
+* BC coefficient triples have c1, c2 in {0, +-1, +-2} — Dirichlet
+  (2,-1,0), continuous (0,2,-1) and zero-gradient Neumann qualify
+  (m_ghost_cells.f90:682-698) — with static boundary values (their
+  c0*b products are pre-split on the host into exact float32 pairs).
+
+The error analysis: with exact products, the main-term sum is exact
+(TwoSum chain) and all cancellation error lands in a compensation
+channel that is applied at the end, so the returned float32 r is the
+correctly rounded true residual of the represented x up to (a) its own
+float32 rounding, RELATIVE to |r| (2^-24 — harmless for refinement, the
+error shrinks with r), and (b) an absolute floor of ~2^-45 of the
+stencil term magnitudes from the compensation channel's second-order
+rounding and the double-float representation itself.  A plain float32
+residual instead carries ~2^-24-of-term-magnitude ABSOLUTE cancellation
+noise, which is what caps plain float32 solves at ~1e-6 relative.
+
+Two renderings of one expression, one rounding per operation in both:
+
+* ``residual_df32`` — the plain PyTorch version over the whole padded
+  array (plain ``*``, ``+``, ``-``, ``torch.where`` only: a fused
+  multiply-add would round differently and break the transformations);
+* ``residual_df32_dense`` — the wrapper: a CPU tensor takes the plain
+  version, a CUDA tensor launches the hand-written kernel
+  ``csrc/residual_df32.cu`` (built with ``--fmad=false``) or raises.
+
+Still to come with their callers: the double-float pair arithmetic and
+``residual_df32_vcoeff`` (variable coefficients), ``interp_rb_strip_df``
+(forests), the 2D forms, and the ``z_gates``-chunked evaluation.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import dense_kernels as dk
+
+
+# ---------------------------------------------------------------------------
+# error-free transformations (float32 adds and multiplies, each rounded
+# once; eager PyTorch neither reassociates nor contracts them)
+# ---------------------------------------------------------------------------
+
+def two_sum(a, b):
+    """Knuth TwoSum: s + e == a + b exactly (6 flops, branch-free).
+
+    ``a`` is a tensor; ``b`` a tensor or a host scalar that float32
+    holds exactly."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def fast_two_sum(a, b):
+    """Dekker FastTwoSum (requires |a| >= |b|): s + e == a + b."""
+    s = a + b
+    e = b - (s - a)
+    return s, e
+
+
+def veltkamp_split(a):
+    """Split a into (a1, a2), a == a1 + a2 with both halves carrying
+    <= 12 significant bits, so any a_i * b_j product of two splits is
+    EXACT in float32 (Veltkamp; Dekker 1971).  Pure mul/add — no fma.
+
+    A host scalar is split in numpy float32 arithmetic (the same IEEE
+    operations) and returned as Python floats."""
+    if not isinstance(a, torch.Tensor):
+        a = np.float32(a)
+        c = np.float32(4097.0) * a           # 2^12 + 1
+        a1 = c - (c - a)
+        return float(a1), float(a - a1)
+    c = 4097.0 * a
+    a1 = c - (c - a)
+    return a1, a - a1
+
+
+def two_prod(a, b):
+    """Dekker TwoProduct: p + e == a * b exactly (float32, no overflow
+    range issues at the magnitudes the residual handles).  Used for the
+    lam*x term of the Helmholtz residual — the only stencil product that
+    is not exact by construction."""
+    p = a * b
+    a1, a2 = veltkamp_split(a)
+    b1, b2 = veltkamp_split(b)
+    e = ((a1 * b1 - p) + a1 * b2 + a2 * b1) + a2 * b2
+    return p, e
+
+
+def accumulate_df32(xhi, xlo, delta):
+    """(xhi + xlo) + delta in double-float: the outer-loop solution
+    update x += e with no precision loss (delta is a plain float32).
+    Returns new tensors; :func:`accumulate_df32_` is the in-place form."""
+    s, err = two_sum(xhi, delta)
+    lo = xlo + err
+    return fast_two_sum(s, lo)
+
+
+def accumulate_df32_(xhi, xlo, delta, scratch):
+    """:func:`accumulate_df32` IN PLACE on (xhi, xlo), operation for
+    operation, allocating nothing: ``scratch`` is three tensors shaped
+    like xhi that the caller owns.  Returns (xhi, xlo)."""
+    s, t, u = scratch
+    torch.add(xhi, delta, out=s)         # s = a + b
+    torch.sub(s, xhi, out=t)             # bb = s - a
+    torch.sub(s, t, out=u)               # s - bb
+    torch.sub(xhi, u, out=u)             # a - (s - bb)
+    torch.sub(delta, t, out=t)           # b - bb
+    torch.add(u, t, out=u)               # err
+    torch.add(xlo, u, out=xlo)           # lo = xlo + err
+    torch.add(s, xlo, out=xhi)           # hi' = s + lo
+    torch.sub(xhi, s, out=t)             # hi' - s
+    torch.sub(xlo, t, out=xlo)           # lo' = lo - (hi' - s)
+    return xhi, xlo
+
+
+def split_f64(a64) -> Tuple[np.ndarray, np.ndarray]:
+    """Split a float64 array/scalar into an (hi, lo) float32 pair with
+    hi + lo == a64 to float32-pair precision (host, numpy; setup only)."""
+    hi = np.asarray(a64, np.float64).astype(np.float32)
+    lo = (np.asarray(a64, np.float64) - hi.astype(np.float64)).astype(
+        np.float32)
+    return hi, lo
+
+
+def _is_pow2(v: float) -> bool:
+    m, _ = np.frexp(np.float64(v))
+    return m == 0.5
+
+
+# ---------------------------------------------------------------------------
+# gating
+# ---------------------------------------------------------------------------
+
+_OK_C = (0.0, 1.0, -1.0, 2.0, -2.0)
+
+
+def df32_ok(cfg: dk.DenseStencilConfig) -> bool:
+    """Whether the exact double-float residual covers this config (see
+    the module docstring for the conditions).  Every config of this
+    package has constant coefficients so far."""
+    if len(set(cfg.idr2)) != 1 or not _is_pow2(cfg.idr2[0]):
+        return False
+    for d in range(3):
+        if cfg.periodic[d]:
+            continue
+        for nb in (2 * d, 2 * d + 1):
+            c0, c1, c2 = cfg.bc[nb]
+            if c1 not in _OK_C or c2 not in _OK_C:
+                return False
+            if cfg.b_const[nb] is None:
+                return False  # plane values: pre-split constants only
+    return True
+
+
+def _cb_pairs(cfg, b_values=None) -> List[Tuple[float, float]]:
+    """Exact split, on the host, of the c0*b boundary constants of the
+    six faces.
+
+    b_values overrides cfg.b_const: iterative refinement keeps the TRUE
+    inhomogeneous boundary values in the outer residual only, while the
+    inner solver runs the homogeneous error equation (solve/refine)."""
+    bs = cfg.b_const if b_values is None else list(b_values)
+    out = []
+    for nb in range(len(cfg.b_const)):
+        b = bs[nb]
+        c0 = cfg.bc[nb][0] if not cfg.periodic[nb // 2] else 0.0
+        hi, lo = split_f64(np.float64(c0) * np.float64(b if b is not None
+                                                       else 0.0))
+        out.append((float(hi), float(lo)))
+    return out
+
+
+def split_lam(lam: float):
+    """Host split of a Helmholtz lam into the (hi, lo) float32 pair the
+    residual's TwoProduct term consumes; None for lam == 0 (keeps the
+    laplacian expression free of the extra flops)."""
+    if float(lam) == 0.0:
+        return None
+    hi, lo = split_f64(np.float64(lam))
+    return (float(hi), float(lo))
+
+
+# ---------------------------------------------------------------------------
+# the residual
+# ---------------------------------------------------------------------------
+
+def _df32_expr(cfg, xhi, xlo, rhshi, rhslo, masks, cbs, lam_pair=None):
+    """The residual expression over one array set — see residual_df32
+    for semantics.  The operation order, TwoSum operand order included,
+    is the JAX package's ``_df32_expr`` and the CUDA kernel's.
+
+    lam_pair: (lam_hi, lam_lo) host split of the Helmholtz lam (None for
+    the laplacian).  The +lam*x residual term rides a Dekker TwoProduct
+    (exact), with the cross terms lam_hi*x_lo and lam_lo*x_hi landing in
+    the compensation channel (m_helmholtz.f90:111-154's operator at f64
+    accuracy)."""
+    idr2 = cfg.idr2[0]
+
+    comp = torch.zeros_like(xhi)  # first-order compensation channel
+    s = rhshi                     # exact-sum accumulator
+    alo = torch.zeros_like(xhi)   # plain A_hom(x_lo)
+
+    for d, axis in dk._DIM_AXIS:
+        rlo_h = torch.roll(xhi, +1, axis)
+        rhi_h = torch.roll(xhi, -1, axis)
+        rlo_l = torch.roll(xlo, +1, axis)
+        rhi_l = torch.roll(xlo, -1, axis)
+        vlo_h, vhi_h, vlo_l, vhi_l = rlo_h, rhi_h, rlo_l, rhi_l
+        if masks[d] is not None:
+            m_lo, m_hi = masks[d]
+            # ghost(x) = (c0*b)_hi + c1*x1 + c2*x2 + (c0*b)_lo, the hi
+            # part via an exact TwoSum chain; x1 is the boundary cell
+            # itself, x2 its inner neighbour read from the RAW roll
+            # (bc_to_gc, m_ghost_cells.f90:682-698).  The x_lo ghost is
+            # the same formula with b = 0 (the boundary value is carried
+            # once).
+            c0l, c1l, c2l = cfg.bc[2 * d]
+            c0h, c1h, c2h = cfg.bc[2 * d + 1]
+            cbl_h, cbl_l = cbs[2 * d]
+            cbh_h, cbh_l = cbs[2 * d + 1]
+
+            gv, ge = two_sum(c1l * xhi, cbl_h)
+            if c2l != 0.0:
+                gv, e2 = two_sum(gv, c2l * rhi_h)
+                ge = ge + e2
+            ge = ge + cbl_l
+            vlo_h = torch.where(m_lo, gv, rlo_h)
+            vlo_l = torch.where(m_lo, c1l * xlo
+                                + (c2l * rhi_l if c2l != 0.0 else 0.0),
+                                rlo_l)
+            e_lo = torch.where(m_lo, ge, 0.0)
+
+            gv, ge = two_sum(c1h * xhi, cbh_h)
+            if c2h != 0.0:
+                gv, e2 = two_sum(gv, c2h * rlo_h)
+                ge = ge + e2
+            ge = ge + cbh_l
+            vhi_h = torch.where(m_hi, gv, rhi_h)
+            vhi_l = torch.where(m_hi, c1h * xlo
+                                + (c2h * rlo_l if c2h != 0.0 else 0.0),
+                                rhi_l)
+            e_hi = torch.where(m_hi, ge, 0.0)
+            comp = comp - idr2 * (e_lo + e_hi)
+        sd, ed = two_sum(vlo_h, vhi_h)
+        s, e = two_sum(s, -(idr2 * sd))
+        comp = comp + (e - idr2 * ed)
+        alo = alo + idr2 * (vlo_l + vhi_l)
+
+    # + (den0 + lam) * x with den0 = 6*idr2 split into the exact
+    # 4*idr2 + 2*idr2 pair
+    s, e = two_sum(s, (4.0 * idr2) * xhi)
+    comp = comp + e
+    s, e = two_sum(s, (2.0 * idr2) * xhi)
+    comp = comp + e
+    comp = comp + rhslo - (alo - (6.0 * idr2) * xlo)
+    if lam_pair is not None:
+        lam_h, lam_l = lam_pair
+        p, pe = two_prod(xhi, lam_h)
+        s, e = two_sum(s, p)
+        comp = comp + (e + pe) + (lam_h * xlo + lam_l * xhi)
+    r_hi, _ = two_sum(s, comp)
+    return r_hi
+
+
+def _check_gate(cfg, what):
+    if cfg.dtype != torch.float32:
+        raise TypeError(f"{what}: the double-float residual is float32 "
+                        f"only, the config has {cfg.dtype}")
+    if not df32_ok(cfg):
+        raise ValueError(f"{what} called outside its gate (df32_ok): needs "
+                         f"equal power-of-two 1/dx^2, BC coefficients in "
+                         f"{{0, +-1, +-2}} and constant boundary values")
+
+
+def residual_df32(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
+                  cbs=None, lam_pair=None):
+    """r_hi ~= (rhshi + rhslo) - A(xhi + xlo), exact to the double-float
+    representation (see module docstring).  Inputs are padded arrays in
+    the dense layout; pads follow the usual garbage-by-contract rules
+    (periodic z/y pads of xhi and xlo kept current by the caller,
+    non-periodic ghosts synthesized inline).  Plain PyTorch over the
+    whole array; ``residual_df32_dense`` launches the kernel on CUDA
+    tensors."""
+    _check_gate(cfg, "residual_df32")
+    for t in (xhi, xlo, rhshi, rhslo):
+        if t.dtype != torch.float32:
+            raise TypeError(f"residual_df32: float32 only, got {t.dtype}")
+    g = dk._full_iotas(cfg, xhi.device)
+    masks = dk._face_masks(cfg, g)
+    return _df32_expr(cfg, xhi, xlo, rhshi, rhslo, masks,
+                      cbs if cbs is not None else _cb_pairs(cfg),
+                      lam_pair=lam_pair)
+
+
+class _Df32Params(ctypes.Structure):
+    """Mirror of ``Df32Params`` in csrc/residual_df32.cu."""
+    _fields_ = [("cb_hi", ctypes.c_float * 6), ("cb_lo", ctypes.c_float * 6),
+                ("lam_hi", ctypes.c_float), ("lam_lo", ctypes.c_float),
+                ("has_lam", ctypes.c_int)]
+
+
+dk._ARGTYPES["omg_residual_df32"] = [
+    ctypes.POINTER(dk._LevelParams), ctypes.POINTER(_Df32Params),
+    dk._VP, dk._VP, dk._VP, dk._VP, dk._VP, dk._VP]
+
+
+def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
+                        cbs=None, lam_pair=None, out=None):
+    """:func:`residual_df32` in one pass over device memory.  A CPU
+    tensor runs the plain version; a CUDA tensor launches
+    ``csrc/residual_df32.cu`` or raises.  Bitwise the plain version.
+
+    Returns a padded field with garbage pads: ``out`` when given (a
+    padded float32 field that is none of the inputs), else a new one.
+    The kernel reads wrapped indices on periodic axes and never a pad,
+    so CUDA inputs need no pad sync and their pads may hold anything."""
+    _check_gate(cfg, "residual_df32_dense")
+    if cbs is None:
+        cbs = _cb_pairs(cfg)
+    if not xhi.is_cuda:
+        r = residual_df32(cfg, xhi, xlo, rhshi, rhslo, cbs, lam_pair)
+        if out is None:
+            return r
+        out.copy_(r)
+        return out
+    fields = {"xhi": xhi, "xlo": xlo, "rhshi": rhshi, "rhslo": rhslo}
+    if out is None:
+        out = torch.empty_like(xhi)
+    else:
+        fields["out"] = out
+        if any(out.data_ptr() == t.data_ptr() for t in (xhi, xlo, rhshi,
+                                                       rhslo)):
+            raise ValueError("residual_df32_dense: out aliases an input")
+    for name, t in fields.items():
+        dk._check_field(cfg, t, name)
+    P = dk._params(cfg, 0.0, [None] * 6)
+    Q = _Df32Params()
+    for nb in range(6):
+        Q.cb_hi[nb], Q.cb_lo[nb] = cbs[nb]
+    Q.has_lam = int(lam_pair is not None)
+    Q.lam_hi, Q.lam_lo = lam_pair if lam_pair is not None else (0.0, 0.0)
+    err = dk._fn("residual_df32", "omg_residual_df32")(
+        ctypes.byref(P), ctypes.byref(Q), xhi.data_ptr(), xlo.data_ptr(),
+        rhshi.data_ptr(), rhslo.data_ptr(), out.data_ptr(), dk._stream(xhi))
+    dk._raise_on(err, "residual_df32_dense")
+    dk._LAUNCHES["residual_df32_dense"] += 1
+    return out

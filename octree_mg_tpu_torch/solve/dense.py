@@ -82,6 +82,57 @@ def make_solver(tree: Tree, config: Optional[MGConfig] = None):
 
 _ISL = (slice(dk.PZ, -dk.PZ), slice(dk.PY, -dk.PY), slice(None))
 
+_FIELD_KEYS = ("phi", "rhs", "iold", "ires")
+
+
+class _CapturedCycle:
+    """One cycle on one state as a CUDA graph (``fmg_mode="fused"``).
+
+    A graph replays fixed launches on fixed addresses, while the eager
+    cycle swaps new tensors into the state.  So the captured region ends
+    by copying every field that was swapped back into the tensor the
+    state held when capture began and restoring the dictionary: a replay
+    then reads and writes the same tensors every time, and the state
+    never changes identity.  The copies are part of the graph (one
+    top-level field per FMG, and the smaller levels).
+
+    Capture launches nothing, so what the wrappers counted during it is
+    taken back and added once per replay instead."""
+
+    def __init__(self, solver, state, fn):
+        self.epoch = solver._graph_epoch
+        self.tensors = {k: dict(state[k]) for k in _FIELD_KEYS}
+        self.planes = {lvl: list(p) for lvl, p in state["bc"].items()}
+        before = dk.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn()
+            for k, per_lvl in self.tensors.items():
+                for lvl, t in per_lvl.items():
+                    if state[k][lvl] is not t:
+                        t.copy_(state[k][lvl])
+                        state[k][lvl] = t
+        after = dk.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        dk.add_launch_counts({k: -v for k, v in self.launches.items()})
+
+    def matches(self, solver, state) -> bool:
+        """Whether ``state`` still holds the tensors this graph is bound
+        to and the solver the boundary conditions it was captured with."""
+        return (self.epoch == solver._graph_epoch
+                and all(state[k][lvl] is t
+                        for k, per_lvl in self.tensors.items()
+                        for lvl, t in per_lvl.items())
+                and all(a is b for lvl, ps in self.planes.items()
+                        for a, b in zip(state["bc"][lvl], ps)))
+
+    def replay(self):
+        """Run the cycle; returns what the captured function returned
+        (tensors that the next replay overwrites)."""
+        self.graph.replay()
+        dk.add_launch_counts(self.launches)
+        return self.out
+
 
 class DenseMGSolver:
     """FAS multigrid on dense uniform levels.
@@ -107,6 +158,9 @@ class DenseMGSolver:
             raise NotImplementedError(
                 f"operator {cfg.operator!r}: variable coefficients on the "
                 f"dense path are still to be ported (ROADMAP A7)")
+        if cfg.fmg_mode not in ("split", "fused"):
+            raise ValueError(f"MGConfig.fmg_mode must be 'split' or 'fused', "
+                             f"got {cfg.fmg_mode!r}")
         if cfg.smoother == "gs":
             warnings.warn("lexicographic GS does not vectorize; using "
                           "red-black GS (the reference's gsrb mode)")
@@ -135,6 +189,11 @@ class DenseMGSolver:
             for _ in range(2 * self.ndim)]
         self._kcfg_cache: Optional[Dict[int, dk.DenseStencilConfig]] = None
         self._direct = None  # built lazily after BC spec is final
+        #: fmg_mode="fused": captured FMGs by (state, lam, have_guess);
+        #: an entry is None after the eager first call and a
+        #: _CapturedCycle from the second on.  set_bc outdates them all.
+        self._graphs: Dict = {}
+        self._graph_epoch = 0
 
     # ------------------------------------------------------------------
     # setup
@@ -175,6 +234,8 @@ class DenseMGSolver:
             self.bc_spec[b] = {"type": bc_type, "value": value, "fn": fn}
         self._direct = None
         self._kcfg_cache = None
+        self._graphs = {}
+        self._graph_epoch += 1
 
     def _bc_static(self, lvl: int):
         """Per-direction (c0,c1,c2) or None on periodic axes."""
@@ -214,7 +275,7 @@ class DenseMGSolver:
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
-    _field_keys = ("phi", "rhs", "iold", "ires")
+    _field_keys = _FIELD_KEYS
 
     def _pshape(self, dims) -> Tuple[int, ...]:
         """Padded per-level array shape."""
@@ -666,10 +727,41 @@ class DenseMGSolver:
     @torch.no_grad()
     def fas_fmg(self, state, lam=0.0, have_guess=False, need_res=True):
         """One FAS full-multigrid cycle, in place on ``state``.  Returns
-        (state, res) like :meth:`fas_vcycle`."""
+        (state, res) like :meth:`fas_vcycle`.
+
+        With ``MGConfig.fmg_mode="fused"`` on the card and
+        ``need_res=False`` the cycle is one CUDA graph per (state, lam,
+        have_guess): the first such call runs eagerly (and warms what is
+        built lazily), the second captures and replays, later ones
+        replay.  The result is bitwise the eager cycle's."""
         self._ensure_direct()
+        lam = self._lam(lam)
         with self.timers.section("total FMG cycle"):
-            return self._fmg(state, self._lam(lam), have_guess, need_res)
+            if need_res or not self._graphs_on(state):
+                return self._fmg(state, lam, have_guess, need_res)
+            key = (id(state), lam, bool(have_guess))
+            cyc = self._graphs.get(key)
+            if cyc is not None and not cyc.matches(self, state):
+                cyc = None
+            if cyc is None and key not in self._graphs:
+                self._graphs[key] = None
+                return self._fmg(state, lam, have_guess, False)
+            if cyc is None:
+                cyc = self._capture(state, lambda: self._fmg(
+                    state, lam, have_guess, False)[1])
+                self._graphs[key] = cyc
+            return state, cyc.replay()
+
+    def _graphs_on(self, state) -> bool:
+        """Whether cycles on this state go through CUDA graphs."""
+        return (self.cfg.fmg_mode == "fused"
+                and state["phi"][self.levels[-1]].is_cuda)
+
+    def _capture(self, state, fn) -> _CapturedCycle:
+        """``fn`` (a cycle on ``state``) as a CUDA graph; raises if the
+        capture fails."""
+        self._ensure_direct()
+        return _CapturedCycle(self, state, fn)
 
     @torch.no_grad()
     def apply_operator(self, state, lam=0.0, out_key: str = "ires"):

@@ -34,13 +34,17 @@ class MGConfig:
     #: goes through the hand-written kernels; "cpu" runs their plain
     #: PyTorch versions (tests, small checks).
     device: str = "cuda"
-    #: accepted for signature parity with the JAX package and without
-    #: effect: the cycle runs eagerly and always updates the state
-    #: dictionaries in place, so there is nothing to donate
+    #: kept for signature parity with the JAX package; it means nothing
+    #: here: the cycle always updates the state dictionaries in place,
+    #: so there is nothing to donate
     donate: bool = False
-    #: accepted, without effect yet: the cycle is a sequence of eager
-    #: launches either way (capturing one FMG as a CUDA graph is the
-    #: counterpart of "fused" and is future work)
+    #: "split": every phase of a cycle is an eager launch (default).
+    #: "fused": on the card, ``fas_fmg(need_res=False)`` and the refined
+    #: outer iteration each replay one captured CUDA graph (the
+    #: counterpart of the JAX package's one-program FMG and outer): the
+    #: first call runs eagerly, the second captures, later ones replay.
+    #: A capture that fails raises.  CPU states have no graphs and run
+    #: the same eager sequence in both modes.
     fmg_mode: str = "split"
     #: coarse-grid solve strategy: "direct" solves the coarsest cycled
     #: level exactly via a precomputed eigenbasis (two small matmuls);

@@ -1,0 +1,217 @@
+"""f64-class iterative refinement around the float32 dense solver.
+
+The Fortran reference solves in float64 end to end
+(m_data_structures.f90:8); a float32 FMG reaches its residual floor at
+~1e-6 relative.  This module recovers the f64 accuracy class with
+float32 kernels and float32 memory:
+
+    x = 0 (double-float pair)
+    repeat:  r = rhs - A(x)      exact double-float residual (ops/df32)
+             solve A e = r       one zero-guess float32 FMG
+             x += e              double-float accumulation
+
+Because A is linear and the FMG contracts the residual by a constant
+factor per cycle, the true (f64-class) residual keeps contracting at
+that rate far past the float32 floor.
+
+Gating: ``ops.df32.df32_ok`` (power-of-two 1/dx^2, constant-coefficient
+laplacian or helmholtz — lam rides an exact TwoProduct — and exact BC
+coefficient classes).  Variable coefficients, forests, 2D and sharded
+solvers have refinement classes in the JAX package that are still to be
+ported; ``solve_refined`` raises for them.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..ops import dense_kernels as dk
+from ..ops.df32 import (_cb_pairs, accumulate_df32_, df32_ok,
+                        residual_df32_dense, split_lam)
+from .dense import DenseMGSolver, _ISL
+
+
+class RefinedPoisson:
+    """Iteratively refined solve on the dense solver's top level.
+
+    The instance owns the double-float solution pair, the padded
+    right-hand-side pair and the accumulation's scratch (seven padded
+    float32 fields); they are allocated once and reused across ``solve``
+    calls.  The solver's state is updated in place, as everywhere in
+    this package.
+
+    lam: Helmholtz lam (lap(phi) - lam*phi = f, m_helmholtz.f90) — the
+    residual's +lam*x term rides an exact Dekker TwoProduct with lam
+    split on the host into a double-float pair (ops.df32.split_lam), so
+    Helmholtz solves reach the same f64 accuracy class as Poisson.
+    Requires a solver built with operator="helmholtz" when lam != 0 (the
+    inner FMG must smooth with the same lam).
+
+    nch: the JAX package's z-chunk count of its whole-array residual;
+    unused here (the kernel needs no chunking and the chunked plain form
+    is still to be ported), kept for signature parity.
+
+    eps: coefficient fields of the variable-coefficient operators; not
+    ported yet (ROADMAP A7), so anything but None raises.
+    """
+
+    def __init__(self, solver: DenseMGSolver, nch: Optional[int] = None,
+                 bc_values: Optional[List[float]] = None,
+                 lam: float = 0.0, eps=None):
+        self.solver = solver
+        self.lam = float(lam)
+        self.lam_pair = split_lam(lam)
+        if eps is not None:
+            raise NotImplementedError(
+                "eps=: variable-coefficient refinement (residual_df32_vcoeff "
+                "and the double-float pair arithmetic) is still to be ported "
+                "(ROADMAP A7)")
+        if self.lam != 0.0 and solver.cfg.operator != "helmholtz":
+            raise ValueError("lam != 0 needs a helmholtz-family "
+                             "inner solver (got %r)" % solver.cfg.operator)
+        top = solver.levels[-1]
+        self.top = top
+        cfg = solver._kcfgs[top]
+        if cfg.dtype != torch.float32:
+            raise ValueError("RefinedPoisson refines a float32 inner "
+                             "solver (build with MGConfig(dtype="
+                             "torch.float32)); got %s" % cfg.dtype)
+        if not df32_ok(cfg):
+            raise ValueError("rhs/operator outside the df32 gate "
+                             "(ops.df32.df32_ok)")
+        # Refinement solves the error equation, which is HOMOGENEOUS:
+        # the inner FMG must carry b = 0 on every face (else each outer
+        # pass re-adds the boundary offset and the loop stalls at the
+        # inhomogeneity).  The TRUE boundary values enter through the
+        # outer residual only (bc_values -> the c0*b pairs of ops.df32).
+        for nb in range(6):
+            if cfg.periodic[nb // 2]:
+                continue
+            if float(cfg.b_const[nb]) != 0.0:
+                raise ValueError(
+                    "inner solver must have homogeneous (b=0) BCs; set "
+                    "the boundary value to 0 on the solver and pass the "
+                    "true values via bc_values= (face %d has b=%r)"
+                    % (nb, cfg.b_const[nb]))
+        self.cbs = _cb_pairs(cfg, bc_values)
+        self.cfg = cfg
+        X, Y, Z = (int(v) for v in solver.dims[top])
+        self.shape = (Z, Y, X)
+        self.nch = nch
+        self.pshape = dk.padded_shape(solver.dims[top])
+        self._buffers = None
+        self._graph = None      # the captured outer (fmg_mode="fused")
+        self._warm = False
+
+    # -- buffers ---------------------------------------------------------
+    def _alloc(self):
+        if self._buffers is None:
+            self._buffers = [
+                torch.zeros(self.pshape, dtype=torch.float32,
+                            device=self.solver.device) for _ in range(7)]
+        (self.x_hi, self.x_lo, self.rhs_hi, self.rhs_lo,
+         *self._scratch) = self._buffers
+
+    def pad(self, v, out=None):
+        """Interior values [Z, Y, X] in a padded float32 field (``out``,
+        or a new zero-padded one) on the solver's device."""
+        if out is None:
+            out = torch.zeros(self.pshape, dtype=torch.float32,
+                              device=self.solver.device)
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(np.asarray(v))
+        out[_ISL] = v.to(out.device, torch.float32)
+        return out
+
+    # -- one outer iteration ---------------------------------------------
+    def _residual_norm(self, state):
+        """r = rhs - A(x) into the inner solver's top-level rhs, as it
+        is (garbage pads); returns max |r| over the interior as a 0-dim
+        tensor on the device, not read back here."""
+        solver, top = self.solver, self.top
+        solver._sync_pads(self.x_hi, top)
+        solver._sync_pads(self.x_lo, top)
+        r = residual_df32_dense(self.cfg, self.x_hi, self.x_lo, self.rhs_hi,
+                                self.rhs_lo, cbs=self.cbs,
+                                lam_pair=self.lam_pair,
+                                out=state["rhs"][top])
+        return torch.linalg.vector_norm(r[_ISL], float("inf"))
+
+    def _outer(self, state):
+        """Exact residual, zero-guess inner FMG on it, double-float
+        accumulation of the correction.  Returns the residual norm."""
+        solver = self.solver
+        mx = self._residual_norm(state)
+        solver._fmg(state, solver._lam(self.lam), have_guess=False,
+                    need_res=False)
+        accumulate_df32_(self.x_hi, self.x_lo, state["phi"][self.top],
+                         self._scratch)
+        return mx
+
+    def _run_outer(self, state):
+        """One outer: eager launches, or — with
+        ``MGConfig.fmg_mode="fused"`` on the card — one replay of the
+        CUDA graph captured at the second call (the first runs eagerly
+        and warms every lazily built piece)."""
+        solver = self.solver
+        if not solver._graphs_on(state):
+            return self._outer(state)
+        if self._graph is not None and self._graph.matches(solver, state):
+            return self._graph.replay().clone()
+        if not self._warm:
+            self._warm = True
+            return self._outer(state)
+        self._graph = solver._capture(state, lambda: self._outer(state))
+        return self._graph.replay().clone()
+
+    # -- the loop --------------------------------------------------------
+    @torch.no_grad()
+    def solve(self, state, rhs_hi, rhs_lo, n_outer: int = 8,
+              rtol: float = 0.0):
+        """rhs_hi/rhs_lo: interior [Z, Y, X] float32 pair
+        (``ops.df32.split_f64`` converts a float64 rhs).  Returns
+        (x_hi, x_lo interior views of the instance's buffers,
+        residual-max history, state).
+
+        The loop is [residual, FMG, accumulate] x n_outer and a closing
+        residual: the JAX package's [accumulate, residual, FMG] loop
+        with its first, empty accumulation dropped.  With ``rtol == 0``
+        no value is read back inside the loop: the norms stay 0-dim
+        device tensors until the end, and the host runs ahead of the
+        card.  With ``rtol > 0`` each outer reads its norm and the loop
+        ends at the first one at or below ``rtol * norms[0]``."""
+        solver = self.solver
+        self._alloc()
+        self.pad(rhs_hi, out=self.rhs_hi)
+        self.pad(rhs_lo, out=self.rhs_lo)
+        solver._ensure_direct()
+        self.x_hi.zero_()
+        self.x_lo.zero_()
+        norms_dev: List[torch.Tensor] = []
+        for _ in range(n_outer):
+            norms_dev.append(self._run_outer(state))
+            if rtol and float(norms_dev[-1]) <= rtol * float(norms_dev[0]):
+                break
+        norms_dev.append(self._residual_norm(state))
+        norms = [float(m) for m in torch.stack(norms_dev).cpu()]
+        return self.x_hi[_ISL], self.x_lo[_ISL], norms, state
+
+
+def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
+                  rtol: float = 0.0, nch: Optional[int] = None,
+                  bc_values: Optional[List[float]] = None,
+                  lam: float = 0.0, eps=None):
+    """One-shot convenience wrapper.  The JAX package picks the forest,
+    sharded, 2D or plain refinement class by solver type; here only the
+    uniform 3D dense solver exists so far and anything else raises.
+    lam != 0 = f64-class Helmholtz (operator='helmholtz' inner solver)."""
+    if not isinstance(solver, DenseMGSolver):
+        raise NotImplementedError(
+            f"solve_refined: no refinement class for "
+            f"{type(solver).__name__} yet: forests wait for ROADMAP A9, 2D "
+            f"for A10, sharded solvers for A13")
+    return RefinedPoisson(solver, nch=nch, bc_values=bc_values, lam=lam,
+                          eps=eps).solve(state, rhs_hi, rhs_lo,
+                                         n_outer=n_outer, rtol=rtol)

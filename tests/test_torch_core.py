@@ -152,9 +152,23 @@ def test_make_solver_dispatch_and_levels():
 
 
 def test_solve_refined_names_what_is_missing():
+    """The constant-coefficient refined solve is there (its own tests are
+    tests/test_torch_refine.py); what is not names its ROADMAP item, and
+    a float64 solver is told what the refined mode needs."""
     ps = port.PoissonSolver(3, (16,) * 3, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="df32"):
-        ps.solve_refined(np.zeros((16,) * 3))
+    rhs = np.zeros((16,) * 3)
+    with pytest.raises(ValueError, match="float32"):
+        ps.solve_refined(rhs)
+    with pytest.raises(NotImplementedError, match="A7"):
+        port.solve_refined(ps.solver, None, rhs, rhs, eps=[rhs])
+    with pytest.raises(NotImplementedError, match="A9"):
+        port.solve_refined(object(), None, rhs, rhs)
+    ps32 = port.PoissonSolver(3, (16,) * 3, 8, dtype=torch.float32,
+                              device="cpu")
+    ps32.set_dirichlet(0.0)
+    phi, info = ps32.solve_refined(rhs, n_outer=1)
+    assert phi.dtype == np.float64 and not phi.any()
+    assert info["residuals"] == [0.0, 0.0]
 
 
 def test_bcs_may_be_set_after_the_rhs():

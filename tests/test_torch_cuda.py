@@ -29,7 +29,8 @@ def test_kernels_equal_plain_versions_bitwise():
     sys.path.insert(0, ROOT)
     import chip_smoke
     from octree_mg_tpu_torch.ops import dense_kernels as dk
-    chip_smoke.phase_checks(dk, quick=True)   # raises SystemExit on a miss
+    from octree_mg_tpu_torch.ops import df32 as df
+    chip_smoke.phase_checks(dk, df, quick=True)   # SystemExit on a miss
 
 
 @pytest.mark.cuda
@@ -47,6 +48,43 @@ def test_solver_on_card_matches_cpu():
         ps.set_rhs(arrays={ps.solver.levels[-1]: rhs})
         phi, info = ps.solve(rtol=0.0, max_cycles=2)
         out[dev] = phi.cpu().numpy()
+    scale = np.abs(out["cpu"]).max()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-11 * scale)
+
+
+@pytest.mark.cuda
+def test_df32_kernel_equals_plain_version_and_float64():
+    """The double-float residual kernel: bitwise its plain version (the
+    check matrix above has it too), and within the double-float bound of
+    the native float64 residual, 50x better than plain float32."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    from octree_mg_tpu_torch.ops import df32 as df
+    chip_smoke.phase_df32_exactness(dk, df)   # raises SystemExit on a miss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["split", "fused"])
+def test_refined_solve_on_card_matches_cpu(mode):
+    """64^3, eight outers, eager and as CUDA graphs: the norm history
+    falls to 1e-10 of its first entry, and the solution agrees with the
+    CPU's (plain versions) to 1e-11 of max|x| — both converge to the one
+    float64-class solution; the float32 corrections differ by the
+    summation order of the coarse solve's matrix-vector products."""
+    need_cuda()
+    import octree_mg_tpu_torch as port
+    rhs = np.random.default_rng(0).normal(size=(64,) * 3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ps = port.PoissonSolver(3, (64,) * 3, 16, dtype=torch.float32,
+                                device=dev, fmg_mode=mode)
+        ps.set_dirichlet(0.0)
+        phi, info = ps.solve_refined(rhs, n_outer=8)
+        assert info["residuals"][-1] <= 1e-10 * info["residuals"][0]
+        out[dev] = phi
     scale = np.abs(out["cpu"]).max()
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
                                atol=1e-11 * scale)
