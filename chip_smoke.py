@@ -14,7 +14,9 @@ object per line:
   float32 and float64, constant Dirichlet / Neumann / continuous /
   plane-valued faces, NaN-filled pads; the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
-  and without lam, with a boundary-value override);
+  and without lam, with a boundary-value override); the coefficient
+  variants of the four stencil entry points (n_eps 1 and 3, coefficients
+  0.5 + U[0,1) with NaN pads) on every level shape, dtype and BC kind;
   ``max_ulp`` must be 0 (the kernels repeat the plain arithmetic
   operation by operation, built with --fmad=false);
 * ``main_path`` — ``PoissonSolver(3, (512,)*3, 16, dtype=float32)``, zero
@@ -41,11 +43,27 @@ object per line:
 * ``fused_mode`` — ``MGConfig.fmg_mode="fused"`` (one CUDA graph per FMG
   and per refined outer) beside the eager default: same bits, ms per FMG
   and per outer of both;
+  then the vhelmholtz solver with graphs against eager, bitwise, before
+  and after a second ``prepare_coefficient`` with new coefficients;
 * ``cpu_agreement`` — the solver at 64^3 in float64 on the card and on
-  the CPU (plain versions), three FMGs;
+  the CPU (plain versions), three FMGs, laplacian and ahelmholtz;
+* ``vcoeff_path`` — ``PoissonSolver(3, (512,)*3, 16, operator=...,
+  dtype=float32)`` for vhelmholtz and ahelmholtz (lam 1.5, Dirichlet 0,
+  coefficients 1 + 0.5 cos(2 pi (x_d + 0.1 d)) set and restricted on the
+  card, a seeded right-hand side): residual history of one zero-guess
+  and eight have-guess FMGs (must fall monotonically below 1e-3 of the
+  first), the probe's setup time, ms per have-guess FMG, unknowns/s,
+  launches (the coefficient kernels on every level, no
+  constant-coefficient stencil launch), peak memory;
+* ``refined_vcoeff`` — ``solve_refined`` for ahelmholtz at 512^3 (lam
+  0.31, three float64 coefficient fields, ten outers): norms to 1e-10 of
+  the first, ms per outer, device time of ``residual_df32_vcoeff`` (plain
+  PyTorch ops; beside its bound) and of the inner FMG; the solution under a float64
+  ahelmholtz solver's operator on the card within 1e-9 of the first norm;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
-  shape: launches on its path (the float32 solve for the six stencil
-  kernels, the refined solve for the double-float residual),
+  shape, and per coefficient variant ``name[n_eps=k]``: launches on its
+  path (the float32 solve for the six stencil kernels, the refined solve
+  for the double-float residual, the vcoeff solve for the variants),
   max_abs_err against the plain version, ms (median, CUDA events),
   plain_ms, bound_ms (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
   whichever is larger), library_ms;
@@ -86,12 +104,30 @@ REPLACES = {
     "prolong_correct_dense": "octree_mg_tpu/ops/dense_kernels.py:1213",
     "residual_df32_dense": "octree_mg_tpu/ops/df32.py:285",
 }
+#: the coefficient variants of the four stencil entry points: the same
+#: sources and TPU kernels (the Pallas bodies with eps windows)
+EPS_VARIANTS = tuple(f"{k}[n_eps={n}]" for n in (1, 3) for k in (
+    "pair_sweep_dense", "downsweep_dense", "residual_restrict_dense",
+    "stencil_apply_dense"))
+for _v in EPS_VARIANTS:
+    SOURCES[_v] = SOURCES[_v.split("[")[0]]
+    REPLACES[_v] = REPLACES[_v.split("[")[0]]
 #: the kernels of the float32 FMG path, and of the refined path: its inner
 #: FMG starts from a zero guess with A(0) = 0, so its coarse right-hand
 #: sides come from restrict_dense alone and update_coarse (the caller of
 #: residual_restrict_dense) never runs
-FMG_KERNELS = tuple(k for k in SOURCES if k != "residual_df32_dense")
-REFINED_KERNELS = tuple(k for k in SOURCES if k != "residual_restrict_dense")
+CONST_KERNELS = tuple(k for k in SOURCES if k not in EPS_VARIANTS)
+FMG_KERNELS = tuple(k for k in CONST_KERNELS if k != "residual_df32_dense")
+REFINED_KERNELS = tuple(k for k in CONST_KERNELS
+                        if k != "residual_restrict_dense")
+
+
+def vcoeff_kernels(n_eps):
+    """The kernels of a variable-coefficient solve: the four stencil
+    entry points' n_eps variants, the restriction (prepare_coefficient
+    and the zero-guess FMG) and the prolongation."""
+    return tuple(v for v in EPS_VARIANTS if v.endswith(f"={n_eps}]")) + (
+        "restrict_dense", "prolong_correct_dense")
 
 
 def emit(obj) -> None:
@@ -121,7 +157,7 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
-              equal_pow2=False):
+              equal_pow2=False, n_eps=0):
     """A level config with random fields on the card.  Pads are NaN
     except where a periodic axis makes them wrapped copies.
     equal_pow2: one power-of-two spacing on all axes (the double-float
@@ -148,7 +184,7 @@ def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
     else:
         raise ValueError(bc_kind)
     cfg = dk.DenseStencilConfig(dims, idr2, bc, periodic, dtype,
-                                b_const=b_const)
+                                b_const=b_const, n_eps=n_eps)
 
     def field(c):
         a = torch.full(c.pshape, float("nan") if nan_pads else 0.0,
@@ -178,6 +214,57 @@ def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
                 p = p.index_select(ax, idx)
         planes.append(p.contiguous())
     return cfg, field, planes
+
+
+def eps_fields(dk, cfg, seed):
+    """cfg.n_eps coefficient fields 0.5 + U[0,1) from a seeded generator
+    on the card; NaN pads except where a periodic axis makes them
+    wrapped copies."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(cfg.n_eps):
+        a = torch.full(cfg.pshape, float("nan"), dtype=cfg.dtype,
+                       device="cuda")
+        a[dk._ISL] = 0.5 + torch.rand((cfg.Z, cfg.Y, cfg.X), generator=g,
+                                      dtype=cfg.dtype, device="cuda")
+        out.append(dk.sync_pads(cfg, a))
+    return tuple(out)
+
+
+def eps_variants(dk, cfg, field, planes, lam, eps):
+    """(name, kernel call, plain call) for each coefficient variant of
+    the four stencil entry points (cfg.n_eps 1 or 3)."""
+    phi, rhs = field(cfg), field(cfg)
+    isl, n = dk._ISL, cfg.n_eps
+    out = []
+
+    def inner(*ts):
+        return tuple(t[isl] for t in ts if t is not None)
+
+    for k in (1, 2) if cfg.periodic_even else (1,):
+        out.append((f"pairs{k}[n_eps={n}]",
+                    lambda k=k: inner(dk.pair_sweep_dense(
+                        cfg, phi, rhs, lam, planes, 0, n_pairs=k, eps=eps)),
+                    lambda k=k: inner(dk._pairs_plain(
+                        cfg, phi, rhs, lam, planes, 0, k, eps))))
+    for res in (False, True):
+        out.append((("residual" if res else "apply") + f"[n_eps={n}]",
+                    lambda res=res: inner(dk.stencil_apply_dense(
+                        cfg, phi, rhs, lam, planes, res, eps=eps)),
+                    lambda res=res: inner(dk._apply_plain(
+                        cfg, phi, rhs, lam, planes, res, eps))))
+    if cfg.even_dims:
+        out.append((f"downsweep[n_eps={n}]",
+                    lambda: inner(*dk.downsweep_dense(
+                        cfg, phi, rhs, lam, planes, 0, eps=eps)),
+                    lambda: inner(*dk._down_plain(
+                        cfg, phi, rhs, lam, planes, 0, 2, eps))))
+        out.append((f"residual_restrict[n_eps={n}]",
+                    lambda: inner(*dk.residual_restrict_dense(
+                        cfg, phi, rhs, lam, planes, eps=eps)),
+                    lambda: inner(*dk._down_plain(
+                        cfg, phi, rhs, lam, planes, 0, 0, eps)[1:])))
+    return out
 
 
 def variants(dk, cfg, field, planes, lam):
@@ -250,8 +337,16 @@ def phase_checks(dk, df, quick):
                 seed += 1
                 cfg, field, planes = make_case(dk, dims, per, bc_kind, dtype,
                                                seed)
-                for name, kern, plain in variants(dk, cfg, field, planes,
-                                                     lam):
+                cases = variants(dk, cfg, field, planes, lam)
+                for n_eps in (1, 3):
+                    # the same level with coefficient fields; lam 0 is
+                    # the vlaplacian case (den starts at 0)
+                    seed += 1
+                    ce, fe, pe = make_case(dk, dims, per, bc_kind, dtype,
+                                           seed, n_eps=n_eps)
+                    cases += eps_variants(dk, ce, fe, pe, lam,
+                                          eps_fields(dk, ce, seed))
+                for name, kern, plain in cases:
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
                     u = max(ulp_diff(a, b) if ulp_diff(a, b) >= 0 else 1 << 62
@@ -286,9 +381,10 @@ def phase_checks(dk, df, quick):
                              "bc_values_override": bvals is not None,
                              "max_ulp": u})
     bad = [r for r in rows if r["max_ulp"] != 0]
-    emit({"checks": {"cases": len(rows), "max_ulp": worst,
-                     "expected_max_ulp": 0, "nan_pads": True,
-                     "failed": bad[:20]}})
+    n_eps_cases = sum("n_eps" in r["kernel"] for r in rows)
+    emit({"checks": {"cases": len(rows), "eps_cases": n_eps_cases,
+                     "max_ulp": worst, "expected_max_ulp": 0,
+                     "nan_pads": True, "failed": bad[:20]}})
     if bad:
         fail(f"{len(bad)} kernel cases differ from their plain version")
 
@@ -316,7 +412,21 @@ def time_ms(fn, reps, warmup=2):
 
 def work_model(name, n_f, n_c, item):
     """(bytes, flops) the function needs: every input cell read once,
-    every output cell written once.  n_f/n_c: fine/coarse cell counts."""
+    every output cell written once.  n_f/n_c: fine/coarse cell counts.
+
+    A coefficient variant ``name[n_eps=k]`` reads k more fields.  Its
+    operations per cell: an update 50 (six face coefficients of five
+    operations each, three per side into num and den, the negated rhs
+    and the division), an application 49 (the coefficients, three per
+    side, -lam*p), a residual 50; the double pair updates each cell twice
+    and the down-leg adds a residual and two restrictions."""
+    if "[" in name:
+        base, n_eps = name.split("[")[0], int(name.split("=")[1][:-1])
+        nbytes = work_model(base, n_f, n_c, item)[0] + n_eps * n_f * item
+        return nbytes, {"pair_sweep_dense": 100 * n_f,
+                        "stencil_apply_dense": 50 * n_f,
+                        "downsweep_dense": (100 + 50 + 2) * n_f,
+                        "residual_restrict_dense": (50 + 2) * n_f}[base]
     return {
         # phi, rhs in; phi out.  11 flops per updated cell and half-sweep
         "pair_sweep_dense": (3 * n_f * item, 2 * 11 * n_f),
@@ -338,10 +448,12 @@ def work_model(name, n_f, n_c, item):
     }[name]
 
 
-def phase_kernel_times(dk, df, launches, launches_refined):
+def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
     """Every entry point at the main path's top-level shape.  launches:
     counts of the float32 solve; launches_refined: of the refined solve
-    (the path of the double-float residual)."""
+    (the path of the double-float residual); vcoeff: {n_eps: (counts of
+    the variable-coefficient path, launches per have-guess FMG)} (the
+    path of the coefficient variants)."""
     import torch.nn.functional as F
     dtype, n = torch.float32, 512
     per = (False,) * 3
@@ -396,6 +508,33 @@ def phase_kernel_times(dk, df, launches, launches_refined):
         lambda: df.residual_df32_dense(cfg, phi, xlo, rhs, rlo, cbs=cbs,
                                        out=r_out),
         lambda: df.residual_df32(cfg, phi, xlo, rhs, rlo, cbs=cbs), None))
+    # the coefficient variants: 0.5 + U[0,1) fields, as the checks use
+    for n_eps in (1, 3):
+        ce = dk.DenseStencilConfig(cfg.dims, cfg.idr2, cfg.bc, cfg.periodic,
+                                   dtype, b_const=cfg.b_const, n_eps=n_eps)
+        eps = eps_fields(dk, ce, 97 + n_eps)
+        v = f"[n_eps={n_eps}]"
+        cases += [
+            ("pair_sweep_dense" + v,
+             lambda ce=ce, eps=eps: dk.pair_sweep_dense(
+                 ce, phi, rhs, lam, planes, 0, n_pairs=2, eps=eps),
+             lambda ce=ce, eps=eps: dk._pairs_plain(
+                 ce, phi, rhs, lam, planes, 0, 2, eps), None),
+            ("stencil_apply_dense" + v,
+             lambda ce=ce, eps=eps: dk.stencil_apply_dense(
+                 ce, phi, rhs, lam, planes, True, eps=eps),
+             lambda ce=ce, eps=eps: dk._apply_plain(
+                 ce, phi, rhs, lam, planes, True, eps), None),
+            ("downsweep_dense" + v,
+             lambda ce=ce, eps=eps: dk.downsweep_dense(
+                 ce, phi, rhs, lam, planes, 0, eps=eps),
+             lambda ce=ce, eps=eps: dk._down_plain(
+                 ce, phi, rhs, lam, planes, 0, 2, eps), None),
+            ("residual_restrict_dense" + v,
+             lambda ce=ce, eps=eps: dk.residual_restrict_dense(
+                 ce, phi, rhs, lam, planes, eps=eps),
+             lambda ce=ce, eps=eps: dk._down_plain(
+                 ce, phi, rhs, lam, planes, 0, 0, eps)[1:], None)]
     rows = []
     for name, kern, plain, lib in cases:
         if name == "prolong_correct_dense":
@@ -425,12 +564,16 @@ def phase_kernel_times(dk, df, launches, launches_refined):
         torch.cuda.empty_cache()
         nbytes, flops = work_model(name, n_f, n_c, 4)
         t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        if name in EPS_VARIANTS:
+            path, per_fmg = vcoeff[int(name.split("=")[1][:-1])]
+            extra = {"launches_per_vcoeff_fmg": per_fmg[name]}
+        else:
+            path = (launches_refined if name == "residual_df32_dense"
+                    else launches)
+            extra = {"launches_in_refined_solve": launches_refined[name]}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": (launches_refined if name == "residual_df32_dense"
-                         else launches)[name],
-            "launches_in_refined_solve": launches_refined[name],
+            "replaces": REPLACES[name], "launches": path[name], **extra,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_b, t_f),
             "bound_by": "bytes" if t_b >= t_f else "operations",
@@ -446,6 +589,19 @@ def phase_kernel_times(dk, df, launches, launches_refined):
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
+
+def check_fmg_history(hist, what):
+    """Finite, falling to below 1e-3 of the first, and monotone until
+    within 10x of its floor."""
+    if not all(np.isfinite(hist)):
+        fail(f"{what}: non-finite residuals {hist}")
+    if not hist[-1] < 1e-3 * hist[0]:
+        fail(f"{what}: residual fell only {hist[0]} -> {hist[-1]}")
+    floor = 10.0 * min(hist)
+    for a, b in zip(hist, hist[1:]):
+        if a > floor and not b < a:
+            fail(f"{what}: residual history not monotone: {hist}")
+
 
 def phase_main_path(pkg, dk):
     n, n_have, n_timed = 512, 8, 8
@@ -466,14 +622,7 @@ def phase_main_path(pkg, dk):
     hist = info["residuals"]
     if tuple(phi.shape) != (n, n, n) or not bool(torch.isfinite(phi).all()):
         fail("main path: phi has a wrong shape or non-finite values")
-    if not all(np.isfinite(hist)):
-        fail(f"main path: non-finite residuals {hist}")
-    if not hist[-1] < 1e-3 * hist[0]:
-        fail(f"main path: residual fell only {hist[0]} -> {hist[-1]}")
-    floor = 10.0 * min(hist)
-    for a, b in zip(hist, hist[1:]):
-        if a > floor and not b < a:
-            fail(f"main path: residual history not monotone: {hist}")
+    check_fmg_history(hist, "main path")
     missing = [k for k in FMG_KERNELS if launches[k] == 0]
     if missing:
         fail(f"main path launched no kernel for {missing}")
@@ -587,11 +736,6 @@ def seeded_rhs64(n, seed):
                        device="cuda")
 
 
-def split_on_card(a64):
-    hi = a64.float()
-    return hi, (a64 - hi.double()).float()
-
-
 def phase_refined_path(ps, dk, df):
     """The f64-class mode of the main path's solver, through
     ``PoissonSolver.solve_refined``."""
@@ -600,7 +744,7 @@ def phase_refined_path(ps, dk, df):
     torch.cuda.reset_peak_memory_stats()
     rhs_dev = seeded_rhs64(n, 1)
     rhs64 = rhs_dev.cpu().numpy()          # split on the host by the model
-    rh, rl = split_on_card(rhs_dev)        # the same pair, for the timed run
+    rh, rl = df.split_f64(rhs_dev)         # the same pair, for the timed run
     del rhs_dev
 
     dk.reset_launch_counts()
@@ -672,11 +816,11 @@ def phase_df32_exactness(dk, df):
         a[dk._ISL] = v
         return a
 
-    xh, xl = split_on_card(seeded_rhs64(n, 2))
+    xh, xl = df.split_f64(seeded_rhs64(n, 2))
     x_rep = pad(xh.double() + xl.double())
     bp = [None] * 6
     ax = dk.stencil_apply_dense(cfg64, x_rep, x_rep, 0.0, bp, False)[dk._ISL]
-    rh, rl = split_on_card(ax + 1e-6 * seeded_rhs64(n, 3))
+    rh, rl = df.split_f64(ax + 1e-6 * seeded_rhs64(n, 3))
     rhs_rep = pad(rh.double() + rl.double())
     r64 = dk.stencil_apply_dense(cfg64, x_rep, rhs_rep, 0.0, bp,
                                  True)[dk._ISL]
@@ -787,16 +931,350 @@ def phase_fused_mode(pkg, dk, ms_per_fmg_split, refined_split):
                                     and torch.equal(rp.x_lo, xlo_split)):
         fail(f"fused refined solve differs from the eager one: norms "
              f"{norms} against {norms_split}")
+    replayed = rp._graph.launches
+    del rp, ps, sv, state
+    torch.cuda.empty_cache()
+    vc = fused_vcoeff(pkg)
     emit({"fused_mode": {
+        "vhelmholtz_bitwise_equal_to_split_after_second_prepare": True,
+        "vhelmholtz": vc,
         "bitwise_equal_to_split": True,
         "ms_per_fmg": {"split": ms_per_fmg_split, "fused": ms_fmg_fused},
         "ms_per_outer": {"split": 1e3 * s_outer_split,
                          "fused": 1e3 * dt / n_outer},
         "launches_counted_in_six_fmgs": counted,
-        "launches_per_replayed_outer": rp._graph.launches}})
+        "launches_per_replayed_outer": replayed}})
 
 
-def phase_cpu_agreement(pkg):
+# ---------------------------------------------------------------------------
+# the variable-coefficient path
+# ---------------------------------------------------------------------------
+
+def smooth_eps(sv, d, dtype):
+    """1 + 0.5*cos(2*pi*(x_d + 0.1*d)) on the finest level's cell
+    centres, [Z, Y, X] on the card (tests/test_dense_vcoeff.py:25-27)."""
+    top = sv.levels[-1]
+    n = sv.dims[top][d]
+    x = (sv.tree.r_min[d]
+         + (torch.arange(n, dtype=torch.float64, device="cuda") + 0.5)
+         * float(sv.tree.dr[top][d]))
+    e = 1.0 + 0.5 * torch.cos(2 * np.pi * (x + 0.1 * d))
+    shape = [1, 1, 1]
+    shape[2 - d] = n
+    Z, Y, X = sv._ishape(top)
+    return e.view(shape).expand(Z, Y, X).to(dtype)
+
+
+def phase_vcoeff_path(pkg, dk):
+    """``PoissonSolver(3, (512,)*3, 16, operator=...)`` for vhelmholtz and
+    ahelmholtz, lam 1.5, Dirichlet 0: coefficients set and restricted on
+    the card, one zero-guess and eight have-guess FMGs through ``solve``
+    (ahelmholtz contracts slower, tests/test_dense_vcoeff.py:150-153),
+    then a timed loop of have-guess FMGs.  Returns {n_eps: (launches of
+    the path, launches per have-guess FMG)}."""
+    n, n_have, n_timed, lam = 512, 8, 8, 1.5
+    out = {}
+    for op, n_eps in (("vhelmholtz", 1), ("ahelmholtz", 3)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ps = pkg.PoissonSolver(3, (n,) * 3, 16, operator=op,
+                               dtype=torch.float32)
+        ps.set_dirichlet(0.0)
+        sv = ps.solver
+        top = sv.levels[-1]
+        g = torch.Generator(device="cuda").manual_seed(5)
+        dk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ps._ensure_state()
+        for d in range(sv.n_eps):
+            sv.set_coefficient(state, smooth_eps(sv, d, torch.float32), d)
+        sv.prepare_coefficient(state)
+        ps.set_rhs(arrays={top: torch.randn((n,) * 3, generator=g,
+                                            dtype=torch.float32,
+                                            device="cuda")})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sv._ensure_direct(state)            # the probe: setup, on the card
+        t2 = time.perf_counter()
+        phi, info = ps.solve(lam=lam, rtol=0.0, atol=0.0,
+                             max_cycles=1 + n_have)
+        launches = dk.launch_counts()
+        hist = info["residuals"]
+        if tuple(phi.shape) != (n,) * 3 or not bool(
+                torch.isfinite(phi).all()):
+            fail(f"vcoeff path {op}: phi has a wrong shape or values")
+        check_fmg_history(hist, f"vcoeff path {op}")
+        missing = [k for k in vcoeff_kernels(n_eps) if launches[k] == 0]
+        if missing:
+            fail(f"vcoeff path {op} launched no kernel for {missing}")
+        const = [k for k in ("pair_sweep_dense", "stencil_apply_dense",
+                             "downsweep_dense", "residual_restrict_dense")
+                 if launches[k]]
+        if const:
+            fail(f"vcoeff path {op} ran constant-coefficient kernels {const}")
+
+        sv.fas_fmg(state, lam=lam, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        dk.reset_launch_counts()
+        t3 = time.perf_counter()
+        for _ in range(n_timed):
+            sv.fas_fmg(state, lam=lam, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t3
+        per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items()}
+        unknowns = float(sum(int(np.prod(sv.dims[l])) for l in sv.levels))
+        emit({"vcoeff_path": {
+            "model": f"PoissonSolver(3, (512,)*3, 16, operator={op!r}, "
+                     f"float32), lam {lam}, Dirichlet 0, eps "
+                     f"1 + 0.5 cos(2 pi (x_d + 0.1 d))",
+            "n_eps": n_eps, "residuals": hist, "cycles": len(hist),
+            "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+            "ms_per_fmg": 1e3 * dt / n_timed,
+            "unknowns_per_s": unknowns * n_timed / dt,
+            "setup_s": {"coefficients_and_rhs": t1 - t0,
+                        "direct_probe": t2 - t1},
+            "launches_in_path": launches, "launches_per_fmg": per_fmg,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
+        out[n_eps] = (launches, per_fmg)
+        del ps, sv, state, phi
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_refined_vcoeff(pkg, dk, df):
+    """``solve_refined`` for ahelmholtz at 512^3 (float32 inner solver,
+    lam 0.31, three float64 coefficient fields, Dirichlet 0), then the
+    refined solution through a float64 ahelmholtz solver's
+    ``apply_operator`` on the card (tests/test_df32.py:510-525)."""
+    n, n_outer, lam = 512, 10, 0.31
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tree = pkg.build_rectangle(3, np.full(3, n), 16, np.full(3, 1.0 / n),
+                               np.zeros(3))
+    sv = pkg.make_solver(tree, pkg.MGConfig(operator="ahelmholtz",
+                                            dtype=torch.float32))
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    state = sv.allocate()
+    # 0.5 + U[0,1) as tests/test_df32.py:483-525 (the smooth fields of
+    # vcoeff_path contract ~5x per FMG under ahelmholtz's anisotropy,
+    # too slowly for 1e-10 in ten outers; these ~25x)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    eps64 = [0.5 + torch.rand((n,) * 3, generator=g, dtype=torch.float64,
+                              device="cuda") for _ in range(3)]
+    rhs64 = seeded_rhs64(n, 6)
+    rh, rl = df.split_f64(rhs64)
+    dk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xh, xl, norms, state = pkg.solve_refined(sv, state, rh, rl,
+                                             n_outer=n_outer, lam=lam,
+                                             eps=eps64)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dk.launch_counts()
+    check_refined_history(norms, "refined vcoeff")
+    # the inner FMGs start from a zero guess: no update_coarse, so no
+    # residual_restrict_dense[n_eps=3] (as on the constant refined path)
+    missing = [k for k in vcoeff_kernels(3) if launches[k] == 0
+               and k != "residual_restrict_dense[n_eps=3]"]
+    if missing:
+        fail(f"refined vcoeff launched no kernel for {missing}")
+
+    # a timed solve on a warm RefinedPoisson: its set-up (coefficient
+    # install, restriction and probe: ``prepare``) and its outer loop
+    # (``iterate``: n_outer outers and the closing residual) clocked apart
+    rp = pkg.RefinedPoisson(sv, lam=lam, eps=eps64)
+    rp.solve(state, rh, rl, n_outer=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rp.prepare(state, rh, rl)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, _, norms_t, _ = rp.iterate(state, n_outer)
+    torch.cuda.synchronize()
+    setup_s, dt = t1 - t0, time.perf_counter() - t1
+    check_refined_history(norms_t, "refined vcoeff (timed run)")
+    top = sv.levels[-1]
+    with torch.no_grad():
+        pieces = {
+            "residual_df32_vcoeff_ms": event_ms(lambda: df.residual_df32_vcoeff(
+                rp.cfg, rp.x_hi, rp.x_lo, rp.rhs_hi, rp.rhs_lo,
+                rp._eps_pairs, cbs=rp.cbs, lam_pair=rp.lam_pair)),
+            "inner_fmg_ms": event_ms(lambda: sv._fmg(
+                state, sv._lam(lam), have_guess=False, need_res=False)),
+        }
+    peak = torch.cuda.max_memory_allocated()
+    # the least time of residual_df32_vcoeff: x, rhs and three eps pairs
+    # read once, r_hi written once; 749 flops per cell (per side a pair
+    # product, sum and quotient for the face coefficient, a scale, a pair
+    # difference, product and difference into the accumulator, 119; then
+    # lam*x, 35; ops.df32's EFT op counts, no fma)
+    t_b = (4 + 2 * 3 + 1) * n ** 3 * 4 / HBM_BYTES_PER_S
+    t_f = 749 * n ** 3 / F32_FLOP_PER_S
+    res_bound = {"bound_ms": 1e3 * max(t_b, t_f),
+                 "bound_by": "bytes" if t_b >= t_f else "operations"}
+    x64 = torch.zeros_like(rhs64)
+    x64 += xh.double()
+    x64 += xl.double()
+    del rp, xh, xl, state, sv
+    torch.cuda.empty_cache()
+
+    # the float64 check: the refined solution under the float64 operator
+    s64 = pkg.make_solver(tree, pkg.MGConfig(operator="ahelmholtz",
+                                             dtype=torch.float64))
+    s64.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    st6 = s64.allocate()
+    s64.set_interior(st6, top, "phi", x64)
+    for d in range(3):
+        s64.set_coefficient(st6, eps64[d], d)
+    with torch.no_grad():
+        r = s64._apply_op(st6, top, s64._lam(lam))[dk._ISL]
+        worst = float((rhs64 - r).abs().max())
+    del st6, s64, r
+    torch.cuda.empty_cache()
+    bound = 1e-9 * norms[0]
+    emit({"refined_vcoeff": {
+        "model": "solve_refined(ahelmholtz 512^3 float32 inner solver, "
+                 "lam 0.31, eps = 3 float64 fields 0.5 + U[0,1), "
+                 "n_outer=10), Dirichlet 0",
+        "norms": norms, "norms_timed_run": norms_t,
+        "contraction_factors": [a / b for a, b in zip(norms, norms[1:])],
+        "ms_per_outer": 1e3 * dt / n_outer,
+        "first_solve_s": first_s, "setup_s": setup_s,
+        "timed_solve_s": dt + setup_s,
+        "outer_pieces_device_ms": pieces,
+        "residual_df32_vcoeff_bound": res_bound,
+        "launches_in_solve": launches,
+        "float64_worst_residual": worst, "float64_bound": bound,
+        "peak_memory_bytes": peak}})
+    if not worst <= bound:
+        fail(f"refined vcoeff: float64 residual {worst} above {bound}")
+
+
+def refined_vcoeff_periodic(pkg, df, n=32, n_outer=10):
+    """ahelmholtz refined solve on an n^3 grid periodic in y and z
+    (Dirichlet 0 in x), float32 inner solver, lam 0.31, coefficients
+    0.5 + U[0,1): on the CPU, and on the card eagerly and with CUDA
+    graphs.  The outer residual is plain PyTorch on every device and
+    reads the periodic pads of x and of the coefficient pairs, which the
+    card's kernels never write.  Checks: the graphs keep the eager bits;
+    card and CPU reach one float64-class solution (1e-9 of max|x|; each
+    lies ~1e-12 from it, a residual of another operator misses by far
+    more); the card's solution under a float64 ahelmholtz solver's
+    operator (CPU) leaves at most 1e-9 of the first norm."""
+    lam, bound = 0.31, 1e-9
+    rng = np.random.default_rng(9)
+    rhs64 = rng.normal(size=(n,) * 3)
+    eps64 = [0.5 + rng.random((n,) * 3) for _ in range(3)]
+    rh, rl = df.split_f64(rhs64)
+    periodic = [False, True, True]
+    tree = pkg.build_rectangle(3, np.full(3, n), 8, np.full(3, 1.0 / n),
+                               np.zeros(3), periodic)
+    runs = {}
+    for dev, mode in (("cpu", "split"), ("cuda", "split"), ("cuda", "fused")):
+        sv = pkg.make_solver(tree, pkg.MGConfig(
+            operator="ahelmholtz", dtype=torch.float32, device=dev,
+            fmg_mode=mode))
+        sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+        xh, xl, norms, _ = pkg.solve_refined(sv, sv.allocate(), rh, rl,
+                                             n_outer=n_outer, lam=lam,
+                                             eps=eps64)
+        check_refined_history(norms, f"periodic refined vcoeff {dev} {mode}")
+        runs[f"{dev}_{mode}"] = (xh.cpu(), xl.cpu(), norms)
+    (ah, al, an), (bh, bl, bn) = runs["cuda_split"], runs["cuda_fused"]
+    if an != bn or not (torch.equal(ah, bh) and torch.equal(al, bl)):
+        fail(f"periodic refined vcoeff: the graphs left other bits than the "
+             f"eager outers: norms {bn} against {an}")
+    x = {k: (h.double() + l.double()).numpy() for k, (h, l, _) in
+         runs.items()}
+    scale = float(np.abs(x["cpu_split"]).max())
+    diff = float(np.abs(x["cuda_split"] - x["cpu_split"]).max()) / scale
+    s64 = pkg.make_solver(tree, pkg.MGConfig(operator="ahelmholtz",
+                                             dtype=torch.float64,
+                                             device="cpu"))
+    s64.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    st6 = s64.allocate()
+    top = s64.levels[-1]
+    s64.set_interior(st6, top, "phi", x["cuda_split"])
+    for d in range(3):
+        s64.set_coefficient(st6, eps64[d], d)
+    with torch.no_grad():
+        r = s64._apply_op(st6, top, s64._lam(lam))[s64._isl].numpy()
+    first = runs["cuda_split"][2][0]
+    worst = float(np.abs(rhs64 - r).max())
+    row = {"dims": [n] * 3, "periodic": periodic, "lam": lam,
+           "norms_cuda": runs["cuda_split"][2],
+           "norms_cpu": runs["cpu_split"][2],
+           "x_max_rel_diff_card_cpu": diff, "bound": bound,
+           "float64_worst_residual": worst,
+           "float64_bound": bound * first}
+    if not diff <= bound:
+        fail(f"periodic refined vcoeff: card and CPU solutions differ by "
+             f"{diff} of max|x|")
+    if not worst <= bound * first:
+        fail(f"periodic refined vcoeff: float64 residual {worst} above "
+             f"{bound * first}")
+    return row
+
+
+def fused_vcoeff(pkg):
+    """The vhelmholtz solver at 512^3 with graphs and eagerly: three
+    zero-guess and three have-guess FMGs, then new coefficients through a
+    second ``prepare_coefficient`` (new probed coarse matrix; every graph
+    outdated) and three more have-guess FMGs.  phi must keep the eager
+    bits after both parts."""
+    n, lam = 512, 1.5
+    snaps, info = {}, {}
+    for mode in ("split", "fused"):
+        ps = pkg.PoissonSolver(3, (n,) * 3, 16, operator="vhelmholtz",
+                               dtype=torch.float32, fmg_mode=mode)
+        ps.set_dirichlet(0.0)
+        sv = ps.solver
+        st = ps._ensure_state()
+        top = sv.levels[-1]
+        sv.set_coefficient(st, smooth_eps(sv, 0, torch.float32))
+        sv.prepare_coefficient(st)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        ps.set_rhs(arrays={top: torch.randn((n,) * 3, generator=g,
+                                            dtype=torch.float32,
+                                            device="cuda")})
+        out = []
+        for k in range(3):
+            sv.fas_fmg(st, lam=lam, have_guess=False, need_res=False)
+        for k in range(3):
+            sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+        out.append(sv.interior(st, top, "phi").clone())
+        graphs_first = sum(c is not None for c in sv._graphs.values())
+        # new coefficients: 2 - 0.5 cos(...), in the same tensors
+        sv.set_coefficient(st, 2.5 - smooth_eps(sv, 0, torch.float32))
+        sv.prepare_coefficient(st)
+        for k in range(3):
+            sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(4):
+            sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        info[mode] = {"ms_per_fmg": 1e3 * (time.perf_counter() - t0) / 4,
+                      "graphs_before_second_prepare": graphs_first,
+                      "graphs_after": sum(c is not None
+                                          for c in sv._graphs.values())}
+        out.append(sv.interior(st, top, "phi").clone())
+        snaps[mode] = out
+        del ps, sv, st
+        torch.cuda.empty_cache()
+    for a, b in zip(snaps["split"], snaps["fused"]):
+        if not torch.equal(a, b):
+            fail("fused vhelmholtz FMG: a graph replay left other bits "
+                 "than the eager cycle")
+    if info["fused"]["graphs_before_second_prepare"] != 2 or \
+            info["fused"]["graphs_after"] != 1:
+        fail(f"fused vhelmholtz FMG: unexpected graph counts {info}")
+    return info
+
+
+def phase_cpu_agreement(pkg, df):
     """64^3 float64, three FMGs, on the card and on the CPU.  The stencil
     arithmetic is identical on both; the two matrix-vector products of
     the direct coarse solve sum in another order in cuBLAS than on the
@@ -808,29 +1286,44 @@ def phase_cpu_agreement(pkg):
     bound, bound_res, n = 1e-11, 1e-8, 64
     rng = np.random.default_rng(3)
     rhs = rng.normal(size=(n, n, n))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        ps = pkg.PoissonSolver(3, (n,) * 3, 16, dtype=torch.float64,
-                               device=dev)
-        ps.set_dirichlet(0.0)
-        ps.set_rhs(arrays={ps.solver.levels[-1]: rhs})
-        phi, info = ps.solve(rtol=0.0, max_cycles=3)
-        out[dev] = (phi.cpu().numpy(), np.array(info["residuals"]))
-    phi_d = (np.abs(out["cuda"][0] - out["cpu"][0]).max()
-             / np.abs(out["cpu"][0]).max())
-    res_d = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1])
-                         / np.abs(out["cpu"][1])))
+    rows = {}
+    for op, lam in (("laplacian", 0.0), ("ahelmholtz", 1.5)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ps = pkg.PoissonSolver(3, (n,) * 3, 16, dtype=torch.float64,
+                                   device=dev, operator=op)
+            ps.set_dirichlet(0.0)
+            sv = ps.solver
+            st = ps._ensure_state()
+            x = sv.cell_centers(sv.levels[-1])
+            for d in range(sv.n_eps):
+                sv.set_coefficient(st, 1.0 + 0.5 * np.cos(
+                    2 * np.pi * (x[..., d] + 0.1 * d)), d)
+            sv.prepare_coefficient(st)
+            ps.set_rhs(arrays={sv.levels[-1]: rhs})
+            phi, info = ps.solve(lam=lam, rtol=0.0, max_cycles=3)
+            out[dev] = (phi.cpu().numpy(), np.array(info["residuals"]))
+        phi_d = (np.abs(out["cuda"][0] - out["cpu"][0]).max()
+                 / np.abs(out["cpu"][0]).max())
+        res_d = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1])
+                             / np.abs(out["cpu"][1])))
+        rows[op] = {"phi_max_rel_diff": float(phi_d),
+                    "residual_max_rel_diff": res_d,
+                    "residuals_cuda": out["cuda"][1].tolist(),
+                    "residuals_cpu": out["cpu"][1].tolist()}
     emit({"cpu_agreement": {
         "dims": [n] * 3, "dtype": "float64", "fmgs": 3,
-        "phi_max_rel_diff": float(phi_d), "residual_max_rel_diff": res_d,
         "bound": bound, "residual_bound": bound_res,
         "reason": "identical stencil arithmetic; cuBLAS and CPU BLAS sum "
                   "the coarse solve's matrix-vector products in different "
-                  "orders",
-        "residuals_cuda": out["cuda"][1].tolist(),
-        "residuals_cpu": out["cpu"][1].tolist()}})
-    if not (phi_d < bound and res_d < bound_res):
-        fail(f"card and CPU disagree: phi {phi_d}, residuals {res_d}")
+                  "orders", **rows,
+        "refined_vcoeff_periodic": refined_vcoeff_periodic(pkg, df)}})
+    for op, r in rows.items():
+        if not (r["phi_max_rel_diff"] < bound
+                and r["residual_max_rel_diff"] < bound_res):
+            fail(f"card and CPU disagree ({op}): phi "
+                 f"{r['phi_max_rel_diff']}, residuals "
+                 f"{r['residual_max_rel_diff']}")
 
 
 def main(argv) -> int:
@@ -865,7 +1358,8 @@ def main(argv) -> int:
     ps, launches, ms_per_fmg = phase_main_path(pkg, dk)
     phase_fmg_stages(ps)
     launches_refined, refined_split = phase_refined_path(ps, dk, df)
-    never = [k for k in SOURCES if launches[k] + launches_refined[k] == 0]
+    never = [k for k in CONST_KERNELS
+             if launches[k] + launches_refined[k] == 0]
     if never:
         fail(f"neither part of the main path launched {never}")
     del ps
@@ -875,8 +1369,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_df32_exactness(dk, df)
     phase_refined_vs_f64(pkg)
-    phase_cpu_agreement(pkg)
-    rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined)
+    phase_cpu_agreement(pkg, df)
+    vcoeff = phase_vcoeff_path(pkg, dk)
+    phase_refined_vcoeff(pkg, dk, df)
+    never = [k for k in EPS_VARIANTS
+             if vcoeff[int(k.split("=")[1][:-1])][0][k] == 0]
+    if never:
+        fail(f"the variable-coefficient paths never launched {never}")
+    rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
+                                        vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,
           "seconds_after_build": time.perf_counter() - t0})
     emit({"kernels": rows})

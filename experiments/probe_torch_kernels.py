@@ -99,12 +99,14 @@ def probe_tiles():
                                         f"-DOMG_CHUNK_Z={cz}"])
 
         def pair():
-            e = fns["omg_stencil_sweep"](0, 0, ctypes.byref(P), phi.data_ptr(),
-                                         rhs.data_ptr(), out.data_ptr(), st)
+            e = fns["omg_stencil_sweep"](0, 0, ctypes.byref(P), None,
+                                         phi.data_ptr(), rhs.data_ptr(),
+                                         out.data_ptr(), st)
             assert e == 0, e
 
         def down():
-            e = fns["omg_downsweep"](0, 1, ctypes.byref(P), phi.data_ptr(),
+            e = fns["omg_downsweep"](0, 1, ctypes.byref(P), None,
+                                     phi.data_ptr(),
                                      rhs.data_ptr(), out.data_ptr(),
                                      pc.data_ptr(), rc.data_ptr(), st)
             assert e == 0, e

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one FMG of the PyTorch package spends its time on one GPU.
 
-    python3 experiments/profile_torch_fmg.py
+    python3 experiments/profile_torch_fmg.py            # all of the below
+    python3 experiments/profile_torch_fmg.py --vcoeff   # the last two only
 
 On the 512^3 float32 main path (``PoissonSolver(3, (512,)*3, 16)``,
 Dirichlet 0, seeded random right-hand side) it prints, one JSON object
@@ -24,7 +25,14 @@ per line:
   alternating inside the process;
 * ``float64`` — the six kernel entry points at 512^3 (prolongation
   256^3 -> 512^3) in float64 beside float32: median ms of 10, CUDA
-  events, and the byte bound at 3.35 TB/s.
+  events, and the byte bound at 3.35 TB/s;
+* ``profile_vcoeff`` — the ``profile`` pass for the variable-coefficient
+  operators (``operator`` vhelmholtz and ahelmholtz, lam 1.5, smooth
+  coefficients 1 + 0.5 cos(2 pi (x_d + 0.1 d)), restricted on the card);
+* ``profile_refined_vcoeff`` — the ``profile_refined`` pass for the
+  ahelmholtz refined solve (lam 0.31, three coefficient fields
+  0.5 + U[0,1)): its outer is dominated by the plain-PyTorch
+  ``residual_df32_vcoeff``, whose ~900 elementwise kernels show by name.
 
 Needs a CUDA device and nvcc.
 """
@@ -191,6 +199,69 @@ def phase_float64():
     emit({"float64": rows})
 
 
+def smooth_eps(sv, d):
+    top = sv.levels[-1]
+    x = (torch.arange(N, dtype=torch.float64, device="cuda") + 0.5) / N
+    shape = [1, 1, 1]
+    shape[2 - d] = N
+    e = 1.0 + 0.5 * torch.cos(2 * torch.pi * (x + 0.1 * d))
+    return e.view(shape).expand(*sv._ishape(top)).float()
+
+
+def phase_profile_vcoeff(n=4):
+    for op in ("vhelmholtz", "ahelmholtz"):
+        ps = pkg.PoissonSolver(3, (N,) * 3, 16, operator=op,
+                               dtype=torch.float32)
+        ps.set_dirichlet(0.0)
+        sv = ps.solver
+        st = ps._ensure_state()
+        for d in range(sv.n_eps):
+            sv.set_coefficient(st, smooth_eps(sv, d), d)
+        sv.prepare_coefficient(st)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        ps.set_rhs(arrays={sv.levels[-1]: torch.randn(
+            (N,) * 3, generator=g, device="cuda")})
+        ps.solve(lam=1.5, rtol=0.0, max_cycles=3)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                sv.fas_fmg(st, lam=1.5, have_guess=True, need_res=False)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        emit({"profile_vcoeff": {"operator": op, **profiled(run, n, "fmg")}})
+        del ps, sv, st
+        torch.cuda.empty_cache()
+
+
+def phase_profile_refined_vcoeff(n_outer=2):
+    tree = pkg.build_rectangle(3, (N,) * 3, 16, (1.0 / N,) * 3, (0.0,) * 3)
+    sv = pkg.make_solver(tree, pkg.MGConfig(operator="ahelmholtz",
+                                            dtype=torch.float32))
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    st = sv.allocate()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    eps = [0.5 + torch.rand((N,) * 3, generator=g, dtype=torch.float64,
+                            device="cuda") for _ in range(3)]
+    rhs = torch.randn((N,) * 3, generator=g, dtype=torch.float64,
+                      device="cuda")
+    rh = rhs.float()
+    rl = (rhs - rh.double()).float()
+    del rhs
+    rp = pkg.RefinedPoisson(sv, lam=0.31, eps=eps)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp.solve(st, rh, rl, n_outer=n_outer)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n_outer
+
+    emit({"profile_refined_vcoeff": profiled(run, n_outer, "outer")})
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fmg: needs a CUDA device")
@@ -198,10 +269,13 @@ if __name__ == "__main__":
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__})
-    solver = main_path()
-    phase_profile(solver)
-    phase_profile_refined(solver)
-    phase_residual_cost(solver)
-    del solver
-    torch.cuda.empty_cache()
-    phase_float64()
+    if "--vcoeff" not in sys.argv[1:]:
+        solver = main_path()
+        phase_profile(solver)
+        phase_profile_refined(solver)
+        phase_residual_cost(solver)
+        del solver
+        torch.cuda.empty_cache()
+        phase_float64()
+    phase_profile_vcoeff()
+    phase_profile_refined_vcoeff()

@@ -3,12 +3,14 @@
 Geometric FAS multigrid with the capabilities of the octree-mg
 Fortran/MPI library (Teunissen & Keppens, CPC 2019), for one NVIDIA
 Hopper GPU.  This package holds what has been brought over so far: the
-uniform 3D Poisson/Helmholtz solve on dense levels (FAS V-cycle and FMG,
-GSRB pair smoothing, direct eigenbasis coarse solve) and its f64-class
-refined mode (exact double-float residual around the float32 FMG), whose
-stencil, restriction, prolongation and double-float residual passes are
-CUDA kernels written by hand (``csrc/``), each beside a plain PyTorch
-version that serves CPU tensors.
+uniform 3D solve on dense levels for the five operators (laplacian,
+helmholtz and the variable-coefficient vlaplacian, vhelmholtz,
+ahelmholtz; FAS V-cycle and FMG, GSRB pair smoothing, direct eigenbasis
+coarse solve, assembled or probed) and its f64-class refined mode
+(double-float residual around the float32 FMG), whose stencil,
+restriction, prolongation and double-float residual passes are CUDA
+kernels written by hand (``csrc/``), each beside a plain PyTorch version
+that serves CPU tensors.
 
 It imports ``torch`` and ``numpy`` only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
@@ -21,7 +23,7 @@ from .solve.multigrid import MGConfig
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
 from .models.poisson import PoissonSolver
 from .solve.refine import RefinedPoisson, solve_refined
-from .ops.df32 import df32_ok, split_f64
+from .ops.df32 import df32_ok, df32_vcoeff_ok, split_f64
 from .convert import (state_from_numpy, state_to_numpy, direct_from_numpy,
                       df_pair_from_numpy, df_pair_to_numpy)
 
@@ -31,8 +33,8 @@ __all__ = [
     "Tree", "build_rectangle", "box_r_min",
     "MGConfig", "DenseMGSolver", "dense_supported", "make_solver",
     "PoissonSolver", "RefinedPoisson", "solve_refined", "df32_ok",
-    "split_f64", "state_from_numpy", "state_to_numpy", "direct_from_numpy",
-    "df_pair_from_numpy", "df_pair_to_numpy",
+    "df32_vcoeff_ok", "split_f64", "state_from_numpy", "state_to_numpy",
+    "direct_from_numpy", "df_pair_from_numpy", "df_pair_to_numpy",
 ]
 
 __version__ = "0.1.0"

@@ -4,12 +4,16 @@ Both packages keep the same per-level layout, so a state crosses as
 plain numpy arrays:
 
     {"phi" | "rhs" | "iold" | "ires": {lvl: ndarray [Z+16, Y+16, X]},
+     "eps0" .. "eps{n_eps-1}": {...}   (variable-coefficient operators),
      "bc": {lvl: [6 boundary-value planes]}}
 
 ``state_from_numpy`` puts such a state on a solver's device in its
-dtype, checking every shape level by level; ``state_to_numpy`` is the
-reverse; ``direct_from_numpy`` does the same for the eigenbasis package
-of the direct coarse solve (``V``, ``Vinv``, ``d``, ``tiny``).
+dtype, checking every shape level by level (the fields it carries are
+the solver's: the coefficient fields of its operator included);
+``state_to_numpy`` is the reverse; ``direct_from_numpy`` does the same
+for the eigenbasis package of the direct coarse solve (``V``, ``Vinv``,
+``d``, ``tiny``), whether the JAX package assembled it from the stencil
+or probed it from the coefficients.
 
 The refined solve's state crosses the same way: ``df_pair_from_numpy``
 puts a padded double-float pair (the solution ``(x_hi, x_lo)`` or the
@@ -29,21 +33,25 @@ from typing import Dict
 import numpy as np
 import torch
 
-FIELD_KEYS = ("phi", "rhs", "iold", "ires")
-
-
 def _to_tensor(solver, a) -> torch.Tensor:
     a = np.ascontiguousarray(np.asarray(a))
     return torch.from_numpy(a.copy()).to(solver.device, solver.cfg.dtype)
 
 
 def state_from_numpy(solver, np_state: Dict) -> Dict:
-    """A new state for ``solver`` holding the values of ``np_state``."""
-    state: Dict = {k: {} for k in FIELD_KEYS}
+    """A new state for ``solver`` holding the values of ``np_state``: the
+    fields of ``solver._field_keys`` (eps0.. for the variable-coefficient
+    operators) and the boundary planes."""
+    keys = solver._field_keys
+    missing = [k for k in keys if k not in np_state]
+    if missing:
+        raise ValueError(f"state lacks {missing} (operator "
+                         f"{solver.cfg.operator!r})")
+    state: Dict = {k: {} for k in keys}
     state["bc"] = {}
     for lvl in solver.levels:
         cfg = solver._kcfgs[lvl]
-        for k in FIELD_KEYS:
+        for k in keys:
             a = np.asarray(np_state[k][lvl])
             if tuple(a.shape) != tuple(cfg.pshape):
                 raise ValueError(f"{k}[{lvl}]: shape {a.shape}, this solver "
@@ -65,9 +73,11 @@ def state_from_numpy(solver, np_state: Dict) -> Dict:
 
 
 def state_to_numpy(state: Dict) -> Dict:
-    """The state as numpy arrays on the host (copies)."""
+    """The state as numpy arrays on the host (copies), every field the
+    state holds."""
     out: Dict = {k: {lvl: t.detach().cpu().numpy().copy()
-                     for lvl, t in state[k].items()} for k in FIELD_KEYS}
+                     for lvl, t in per_lvl.items()}
+                 for k, per_lvl in state.items() if k != "bc"}
     out["bc"] = {lvl: [p.detach().cpu().numpy().copy() for p in planes]
                  for lvl, planes in state["bc"].items()}
     return out

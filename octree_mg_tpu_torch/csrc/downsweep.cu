@@ -16,28 +16,50 @@
 // the order (z0+z1), + y neighbour, + x neighbour, * 0.125 (identical to
 // / 8).  The ring holds 12 planes of a 42x26 window of phi and of rhs:
 // 109 KB in float32, 218 KB in float64 (large dynamic shared memory).
+// The variable-coefficient variants (E->n 1 or 3; eps windows of the
+// Pallas body) read their coefficients from device memory, not from a
+// ring: a coefficient ring would add 52 KB (float32) or 105 KB (float64)
+// per field, and neither the float64 NE = 1 nor the float32 NE = 3 ring
+// would fit a block's 227 KB.  The residual stage uses the apply form
+// out + c*(nbr - p) per side.
 #include "stream_kernel.cuh"
 
-template <typename T>
-static int dispatch(const LevelParams& P, int fine_out, const void* phi,
-                    const void* rhs, void* phi_out, void* phic_out,
-                    void* iresc_out, cudaStream_t s) {
+template <typename T, int NE>
+static int dispatch(const LevelParams& P, const EpsParams& E, int fine_out,
+                    const void* phi, const void* rhs, void* phi_out,
+                    void* phic_out, void* iresc_out, cudaStream_t s) {
   switch (P.n_sweeps) {
-    case 0: return launch_stream<T, 0, M_DOWN>(P, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 2: return launch_stream<T, 2, M_DOWN>(P, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 4: return launch_stream<T, 4, M_DOWN>(P, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 0: return launch_stream<T, 0, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 2: return launch_stream<T, 2, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 4: return launch_stream<T, 4, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = float64.  P->n_sweeps = 2*n_pairs (0, 2 or 4).
-// All of X, Y, Z must be even.  Returns the cudaError_t of the launch.
+template <typename T>
+static int dispatch_eps(const LevelParams& P, const EpsParams& E,
+                        int fine_out, const void* phi, const void* rhs,
+                        void* phi_out, void* phic_out, void* iresc_out,
+                        cudaStream_t s) {
+  switch (E.n) {
+    case 0: return dispatch<T, 0>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 1: return dispatch<T, 1>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 3: return dispatch<T, 3>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = float64.  P->n_sweeps = 2*n_pairs (0, 2 or 4);
+// E: E->n coefficient fields (0, 1 or 3) in E->f, or null for none.  All
+// of X, Y, Z must be even.  Returns the cudaError_t of the launch.
 extern "C" int omg_downsweep(int dtype, int fine_out, const LevelParams* P,
-                             const void* phi, const void* rhs, void* phi_out,
-                             void* phic_out, void* iresc_out, void* stream) {
+                             const EpsParams* E, const void* phi,
+                             const void* rhs, void* phi_out, void* phic_out,
+                             void* iresc_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((P->X | P->Y | P->Z) & 1) return (int)cudaErrorInvalidValue;
+  const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
   return dtype == 0
-      ? dispatch<float>(*P, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s)
-      : dispatch<double>(*P, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+      ? dispatch_eps<float>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s)
+      : dispatch_eps<double>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
 }

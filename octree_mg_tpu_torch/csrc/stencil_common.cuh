@@ -36,6 +36,15 @@ struct LevelParams {
   const void* plane[6];  // boundary-value plane of a face, or null (constant)
 };
 
+// The coefficient fields of the variable-coefficient variants, mirrored
+// by ops/dense_kernels.py:_EpsParams.  A kernel argument of its own,
+// passed last, so that LevelParams and the parameter layout of every
+// constant-coefficient kernel stay those of the NE = 0 stencil.
+struct EpsParams {
+  int n;              // coefficient fields (0, 1 or 3; the kernels' NE)
+  const void* f[3];   // the padded coefficient fields, read-only
+};
+
 __device__ __forceinline__ int wrap_idx(int g, int n) {
   g %= n;
   return g < 0 ? g + n : g;
@@ -104,6 +113,89 @@ __device__ __forceinline__ T apply_from(const LevelParams& P, T p,
   out = out + (T)P.idr2[0] * (lo[0] + hi[0] - two_p);
   out = out + (T)P.idr2[1] * (lo[1] + hi[1] - two_p);
   out = out + (T)P.idr2[2] * (lo[2] + hi[2] - two_p);
+  return out;
+}
+
+// ---- variable coefficients (n_eps 1: vlaplacian/vhelmholtz, 3:
+// ahelmholtz) ----
+//
+// Coefficient fields are read-only for a whole launch, so they need no
+// ring in shared memory: a cell reads its own value and its neighbours'
+// straight from device memory through the read-only path.  Their ghosts
+// are the Neumann-zero mirror (the cell's own value) at physical faces
+// and the wrapped neighbour on periodic axes; no pad is read.
+
+// Source index of the low / high coefficient neighbour of source index s
+// along a dim of n cells.
+__device__ __forceinline__ int eps_lo_idx(int s, int n, int per) {
+  return s > 0 ? s - 1 : (per ? n - 1 : s);
+}
+__device__ __forceinline__ int eps_hi_idx(int s, int n, int per) {
+  return s < n - 1 ? s + 1 : (per ? 0 : s);
+}
+
+// The six harmonic-mean face coefficients of a cell with source
+// coordinates (sx, sy, sz): c[2d] low side, c[2d+1] high side of dim d,
+// each ((2*e0)*e_nb)/(e0 + e_nb)*idr2[d] rounded once per operation as
+// in the plain version (IEEE division: no fast-math flag).  Dim d reads
+// field 0 (NE = 1) or field d (NE = 3).
+template <typename T, int NE>
+__device__ __forceinline__ void face_coeffs(const LevelParams& P,
+                                            const EpsParams& E, int sx,
+                                            int sy, int sz, T c[6]) {
+  const long long plane = (long long)(P.Y + 2 * PY) * P.X;
+  const long long zo = (long long)(sz + PZ) * plane;
+  const long long yo = (long long)(sy + PY) * P.X;
+  const long long o = zo + yo + sx;
+  const long long lo[3] = {
+      zo + yo + eps_lo_idx(sx, P.X, P.per[0]),
+      zo + (long long)(eps_lo_idx(sy, P.Y, P.per[1]) + PY) * P.X + sx,
+      (long long)(eps_lo_idx(sz, P.Z, P.per[2]) + PZ) * plane + yo + sx};
+  const long long hi[3] = {
+      zo + yo + eps_hi_idx(sx, P.X, P.per[0]),
+      zo + (long long)(eps_hi_idx(sy, P.Y, P.per[1]) + PY) * P.X + sx,
+      (long long)(eps_hi_idx(sz, P.Z, P.per[2]) + PZ) * plane + yo + sx};
+  T e0 = (T)0;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const T* e = (const T*)E.f[NE == 1 ? 0 : d];
+    if (NE != 1 || d == 0) e0 = __ldg(e + o);
+    const T el = __ldg(e + lo[d]), eh = __ldg(e + hi[d]);
+    const T idr2 = (T)P.idr2[d];
+    c[2 * d] = (T)2 * e0 * el / (e0 + el) * idr2;
+    c[2 * d + 1] = (T)2 * e0 * eh / (e0 + eh) * idr2;
+  }
+}
+
+// GSRB update with coefficients: (-rhs + sum c*nbr) / (lam + sum c),
+// accumulated per dim x, y, z, low side first.
+template <typename T>
+__device__ __forceinline__ T eps_update(const LevelParams& P, T rhs,
+                                        const T c[6], const T lo[3],
+                                        const T hi[3]) {
+  T num = -rhs;
+  T den = -(T)P.neg_lam;            // lam, exactly as rounded on the host
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    num = num + c[2 * d] * lo[d];
+    den = den + c[2 * d];
+    num = num + c[2 * d + 1] * hi[d];
+    den = den + c[2 * d + 1];
+  }
+  return num / den;
+}
+
+// A(phi) with coefficients: out = -lam*p; out += c*(nbr - p) per side.
+template <typename T>
+__device__ __forceinline__ T eps_apply(const LevelParams& P, T p,
+                                       const T c[6], const T lo[3],
+                                       const T hi[3]) {
+  T out = (T)P.neg_lam * p;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    out = out + c[2 * d] * (lo[d] - p);
+    out = out + c[2 * d + 1] * (hi[d] - p);
+  }
   return out;
 }
 

@@ -19,29 +19,51 @@
 // (seven shared-memory reads, eleven flops, one write each); the rest is
 // index, slot and predicate arithmetic that more cells per thread would
 // share.
+//
+// The variable-coefficient variants (E->n 1 or 3) replace the Pallas
+// bodies' eps windows (_halfsweep / _apply_expr with eps): the same ring
+// and wavefront, with the coefficients of each updated cell and of its
+// six neighbours read from device memory (L1/L2 serve the reuse), so
+// shared memory stays what the NE = 0 kernel needs.  Bound: bytes, one
+// more field read per coefficient field.
 #include "stream_kernel.cuh"
 
-template <typename T>
-static int dispatch(int mode, const LevelParams& P, const void* phi,
-                    const void* rhs, void* out, cudaStream_t s) {
+template <typename T, int NE>
+static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
+                    const void* phi, const void* rhs, void* out,
+                    cudaStream_t s) {
   if (mode == M_APPLY)
-    return launch_stream<T, 0, M_APPLY>(P, 0, phi, rhs, out, nullptr, nullptr, s);
+    return launch_stream<T, 0, M_APPLY, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (mode == M_RESIDUAL)
-    return launch_stream<T, 0, M_RESIDUAL>(P, 0, phi, rhs, out, nullptr, nullptr, s);
+    return launch_stream<T, 0, M_RESIDUAL, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (mode != M_PAIRS) return (int)cudaErrorInvalidValue;
   if (P.n_sweeps == 2)
-    return launch_stream<T, 2, M_PAIRS>(P, 0, phi, rhs, out, nullptr, nullptr, s);
+    return launch_stream<T, 2, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (P.n_sweeps == 4)
-    return launch_stream<T, 4, M_PAIRS>(P, 0, phi, rhs, out, nullptr, nullptr, s);
+    return launch_stream<T, 4, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int dispatch_eps(int mode, const LevelParams& P, const EpsParams& E,
+                        const void* phi, const void* rhs, void* out,
+                        cudaStream_t s) {
+  switch (E.n) {
+    case 0: return dispatch<T, 0>(mode, P, E, phi, rhs, out, s);
+    case 1: return dispatch<T, 1>(mode, P, E, phi, rhs, out, s);
+    case 3: return dispatch<T, 3>(mode, P, E, phi, rhs, out, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = float64; mode: 0 = n_sweeps half-sweeps (2 or
-// 4), 1 = A(phi), 2 = rhs - A(phi).  Returns the cudaError_t of the launch.
+// 4), 1 = A(phi), 2 = rhs - A(phi); E: E->n coefficient fields (0, 1 or
+// 3) in E->f, or null for none.  Returns the cudaError_t of the launch.
 extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
-                                 const void* phi, const void* rhs, void* out,
-                                 void* stream) {
+                                 const EpsParams* E, const void* phi,
+                                 const void* rhs, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0 ? dispatch<float>(mode, *P, phi, rhs, out, s)
-                    : dispatch<double>(mode, *P, phi, rhs, out, s);
+  const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
+  return dtype == 0 ? dispatch_eps<float>(mode, *P, e, phi, rhs, out, s)
+                    : dispatch_eps<double>(mode, *P, e, phi, rhs, out, s);
 }

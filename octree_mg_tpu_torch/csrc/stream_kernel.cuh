@@ -24,6 +24,13 @@
 //
 // Arithmetic per cell is that of the plain PyTorch versions, operation by
 // operation (see stencil_common.cuh).
+//
+// NE (0, 1 or 3) is the number of coefficient fields.  NE = 0 is the
+// constant-coefficient stencil; NE > 0 (vlaplacian/vhelmholtz,
+// ahelmholtz) replaces the update and the apply by their harmonic-mean
+// forms and reads the coefficients of a cell and its six neighbours from
+// device memory (face_coeffs): the ring, the wavefront and the geometry
+// are the same for every NE, and the NE = 0 code paths are untouched.
 #pragma once
 #include "stencil_common.cuh"
 
@@ -69,11 +76,12 @@ struct Geo {
   }
 };
 
-template <typename T, int NS, int MODE>
+template <typename T, int NS, int MODE, int NE>
 __global__ void __launch_bounds__(Geo<NS, MODE>::NT)
 stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
               const T* __restrict__ rhs, T* __restrict__ out,
-              T* __restrict__ phic_out, T* __restrict__ iresc_out) {
+              T* __restrict__ phic_out, T* __restrict__ iresc_out,
+              EpsParams E) {
   using G = Geo<NS, MODE>;
   constexpr int H = G::H, WX = G::WX, PL = G::PL, NB = G::NB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -175,6 +183,12 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
       const T v = s_phi[sc + i];
       T lo[3], hi[3];
       neighbors(p, 2 + 2 * s, c ? face[1] : face[0], sxc, gx + c, i, v, lo, hi);
+      if constexpr (NE > 0) {
+        T cf[6];
+        face_coeffs<T, NE>(P, E, sxc, sy, src_idx(p, P.Z, P.per[2]), cf);
+        s_phi[sc + i] = eps_update<T>(P, s_rhs[sc + i], cf, lo, hi);
+        continue;
+      }
       T acc = -s_rhs[sc + i];
       acc = acc + idx2 * (lo[0] + hi[0]);
       acc = acc + idy2 * (lo[1] + hi[1]);
@@ -200,7 +214,14 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
         }
         T lo[3], hi[3];
         neighbors(r, KR, face[c], sxs[c], gx + c, i, v, lo, hi);
-        T a = apply_from<T>(P, v, lo, hi);
+        T a;
+        if constexpr (NE > 0) {
+          T cf[6];
+          face_coeffs<T, NE>(P, E, sxs[c], sy, r, cf);
+          a = eps_apply<T>(P, v, cf, lo, hi);
+        } else {
+          a = apply_from<T>(P, v, lo, hi);
+        }
         if (MODE != M_APPLY) a = s_rhs[sc + i] - a;
         if (MODE == M_DOWN) {
           s_res[(r & 1) * (G::TX * G::TY) + (ly - H) * G::TX + (lx + c - H)] = a;
@@ -254,12 +275,13 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
   }
 }
 
-template <typename T, int NS, int MODE>
-static int launch_stream(const LevelParams& P, int fine_out, const void* phi,
-                         const void* rhs, void* out, void* phic_out,
-                         void* iresc_out, cudaStream_t stream) {
+template <typename T, int NS, int MODE, int NE>
+static int launch_stream(const LevelParams& P, const EpsParams& E,
+                         int fine_out, const void* phi, const void* rhs,
+                         void* out, void* phic_out, void* iresc_out,
+                         cudaStream_t stream) {
   using G = Geo<NS, MODE>;
-  auto kernel = stream_kernel<T, NS, MODE>;
+  auto kernel = stream_kernel<T, NS, MODE, NE>;
   const size_t smem = G::smem_bytes(sizeof(T));
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -281,6 +303,6 @@ static int launch_stream(const LevelParams& P, int fine_out, const void* phi,
   dim3 grid(cdiv(P.X, G::TX), cdiv(P.Y, G::TY), cdiv(P.Z, cz));
   kernel<<<grid, G::NT, smem, stream>>>(P, cz, fine_out, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
-                                        (T*)iresc_out);
+                                        (T*)iresc_out, E);
   return (int)cudaGetLastError();
 }

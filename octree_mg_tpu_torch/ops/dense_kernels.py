@@ -27,6 +27,13 @@ for a CUDA tensor — or raises; there is no fallback on the card:
 * ``stencil_apply_dense`` — ``A(phi)`` or ``rhs - A(phi)`` (K1).
 * ``downsweep_dense`` — pairs + residual + both restrictions (K2).
 * ``residual_restrict_dense`` — residual + both restrictions (K2).
+
+The first four also carry the variable-coefficient operators
+(``cfg.n_eps`` 1 for vlaplacian/vhelmholtz, 3 for ahelmholtz): they
+take ``eps=`` (``n_eps`` padded coefficient fields) and use the
+harmonic-mean face coefficients ``2*e0*e_nb/(e0+e_nb)*idr2[d]``, with
+Neumann-zero coefficient ghosts (ghost = the cell's own value) at
+physical faces.  Their launches are counted under ``name[n_eps=k]``.
 * ``restrict_dense`` — 2x2x2 full weighting (K3).
 * ``prolong_correct_dense`` — ``phi_f += prolong(phi_c - iold_c)`` (K4),
   in place on ``phi_f``.
@@ -58,6 +65,19 @@ _LAUNCHES = {"pair_sweep_dense": 0, "stencil_apply_dense": 0,
              "downsweep_dense": 0, "residual_restrict_dense": 0,
              "restrict_dense": 0, "prolong_correct_dense": 0,
              "residual_df32_dense": 0}      # the wrapper lives in ops/df32
+#: the entry points with coefficient variants, and their counter names
+EPS_ENTRIES = ("pair_sweep_dense", "stencil_apply_dense", "downsweep_dense",
+               "residual_restrict_dense")
+
+
+def variant_name(name: str, n_eps: int) -> str:
+    """Launch-counter name of an entry point's ``n_eps`` variant."""
+    return name if not n_eps else f"{name}[n_eps={n_eps}]"
+
+
+for _n in (1, 3):
+    for _e in EPS_ENTRIES:
+        _LAUNCHES[variant_name(_e, _n)] = 0
 
 
 def launch_counts() -> dict:
@@ -92,10 +112,23 @@ class DenseStencilConfig:
     (x-,x+,y-,y+,z-,z+) a (c0,c1,c2) tuple (ignored on periodic axes);
     b_const: per direction a static boundary value, or None when the
     value varies over the face (then a plane input is used);
-    periodic: (px, py, pz); dtype: torch.float32 or torch.float64.
+    periodic: (px, py, pz); dtype: torch.float32 or torch.float64;
+    n_eps: coefficient fields riding along with phi/rhs (0 = constant
+    coefficients, 1 = cell-centred eps of vlaplacian/vhelmholtz, 3 =
+    per-direction eps of ahelmholtz); eps_bc: per-face ghost synthesis
+    of the coefficient fields, which only the AMR patch solvers set —
+    not part of this package yet, so anything but None raises.
     """
 
-    def __init__(self, dims, idr2, bc, periodic, dtype, b_const=None):
+    def __init__(self, dims, idr2, bc, periodic, dtype, b_const=None,
+                 n_eps=0, eps_bc=None):
+        if eps_bc is not None:
+            raise NotImplementedError(
+                "eps_bc: plane-valued coefficient ghosts belong to the "
+                "dense-patch AMR solvers, still to be ported (ROADMAP A8)")
+        if int(n_eps) not in (0, 1, 3):
+            raise ValueError(f"n_eps must be 0, 1 or 3, got {n_eps}")
+        self.n_eps = int(n_eps)
         self.X, self.Y, self.Z = int(dims[0]), int(dims[1]), int(dims[2])
         self.dims = (self.X, self.Y, self.Z)
         self.idr2 = tuple(float(v) for v in idr2)
@@ -233,15 +266,55 @@ def _neighbor_ops(cfg, p, d, axis, masks, bpw):
     return torch.where(m_lo, glo, lo_raw), torch.where(m_hi, ghi, hi_raw)
 
 
+def _eps_neighbor_ops(e, d, axis, masks):
+    """(lo, hi) neighbour values of a coefficient field along dim d:
+    Neumann-zero physical ghosts (m_vlaplacian.f90:25-28,
+    m_ahelmholtz.f90:28-41), i.e. at a physical face the neighbour value
+    IS the cell's own value; periodic axes read the wrapped neighbour
+    (the roll, or the caller-synced pad planes)."""
+    lo_raw = torch.roll(e, +1, axis)
+    hi_raw = torch.roll(e, -1, axis)
+    if masks[d] is None:
+        return lo_raw, hi_raw
+    m_lo, m_hi = masks[d]
+    return torch.where(m_lo, e, lo_raw), torch.where(m_hi, e, hi_raw)
+
+
 _DIM_AXIS = ((0, 2), (1, 1), (2, 0))   # dim x,y,z -> array axis
 
 
-def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw):
+def _face_coeffs(cfg, eps, d, axis, masks):
+    """The two harmonic-mean face coefficients of dim d,
+    ``((2*e0)*e_nb)/(e0 + e_nb)*idr2[d]`` for the low and the high
+    neighbour; dim d reads eps[0] (n_eps 1) or eps[d] (n_eps 3)."""
+    e0 = eps[0] if cfg.n_eps == 1 else eps[d]
+    elo, ehi = _eps_neighbor_ops(e0, d, axis, masks)
+    idr2 = cfg.rnd(cfg.idr2[d])
+    return (2.0 * e0 * elo / (e0 + elo) * idr2,
+            2.0 * e0 * ehi / (e0 + ehi) * idr2)
+
+
+def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=()):
     """One masked GSRB half-sweep over the array (constant coefficient,
-    m_laplacian.f90 / m_helmholtz.f90 arithmetic order).
+    m_laplacian.f90 / m_helmholtz.f90 arithmetic order; with eps the
+    harmonic-mean form of m_vlaplacian.f90:51-128 /
+    m_ahelmholtz.f90:69-162: new = num / den, num = -rhs + sum c*nbr,
+    den = lam + sum c, accumulated per dim x, y, z, low side first).
 
     upd: boolean "parity == red parity" mask; red=True updates those
     cells, red=False the complement (same mask, swapped select arms)."""
+    if cfg.n_eps:
+        num = -rhs_w
+        den = cfg.rnd(lam)
+        for d, axis in _DIM_AXIS:
+            c_lo, c_hi = _face_coeffs(cfg, eps, d, axis, masks)
+            lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
+            num = num + c_lo * lo
+            den = den + c_lo
+            num = num + c_hi * hi
+            den = den + c_hi
+        new = num / den
+        return torch.where(upd, new, p) if red else torch.where(upd, p, new)
     acc = -rhs_w
     for d, axis in _DIM_AXIS:
         lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
@@ -250,38 +323,47 @@ def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw):
     return torch.where(upd, new, p) if red else torch.where(upd, p, new)
 
 
-def _apply_expr(cfg, p, lam, masks, bpw):
-    """A(phi) over the array: out = -lam*c; out += idr2[d]*(lo+hi-2c)."""
+def _apply_expr(cfg, p, lam, masks, bpw, eps=()):
+    """A(phi) over the array: out = -lam*c; out += idr2[d]*(lo+hi-2c),
+    or with eps out += c_lo*(lo - c) + c_hi*(hi - c) per dim."""
     out = (-cfg.rnd(lam)) * p
+    if cfg.n_eps:
+        for d, axis in _DIM_AXIS:
+            c_lo, c_hi = _face_coeffs(cfg, eps, d, axis, masks)
+            lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
+            out = out + c_lo * (lo - p)
+            out = out + c_hi * (hi - p)
+        return out
     for d, axis in _DIM_AXIS:
         lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
         out = out + cfg.rnd(cfg.idr2[d]) * (lo + hi - 2.0 * p)
     return out
 
 
-def _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity):
+def _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps=()):
     g = _full_iotas(cfg, phi.device)
     masks = _face_masks(cfg, g)
     upd = _parity_mask(g, red_parity)
     bpw = _bpw_full(cfg, bplanes)
-    p1 = _halfsweep(cfg, phi, rhs, lam, masks, upd, True, bpw)
-    return _halfsweep(cfg, p1, rhs, lam, masks, upd, False, bpw)
+    p1 = _halfsweep(cfg, phi, rhs, lam, masks, upd, True, bpw, eps)
+    return _halfsweep(cfg, p1, rhs, lam, masks, upd, False, bpw, eps)
 
 
-def _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs):
+def _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=()):
     """n_pairs single pairs with the periodic pads re-synced between
-    (what a fused multi-pair kernel computes in one pass)."""
+    (what a fused multi-pair kernel computes in one pass).  CPU callers
+    keep the periodic pads of the eps fields current."""
     for k in range(n_pairs):
         if k:
             sync_pads(cfg, phi)
-        phi = _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity)
+        phi = _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps)
     return phi
 
 
-def _apply_plain(cfg, phi, rhs, lam, bplanes, residual):
+def _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps=()):
     g = _full_iotas(cfg, phi.device)
     masks = _face_masks(cfg, g)
-    out = _apply_expr(cfg, phi, lam, masks, _bpw_full(cfg, bplanes))
+    out = _apply_expr(cfg, phi, lam, masks, _bpw_full(cfg, bplanes), eps)
     return rhs - out if residual else out
 
 
@@ -299,11 +381,12 @@ def _restrict_plain(cfg_f, fine):
     return out
 
 
-def _down_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs):
+def _down_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=()):
     if n_pairs:
-        phi = _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs)
+        phi = _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
+                           eps)
         sync_pads(cfg, phi)
-    res = _apply_plain(cfg, phi, rhs, lam, bplanes, True)
+    res = _apply_plain(cfg, phi, rhs, lam, bplanes, True, eps)
     return phi, _restrict_plain(cfg, phi), _restrict_plain(cfg, res)
 
 
@@ -353,6 +436,11 @@ class _LevelParams(ctypes.Structure):
                 ("plane", ctypes.c_void_p * 6)]
 
 
+class _EpsParams(ctypes.Structure):
+    """Mirror of ``EpsParams`` in csrc/stencil_common.cuh."""
+    _fields_ = [("n", ctypes.c_int), ("f", ctypes.c_void_p * 3)]
+
+
 def _check_field(cfg, t, name, shape=None):
     shape = tuple(cfg.pshape if shape is None else shape)
     if not t.is_cuda:
@@ -365,6 +453,33 @@ def _check_field(cfg, t, name, shape=None):
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _check_eps(cfg, eps, what):
+    """The coefficient fields of a call: exactly cfg.n_eps of them, of
+    the config's dtype and padded shape (on the card the launch checks
+    their device and layout too)."""
+    eps = tuple(eps)
+    if len(eps) != cfg.n_eps:
+        raise ValueError(f"{what}: {len(eps)} coefficient fields given, the "
+                         f"config has n_eps={cfg.n_eps}")
+    for i, e in enumerate(eps):
+        if e.dtype != cfg.dtype:
+            raise TypeError(f"{what}: eps[{i}] dtype {e.dtype}, config has "
+                            f"{cfg.dtype}")
+        if tuple(e.shape) != tuple(cfg.pshape):
+            raise ValueError(f"{what}: eps[{i}] shape {tuple(e.shape)}, "
+                             f"expected {cfg.pshape}")
+    return eps
+
+
+def _eps_params(cfg, eps) -> _EpsParams:
+    E = _EpsParams()
+    E.n = len(eps)
+    for i, e in enumerate(eps):
+        _check_field(cfg, e, f"eps[{i}]")
+        E.f[i] = e.data_ptr()
+    return E
 
 
 def _params(cfg, lam, bplanes, red_parity=0, n_sweeps=0) -> _LevelParams:
@@ -403,9 +518,11 @@ def _raise_on(err: int, what: str) -> None:
 _VP = ctypes.c_void_p
 _ARGTYPES = {
     "omg_stencil_sweep": [ctypes.c_int, ctypes.c_int,
-                          ctypes.POINTER(_LevelParams), _VP, _VP, _VP, _VP],
+                          ctypes.POINTER(_LevelParams),
+                          ctypes.POINTER(_EpsParams), _VP, _VP, _VP, _VP],
     "omg_downsweep": [ctypes.c_int, ctypes.c_int,
-                      ctypes.POINTER(_LevelParams), _VP, _VP, _VP, _VP, _VP,
+                      ctypes.POINTER(_LevelParams),
+                      ctypes.POINTER(_EpsParams), _VP, _VP, _VP, _VP, _VP,
                       _VP],
     "omg_restrict": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      _VP, _VP, _VP],
@@ -442,7 +559,7 @@ def _coarse_empty(cfg, like):
 # ---------------------------------------------------------------------------
 
 def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                     red_parity: int, n_pairs: int = 1):
+                     red_parity: int, n_pairs: int = 1, eps=()):
     """Fused [red half-sweep, ghost refresh, black half-sweep] x n_pairs.
 
     phi/rhs: padded_shape(dims); lam: host scalar; bplanes: 6 padded
@@ -453,67 +570,78 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     n_pairs=2 is two full GSRB iterations (4 half-sweeps): identical per
     cell to two single pairs with a pad re-sync between.  On CUDA it is
     one pass over device memory with a 4-deep halo.  CPU tensors need
-    their periodic pads current (:func:`sync_pads`)."""
+    their periodic pads current (:func:`sync_pads`), eps fields too.
+    eps: cfg.n_eps padded coefficient fields."""
+    eps = _check_eps(cfg, eps, "pair_sweep_dense")
     if n_pairs not in (1, 2):
         raise ValueError("pair_sweep_dense: n_pairs must be 1 or 2")
     if n_pairs == 2 and not cfg.periodic_even:
         raise ValueError(f"pair_sweep_dense: a double pair needs even extents "
                          f"on periodic axes, got {cfg.dims}; run single pairs")
     if not phi.is_cuda:
-        return _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs)
+        return _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
+                            eps)
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes, red_parity, 2 * n_pairs)
+    E = _eps_params(cfg, eps)
     out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
-        _dt(cfg), _MODE_PAIRS, ctypes.byref(P), phi.data_ptr(),
-        rhs.data_ptr(), out.data_ptr(), _stream(phi))
+        _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), _stream(phi))
     _raise_on(err, "pair_sweep_dense")
-    _LAUNCHES["pair_sweep_dense"] += 1
+    _LAUNCHES[variant_name("pair_sweep_dense", cfg.n_eps)] += 1
     return out
 
 
 def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                        residual: bool):
+                        residual: bool, eps=()):
     """A(phi) (or rhs - A(phi)) in one pass (box_lpl/box_helmh +
-    residual_box, m_multigrid.f90:426-436).  Returns a new field."""
+    residual_box, m_multigrid.f90:426-436; with eps box_vlpl/box_vhelmh/
+    box_ahelmh).  Returns a new field."""
+    eps = _check_eps(cfg, eps, "stencil_apply_dense")
     if not phi.is_cuda:
-        return _apply_plain(cfg, phi, rhs, lam, bplanes, residual)
+        return _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps)
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes)
+    E = _eps_params(cfg, eps)
     out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_RESIDUAL if residual else _MODE_APPLY,
-        ctypes.byref(P), phi.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+        ctypes.byref(P), ctypes.byref(E), phi.data_ptr(), rhs.data_ptr(), out.data_ptr(),
         _stream(phi))
     _raise_on(err, "stencil_apply_dense")
-    _LAUNCHES["stencil_apply_dense"] += 1
+    _LAUNCHES[variant_name("stencil_apply_dense", cfg.n_eps)] += 1
     return out
 
 
 def _downsweep(name, cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
-               fine_out):
+               fine_out, eps):
+    eps = _check_eps(cfg, eps, name)
     if not cfg.even_dims:
         raise ValueError(f"{name}: every extent must be even, got {cfg.dims}")
     if not phi.is_cuda:
-        return _down_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs)
+        return _down_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
+                           eps)
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes, red_parity, 2 * n_pairs)
+    E = _eps_params(cfg, eps)
     phi_out = torch.empty_like(phi) if fine_out else None
     phi_c, ires_c = _coarse_empty(cfg, phi), _coarse_empty(cfg, phi)
     err = _fn("downsweep", "omg_downsweep")(
-        _dt(cfg), int(fine_out), ctypes.byref(P), phi.data_ptr(),
+        _dt(cfg), int(fine_out), ctypes.byref(P), ctypes.byref(E),
+        phi.data_ptr(),
         rhs.data_ptr(), phi_out.data_ptr() if fine_out else None,
         phi_c.data_ptr(), ires_c.data_ptr(), _stream(phi))
     _raise_on(err, name)
-    _LAUNCHES[name] += 1
+    _LAUNCHES[variant_name(name, cfg.n_eps)] += 1
     return phi_out, phi_c, ires_c
 
 
 def downsweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                    red_parity: int, n_pairs: int = 2):
+                    red_parity: int, n_pairs: int = 2, eps=()):
     """Fused V-cycle down-leg: n_pairs GSRB pairs, residual, and
     full-weighting restriction of BOTH phi and the residual
     (smooth_boxes + update_coarse's residual/restrict,
@@ -526,16 +654,17 @@ def downsweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     if n_pairs not in (1, 2):
         raise ValueError("downsweep_dense: n_pairs must be 1 or 2")
     return _downsweep("downsweep_dense", cfg, phi, rhs, lam, bplanes,
-                      red_parity, n_pairs, True)
+                      red_parity, n_pairs, True, eps)
 
 
-def residual_restrict_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes):
+def residual_restrict_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
+                            eps=()):
     """Fused plain update_coarse: residual + full-weighting restriction
     of BOTH phi and the residual, with NO full-size output
     (m_multigrid.f90:347-384 minus the smoothing).  Returns
     (phi_coarse, ires_coarse)."""
     _, phi_c, ires_c = _downsweep("residual_restrict_dense", cfg, phi, rhs,
-                                  lam, bplanes, 0, 0, False)
+                                  lam, bplanes, 0, 0, False, eps)
     return phi_c, ires_c
 
 

@@ -46,9 +46,17 @@ Two renderings of one expression, one rounding per operation in both:
   version, a CUDA tensor launches the hand-written kernel
   ``csrc/residual_df32.cu`` (built with ``--fmad=false``) or raises.
 
-Still to come with their callers: the double-float pair arithmetic and
-``residual_df32_vcoeff`` (variable coefficients), ``interp_rb_strip_df``
-(forests), the 2D forms, and the ``z_gates``-chunked evaluation.
+The variable-coefficient operators have harmonic-mean face coefficients
+whose products and quotients cannot be exact: ``residual_df32_vcoeff``
+evaluates their residual in double-float PAIR arithmetic (``df_add`` …
+``df_div``, ~2^-47 relative — float64-class but not error-free), as
+plain PyTorch ops on whatever device its tensors lie, as the JAX package
+leaves it to XLA.  Each operation is an eager kernel of its own, so no
+multiply-add contraction can eat an error term; it must not go through
+``torch.compile``, which fuses and may contract.
+
+Still to come with their callers: ``interp_rb_strip_df`` (forests), the
+2D forms, and the ``z_gates``-chunked evaluation.
 """
 from __future__ import annotations
 
@@ -140,9 +148,14 @@ def accumulate_df32_(xhi, xlo, delta, scratch):
     return xhi, xlo
 
 
-def split_f64(a64) -> Tuple[np.ndarray, np.ndarray]:
+def split_f64(a64):
     """Split a float64 array/scalar into an (hi, lo) float32 pair with
-    hi + lo == a64 to float32-pair precision (host, numpy; setup only)."""
+    hi + lo == a64 to float32-pair precision: numpy in, numpy out (on
+    the host); a tensor in, tensors out on its device (setup only)."""
+    if isinstance(a64, torch.Tensor):
+        a = a64.to(torch.float64)
+        hi = a.to(torch.float32)
+        return hi, (a - hi.to(torch.float64)).to(torch.float32)
     hi = np.asarray(a64, np.float64).astype(np.float32)
     lo = (np.asarray(a64, np.float64) - hi.astype(np.float64)).astype(
         np.float32)
@@ -163,8 +176,10 @@ _OK_C = (0.0, 1.0, -1.0, 2.0, -2.0)
 
 def df32_ok(cfg: dk.DenseStencilConfig) -> bool:
     """Whether the exact double-float residual covers this config (see
-    the module docstring for the conditions).  Every config of this
-    package has constant coefficients so far."""
+    the module docstring for the conditions); variable coefficients
+    take :func:`df32_vcoeff_ok` instead."""
+    if cfg.n_eps:
+        return False
     if len(set(cfg.idr2)) != 1 or not _is_pow2(cfg.idr2[0]):
         return False
     for d in range(3):
@@ -372,3 +387,153 @@ def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
     dk._raise_on(err, "residual_df32_dense")
     dk._LAUNCHES["residual_df32_dense"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# double-float PAIR arithmetic (variable-coefficient operators)
+#
+# The constant-coefficient residual above is ERROR-FREE (every product
+# exact by construction).  Variable-coefficient operators
+# (vlaplacian/vhelmholtz/ahelmholtz, m_vlaplacian.f90:84-128,
+# m_ahelmholtz.f90:69-162) have harmonic-mean face coefficients
+# 2*ea*eb/(ea+eb) whose product and quotient cannot be exact; double-float
+# ARITHMETIC (Dekker/Bailey pair operations built on the same TwoSum /
+# TwoProduct transformations) evaluates them to ~1-2 ulp of the float32
+# PAIR (~2^-47 relative), still the float64 accuracy class of the
+# reference (m_data_structures.f90:8).  Each operation renormalizes with
+# FastTwoSum, so errors do not grow past the pair ulp class over the
+# ~20-operation residual chain.  A pair is a tuple (hi, lo).
+# ---------------------------------------------------------------------------
+
+def df_add(a, b):
+    """(ah, al) + (bh, bl), ~1 ulp of the pair."""
+    s, e = two_sum(a[0], b[0])
+    return fast_two_sum(s, a[1] + b[1] + e)
+
+
+def df_sub(a, b):
+    s, e = two_sum(a[0], -b[0])
+    return fast_two_sum(s, a[1] - b[1] + e)
+
+
+def df_mul(a, b):
+    """(ah, al) * (bh, bl), ~2 ulp of the pair (Dekker mul2)."""
+    p, pe = two_prod(a[0], b[0])
+    return fast_two_sum(p, pe + a[0] * b[1] + a[1] * b[0])
+
+
+def df_div(a, b):
+    """(ah, al) / (bh, bl), ~3 ulp of the pair (Dekker div2: high
+    quotient + one exact-remainder correction step)."""
+    q1 = a[0] / b[0]
+    p, pe = two_prod(q1, b[0])
+    # r = a - q1*b, the high part via TwoSum (p is close to a[0])
+    rh, re = two_sum(a[0], -p)
+    rl = a[1] - pe - q1 * b[1] + re
+    q2 = (rh + rl) / b[0]
+    return fast_two_sum(q1, q2)
+
+
+def df_scale_pow2(a, s: float):
+    """Exact power-of-two scale of a pair."""
+    return s * a[0], s * a[1]
+
+
+def df32_vcoeff_ok(cfg: dk.DenseStencilConfig) -> bool:
+    """Gate for the double-float variable-coefficient residual: eps
+    present, per-dim power-of-two 1/dx^2 (the c*idr2 scale stays exact),
+    exact BC coefficient classes with static boundary values (the eps
+    ghosts are the Neumann-zero mirror, the only kind this package
+    has).  Unlike ``df32_ok`` the per-dim spacings need not be equal
+    (ahelmholtz grids)."""
+    if not cfg.n_eps:
+        return False
+    for d in range(3):
+        if not _is_pow2(cfg.idr2[d]):
+            return False
+        if cfg.periodic[d]:
+            continue
+        for nb in (2 * d, 2 * d + 1):
+            c0, c1, c2 = cfg.bc[nb]
+            if c1 not in _OK_C or c2 not in _OK_C:
+                return False
+            if cfg.b_const[nb] is None:
+                return False
+    return True
+
+
+def _ghost_pair(xh, xl, x2h, x2l, bc3, cb):
+    """Physical-face ghost as a df pair: c0*b + c1*x1 + c2*x2 with the
+    (c0*b) constant pre-split (cb) and c1, c2 in the exact class."""
+    c0, c1, c2 = bc3
+    cb_h, cb_l = cb
+    gv, ge = two_sum(c1 * xh, cb_h)
+    gl = c1 * xl + cb_l
+    if c2 != 0.0:
+        gv, e2 = two_sum(gv, c2 * x2h)
+        ge = ge + e2
+        gl = gl + c2 * x2l
+    return fast_two_sum(gv, gl + ge)
+
+
+def residual_df32_vcoeff(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi,
+                         rhslo, eps_pairs, cbs=None, lam_pair=None):
+    """r_hi ~= (rhs) - A(x) for the variable-coefficient operators on the
+    padded dense layout, in double-float pair arithmetic (~2^-47
+    relative, float64-class; see the section comment):
+
+        A(x) = -lam*x + sum_d [ c_lo*(x_lo - x) + c_hi*(x_hi - x) ],
+        c = 2*e0*e_nbr/(e0 + e_nbr) * idr2[d]
+
+    (the harmonic-mean form of the stencil kernels, m_vlaplacian.f90:
+    84-128; ahelmholtz uses eps_pairs[d] per dim, m_ahelmholtz.f90:
+    69-162).  eps_pairs: tuple of (eps_hi, eps_lo) padded float32 pairs,
+    length cfg.n_eps; eps ghosts are the Neumann-zero mirror (= own
+    value, exact).  Plain PyTorch over the whole padded array, on the
+    tensors' device, in the JAX package's operation order (its function
+    is plain XLA, no Pallas kernel); periodic z/y pads of every input
+    kept current by the caller."""
+    if cfg.dtype != torch.float32:
+        raise TypeError(f"residual_df32_vcoeff: float32 pairs only, the "
+                        f"config has {cfg.dtype}")
+    if not df32_vcoeff_ok(cfg):
+        raise ValueError("residual_df32_vcoeff called outside its gate "
+                         "(df32_vcoeff_ok)")
+    if len(eps_pairs) != cfg.n_eps:
+        raise ValueError(f"residual_df32_vcoeff: {len(eps_pairs)} eps "
+                         f"pairs, the config has n_eps={cfg.n_eps}")
+    if cbs is None:
+        cbs = _cb_pairs(cfg)
+    g = dk._full_iotas(cfg, xhi.device)
+    masks = dk._face_masks(cfg, g)
+    x = (xhi, xlo)
+    acc = (rhshi, rhslo)
+    for d, axis in dk._DIM_AXIS:
+        e0 = eps_pairs[0 if cfg.n_eps == 1 else d]
+        elo = (torch.roll(e0[0], +1, axis), torch.roll(e0[1], +1, axis))
+        ehi = (torch.roll(e0[0], -1, axis), torch.roll(e0[1], -1, axis))
+        vlo = (torch.roll(xhi, +1, axis), torch.roll(xlo, +1, axis))
+        vhi = (torch.roll(xhi, -1, axis), torch.roll(xlo, -1, axis))
+        if masks[d] is not None:
+            m_lo, m_hi = masks[d]
+            # eps: Neumann-zero mirror (ghost = own value — exact)
+            elo = (torch.where(m_lo, e0[0], elo[0]),
+                   torch.where(m_lo, e0[1], elo[1]))
+            ehi = (torch.where(m_hi, e0[0], ehi[0]),
+                   torch.where(m_hi, e0[1], ehi[1]))
+            # phi: full bc_to_gc synthesis as a pair
+            gl = _ghost_pair(xhi, xlo, vhi[0], vhi[1], cfg.bc[2 * d],
+                             cbs[2 * d])
+            gh = _ghost_pair(xhi, xlo, vlo[0], vlo[1], cfg.bc[2 * d + 1],
+                             cbs[2 * d + 1])
+            vlo = (torch.where(m_lo, gl[0], vlo[0]),
+                   torch.where(m_lo, gl[1], vlo[1]))
+            vhi = (torch.where(m_hi, gh[0], vhi[0]),
+                   torch.where(m_hi, gh[1], vhi[1]))
+        for enb, v in ((elo, vlo), (ehi, vhi)):
+            c = df_div(df_mul(e0, enb), df_add(e0, enb))
+            c = df_scale_pow2(c, 2.0 * cfg.idr2[d])
+            acc = df_sub(acc, df_mul(c, df_sub(v, x)))
+    if lam_pair is not None:
+        acc = df_add(acc, df_mul(x, lam_pair))
+    return acc[0]

@@ -27,9 +27,18 @@ The state is a dictionary of per-level tensors and is updated IN PLACE:
 ``fas_vcycle``/``fas_fmg`` return the same dictionary they were given (the JAX
 package returns a new pytree and donates the old buffers).
 
-Gating: 3D cartesian ``laplacian``/``helmholtz`` with GSRB on uniform
-trees.  Variable coefficients, AMR, forests, 2D and the boxed solver are
-not part of this package yet (``make_solver`` raises).
+Operators: ``laplacian``/``helmholtz`` and the variable-coefficient
+``vlaplacian``/``vhelmholtz`` (one coefficient field ``eps0``) and
+``ahelmholtz`` (``eps0``..``eps2``, one per direction).  Coefficients
+are written with ``set_coefficient`` on the finest level and restricted
+down every level by ``prepare_coefficient``; their ghosts are the
+reference's Neumann-zero default.  The direct coarse solve then probes
+the coarsest level's operator column by column (its matrix depends on
+the coefficients).
+
+Gating: 3D cartesian GSRB on uniform trees.  AMR, forests, 2D, the boxed
+solver and plane-valued coefficient ghosts (``eps_bc``) are not part of
+this package yet (``make_solver`` raises).
 """
 from __future__ import annotations
 
@@ -101,7 +110,7 @@ class _CapturedCycle:
 
     def __init__(self, solver, state, fn):
         self.epoch = solver._graph_epoch
-        self.tensors = {k: dict(state[k]) for k in _FIELD_KEYS}
+        self.tensors = {k: dict(state[k]) for k in solver._field_keys}
         self.planes = {lvl: list(p) for lvl, p in state["bc"].items()}
         before = dk.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
@@ -118,7 +127,8 @@ class _CapturedCycle:
 
     def matches(self, solver, state) -> bool:
         """Whether ``state`` still holds the tensors this graph is bound
-        to and the solver the boundary conditions it was captured with."""
+        to (coefficient fields included) and the solver the boundary
+        conditions and coarse factorization it was captured with."""
         return (self.epoch == solver._graph_epoch
                 and all(state[k][lvl] is t
                         for k, per_lvl in self.tensors.items()
@@ -139,7 +149,8 @@ class DenseMGSolver:
 
     State:
         {"phi": {lvl: [Z+2*PZ, Y+2*PY, X]}, "rhs": {...}, "iold": {...},
-         "ires": {...}, "bc": {lvl: [6 padded boundary-value planes]}}
+         "ires": {...}, "eps0".."eps{n_eps-1}": {...},
+         "bc": {lvl: [6 padded boundary-value planes]}}
     on ``config.device`` in ``config.dtype``, updated in place.
     """
 
@@ -154,10 +165,6 @@ class DenseMGSolver:
         if not dense_supported(tree, cfg):
             raise ValueError("DenseMGSolver: not a uniform 3D cartesian GSRB "
                              "configuration (see dense_supported)")
-        if _OP_N_EPS[cfg.operator]:
-            raise NotImplementedError(
-                f"operator {cfg.operator!r}: variable coefficients on the "
-                f"dense path are still to be ported (ROADMAP A7)")
         if cfg.fmg_mode not in ("split", "fused"):
             raise ValueError(f"MGConfig.fmg_mode must be 'split' or 'fused', "
                              f"got {cfg.fmg_mode!r}")
@@ -177,6 +184,9 @@ class DenseMGSolver:
         self.ndim = tree.ndim
         #: interior slicer into the padded per-level arrays
         self._isl = _ISL
+        #: coefficient fields carried by the state as eps0..eps{n-1};
+        #: ahelmholtz takes one per dimension (m_ahelmholtz.f90:25)
+        self.n_eps = min(_OP_N_EPS[cfg.operator], self.ndim)
         self.subtract_mean = tree.subtract_mean and cfg.operator == "laplacian"
         #: "direct" (default) or "smooth" (reference-faithful loop)
         self.coarse_solver = cfg.coarse_solver
@@ -191,7 +201,8 @@ class DenseMGSolver:
         self._direct = None  # built lazily after BC spec is final
         #: fmg_mode="fused": captured FMGs by (state, lam, have_guess);
         #: an entry is None after the eager first call and a
-        #: _CapturedCycle from the second on.  set_bc outdates them all.
+        #: _CapturedCycle from the second on.  set_bc and
+        #: prepare_coefficient outdate them all.
         self._graphs: Dict = {}
         self._graph_epoch = 0
 
@@ -264,7 +275,8 @@ class DenseMGSolver:
                            else None)
         return dk.DenseStencilConfig(
             dims=self.dims[lvl], idr2=idr2, bc=bc_full,
-            periodic=self.periodic, dtype=self.cfg.dtype, b_const=b_const)
+            periodic=self.periodic, dtype=self.cfg.dtype, b_const=b_const,
+            n_eps=self.n_eps)
 
     @property
     def _kcfgs(self) -> Dict[int, dk.DenseStencilConfig]:
@@ -275,7 +287,14 @@ class DenseMGSolver:
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
-    _field_keys = _FIELD_KEYS
+    @property
+    def _eps_keys(self) -> Tuple[str, ...]:
+        return tuple(f"eps{i}" for i in range(self.n_eps))
+
+    @property
+    def _field_keys(self) -> Tuple[str, ...]:
+        """All per-level fields of the state."""
+        return _FIELD_KEYS + self._eps_keys
 
     def _pshape(self, dims) -> Tuple[int, ...]:
         """Padded per-level array shape."""
@@ -291,9 +310,43 @@ class DenseMGSolver:
         state["bc"] = {}
         for lvl in self.levels:
             shape = self._pshape(self.dims[lvl])
-            for k in self._field_keys:
+            for k in _FIELD_KEYS:
                 state[k][lvl] = torch.zeros(shape, dtype=dt, device=dev)
+            # coefficient fields default to 1 (harmless harmonic means
+            # everywhere; the user overwrites via set_coefficient)
+            for k in self._eps_keys:
+                state[k][lvl] = torch.ones(shape, dtype=dt, device=dev)
             state["bc"][lvl] = self._eval_bc_planes(lvl)
+        return state
+
+    def set_coefficient(self, state, values, d: int = 0,
+                        lvl: Optional[int] = None):
+        """Write the cell-centred coefficient field eps{d} (the boxed
+        path's IVEPS+d variable) on the finest level, or on ``lvl``, in
+        place; follow with prepare_coefficient before solving."""
+        if not 0 <= d < self.n_eps:
+            raise ValueError(f"coefficient field {d}: operator "
+                             f"{self.cfg.operator!r} has {self.n_eps}")
+        if lvl is None:
+            lvl = self.levels[-1]
+        return self.set_interior(state, lvl, f"eps{d}", values)
+
+    def prepare_coefficient(self, state):
+        """Restrict the coefficient field(s) down every level, in place
+        (the reference expects eps present on all levels,
+        m_vhelmholtz.f90:7-10; ghost values are synthesized inline by the
+        kernels).  Drops the direct coarse factorization — it is probed
+        again from the new coarse-level eps on the next solve — and every
+        captured CUDA graph, which holds the old factorization's
+        addresses."""
+        for i in range(self.n_eps):
+            key = f"eps{i}"
+            for lvl in range(self.levels[-1], self.levels[0], -1):
+                coarse = dk.restrict_dense(self._kcfgs[lvl], state[key][lvl])
+                state[key][lvl - 1].copy_(coarse)
+        self._direct = None
+        self._graphs = {}
+        self._graph_epoch += 1
         return state
 
     def _eval_bc_planes(self, lvl: int) -> List[torch.Tensor]:
@@ -391,10 +444,17 @@ class DenseMGSolver:
 
     def _lam(self, lam) -> float:
         """The helmholtz parameter as a host scalar rounded to the
-        working dtype (0 for the laplacian, which ignores it)."""
-        if self.cfg.operator == "laplacian":
+        working dtype (0 for the lam-free operators, laplacian and
+        vlaplacian, which ignore it like the boxed dispatch)."""
+        if self.cfg.operator in ("laplacian", "vlaplacian"):
             lam = 0.0
         return self._kcfgs[self.levels[-1]].rnd(lam)
+
+    def _eps(self, state, lvl):
+        """The level's coefficient fields for the kernels (empty for the
+        constant-coefficient family), periodic pads synced on CPU."""
+        return tuple(self._sync_pads(state[f"eps{i}"][lvl], lvl)
+                     for i in range(self.n_eps))
 
     def _smooth(self, state, lvl, n_cycle, lam):
         """n_cycle GSRB cycles as fused pair kernels — double pairs (4
@@ -404,13 +464,14 @@ class DenseMGSolver:
         phi = state["phi"][lvl]
         rhs = self._sync_pads(state["rhs"][lvl], lvl)
         bp = state["bc"][lvl]
+        eps = self._eps(state, lvl)
         rem = n_cycle
         while rem > 0:
             k = 2 if (rem >= 2 and phi.is_cuda and cfg.periodic_even) else 1
             phi = self._sync_pads(phi, lvl)
             # substeps n=1,2 -> red parity (n+1)%2 = 0
             phi = dk.pair_sweep_dense(cfg, phi, rhs, lam, bp,
-                                      red_parity=0, n_pairs=k)
+                                      red_parity=0, n_pairs=k, eps=eps)
             rem -= k
         state["phi"][lvl] = phi
         return state
@@ -420,15 +481,15 @@ class DenseMGSolver:
         phi = self._sync_pads(state["phi"][lvl], lvl)
         state["ires"][lvl] = dk.stencil_apply_dense(
             cfg, phi, state["rhs"][lvl], lam, state["bc"][lvl],
-            residual=True)
+            residual=True, eps=self._eps(state, lvl))
         return state
 
     def _apply_op(self, state, lvl, lam):
         cfg = self._kcfgs[lvl]
         phi = self._sync_pads(state["phi"][lvl], lvl)
         return dk.stencil_apply_dense(cfg, phi, state["rhs"][lvl], lam,
-                                      state["bc"][lvl],
-                                      residual=False)
+                                      state["bc"][lvl], residual=False,
+                                      eps=self._eps(state, lvl))
 
     def _max_residual(self, state, lvl, lam):
         """(state, max |residual|) — a 0-dim tensor on the state's
@@ -450,7 +511,7 @@ class DenseMGSolver:
             cfg = self._kcfgs[lvl]
             phi_c, ires_c = dk.residual_restrict_dense(
                 cfg, state["phi"][lvl], state["rhs"][lvl], lam,
-                state["bc"][lvl])
+                state["bc"][lvl], eps=self._eps(state, lvl))
             state["phi"][lvl - 1] = phi_c
             state["ires"][lvl - 1] = ires_c
         else:
@@ -488,7 +549,7 @@ class DenseMGSolver:
         cfg = self._kcfgs[lvl]
         phi, phi_c, ires_c = dk.downsweep_dense(
             cfg, state["phi"][lvl], state["rhs"][lvl], lam,
-            state["bc"][lvl], red_parity=0)
+            state["bc"][lvl], red_parity=0, eps=self._eps(state, lvl))
         state["phi"][lvl] = phi
         state["phi"][lvl - 1] = phi_c
         state["ires"][lvl - 1] = ires_c
@@ -571,13 +632,55 @@ class DenseMGSolver:
             "V": V, "Vinv": Vinv, "d": d_eig,
             "tiny": 1e-10 * np.max(np.abs(d_eig))})
 
-    def _ensure_direct(self):
+    def _build_direct_probe(self, state):
+        """Probe the coarsest cycled level's operator column by column
+        through the stencil entry point the cycle uses (on the card: its
+        kernel, one launch per column), for the variable-coefficient
+        operators, whose matrix depends on the coarse-level eps in
+        ``state``.  A(lam) = A0 - lam*I, so probing at lam = 0 suffices;
+        the affine BC part A(0) is probed too and subtracted.  The
+        matrix is assembled in float64 on the host and eigendecomposed
+        there."""
+        lvl = self.levels[0]
+        cfg = self._kcfgs[lvl]
+        ishape = self._ishape(lvl)
+        m = int(np.prod(ishape))
+        eps = self._eps(state, lvl)
+        bp = state["bc"][lvl]
+        phi = torch.zeros(self._pshape(self.dims[lvl]), dtype=self.cfg.dtype,
+                          device=self.device)
+        inner = phi[self._isl]
+        cols = torch.empty((m + 1, m), dtype=self.cfg.dtype,
+                           device=self.device)
+        for j in range(m + 1):          # row m: A(0), the affine BC part
+            cell = np.unravel_index(min(j, m - 1), ishape)
+            if j < m:
+                inner[cell] = 1.0
+            self._sync_pads(phi, lvl)
+            out = dk.stencil_apply_dense(cfg, phi, phi, 0.0, bp,
+                                         residual=False, eps=eps)
+            cols[j] = out[self._isl].reshape(-1)
+            inner[cell] = 0.0
+        cols = cols.cpu().numpy().astype(np.float64)
+        A = cols[:m].T - cols[m][:, None]
+        return self._eigen_package(A)
+
+    def _ensure_direct(self, state=None):
+        """Build the direct coarse solve's eigenbasis if it is missing:
+        assembled from the stencil for constant coefficients, probed from
+        ``state``'s coarse-level eps otherwise (without a state the
+        variable-coefficient solver leaves it missing)."""
         if self.coarse_solver != "direct" or self._direct is not None:
             return
-        self._direct = self._build_direct() or "unavailable"
+        if self.n_eps:
+            if state is None:
+                return
+            self._direct = self._build_direct_probe(state) or "unavailable"
+        else:
+            self._direct = self._build_direct() or "unavailable"
 
     def _coarse_solve(self, state, lam):
-        self._ensure_direct()
+        self._ensure_direct(state)
         if isinstance(self._direct, dict):
             return self._coarse_direct(state, lam)
         return self._coarse_smooth(state, lam)
@@ -592,7 +695,7 @@ class DenseMGSolver:
         zero = torch.zeros_like(state["phi"][lvl])
         bterm = dk.stencil_apply_dense(
             cfg, zero, state["rhs"][lvl], lam, state["bc"][lvl],
-            residual=False)[isl].reshape(-1)
+            residual=False, eps=self._eps(state, lvl))[isl].reshape(-1)
         r = state["rhs"][lvl][isl].reshape(-1) - bterm
         comp = dd["Vinv"] @ r
         # a null mode of A stays null only while lam leaves it unshifted
@@ -720,7 +823,7 @@ class DenseMGSolver:
         """One FAS V-cycle, in place on ``state``.  Returns (state, res)
         with res a 0-dim tensor on the state's device (0 when
         ``need_res`` is False); nothing is read back to the host."""
-        self._ensure_direct()
+        self._ensure_direct(state)
         with self.timers.section("total V-cycle"):
             return self._vcycle(state, self._lam(lam), max_lvl, need_res)
 
@@ -734,7 +837,7 @@ class DenseMGSolver:
         have_guess): the first such call runs eagerly (and warms what is
         built lazily), the second captures and replays, later ones
         replay.  The result is bitwise the eager cycle's."""
-        self._ensure_direct()
+        self._ensure_direct(state)
         lam = self._lam(lam)
         with self.timers.section("total FMG cycle"):
             if need_res or not self._graphs_on(state):
@@ -760,7 +863,7 @@ class DenseMGSolver:
     def _capture(self, state, fn) -> _CapturedCycle:
         """``fn`` (a cycle on ``state``) as a CUDA graph; raises if the
         capture fails."""
-        self._ensure_direct()
+        self._ensure_direct(state)
         return _CapturedCycle(self, state, fn)
 
     @torch.no_grad()

@@ -21,7 +21,7 @@ class MGConfig:
     """Runtime configuration (the reference's mg_t public fields,
     m_data_structures.f90:250-342)."""
 
-    operator: str = "laplacian"          # laplacian|helmholtz (others wait)
+    operator: str = "laplacian"  # laplacian|helmholtz|vlaplacian|vhelmholtz|ahelmholtz
     geometry: str = "cartesian"
     smoother: str = "gsrb"               # gsrb|gs (aliased)
     n_cycle_down: int = 2

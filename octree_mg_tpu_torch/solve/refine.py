@@ -16,9 +16,13 @@ that rate far past the float32 floor.
 
 Gating: ``ops.df32.df32_ok`` (power-of-two 1/dx^2, constant-coefficient
 laplacian or helmholtz — lam rides an exact TwoProduct — and exact BC
-coefficient classes).  Variable coefficients, forests, 2D and sharded
-solvers have refinement classes in the JAX package that are still to be
-ported; ``solve_refined`` raises for them.
+coefficient classes), or for the variable-coefficient operators
+``ops.df32.df32_vcoeff_ok``: their residual is evaluated in double-float
+pair arithmetic (``residual_df32_vcoeff``, plain PyTorch ops, ~2^-47
+relative) from the float64 coefficient fields split into float32 pairs,
+and the hi parts are installed on the inner solver.  Forests, 2D and
+sharded solvers have refinement classes in the JAX package that are
+still to be ported; ``solve_refined`` raises for them.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 
 from ..ops import dense_kernels as dk
 from ..ops.df32 import (_cb_pairs, accumulate_df32_, df32_ok,
-                        residual_df32_dense, split_lam)
+                        df32_vcoeff_ok, residual_df32_dense,
+                        residual_df32_vcoeff, split_f64, split_lam)
 from .dense import DenseMGSolver, _ISL
 
 
@@ -46,15 +51,21 @@ class RefinedPoisson:
     residual's +lam*x term rides an exact Dekker TwoProduct with lam
     split on the host into a double-float pair (ops.df32.split_lam), so
     Helmholtz solves reach the same f64 accuracy class as Poisson.
-    Requires a solver built with operator="helmholtz" when lam != 0 (the
-    inner FMG must smooth with the same lam).
+    Requires a helmholtz-family solver (helmholtz, vhelmholtz,
+    ahelmholtz) when lam != 0 (the inner FMG must smooth with the same
+    lam).
 
     nch: the JAX package's z-chunk count of its whole-array residual;
     unused here (the kernel needs no chunking and the chunked plain form
     is still to be ported), kept for signature parity.
 
-    eps: coefficient fields of the variable-coefficient operators; not
-    ported yet (ROADMAP A7), so anything but None raises.
+    eps: the float64 coefficient fields of a variable-coefficient
+    solver, n_eps interior arrays [Z, Y, X] (numpy, or float64 tensors on
+    any device); required for such a solver and refused for a
+    constant-coefficient one.  They are split into float32 pairs for the
+    outer residual; ``solve`` installs the hi parts on the inner solver
+    (``set_coefficient`` + ``prepare_coefficient``) so that the inner FMG
+    preconditions with the outer operator.
     """
 
     def __init__(self, solver: DenseMGSolver, nch: Optional[int] = None,
@@ -63,12 +74,8 @@ class RefinedPoisson:
         self.solver = solver
         self.lam = float(lam)
         self.lam_pair = split_lam(lam)
-        if eps is not None:
-            raise NotImplementedError(
-                "eps=: variable-coefficient refinement (residual_df32_vcoeff "
-                "and the double-float pair arithmetic) is still to be ported "
-                "(ROADMAP A7)")
-        if self.lam != 0.0 and solver.cfg.operator != "helmholtz":
+        if self.lam != 0.0 and solver.cfg.operator not in (
+                "helmholtz", "vhelmholtz", "ahelmholtz"):
             raise ValueError("lam != 0 needs a helmholtz-family "
                              "inner solver (got %r)" % solver.cfg.operator)
         top = solver.levels[-1]
@@ -78,9 +85,31 @@ class RefinedPoisson:
             raise ValueError("RefinedPoisson refines a float32 inner "
                              "solver (build with MGConfig(dtype="
                              "torch.float32)); got %s" % cfg.dtype)
-        if not df32_ok(cfg):
-            raise ValueError("rhs/operator outside the df32 gate "
-                             "(ops.df32.df32_ok)")
+        self.n_eps = int(cfg.n_eps)
+        if self.n_eps:
+            # variable-coefficient operators: double-float pair
+            # arithmetic (~2^-47 relative — f64-class but not error-free)
+            if not df32_vcoeff_ok(cfg):
+                raise ValueError("rhs/operator outside the df32 vcoeff "
+                                 "gate (ops.df32.df32_vcoeff_ok)")
+            if eps is None:
+                raise ValueError(
+                    "variable-coefficient refinement needs the float64 "
+                    "coefficient fields: eps=[interior float64 array] * "
+                    "n_eps (split into double-float pairs here; the hi "
+                    "parts are installed on the inner solver)")
+            if len(eps) != self.n_eps:
+                raise ValueError(f"eps: {len(eps)} fields given, operator "
+                                 f"{solver.cfg.operator!r} has "
+                                 f"{self.n_eps}")
+        else:
+            if not df32_ok(cfg):
+                raise ValueError("rhs/operator outside the df32 gate "
+                                 "(ops.df32.df32_ok)")
+            if eps is not None:
+                raise ValueError("eps= given for a constant-coefficient "
+                                 "solver (operator %r)"
+                                 % solver.cfg.operator)
         # Refinement solves the error equation, which is HOMOGENEOUS:
         # the inner FMG must carry b = 0 on every face (else each outer
         # pass re-adds the boundary offset and the loop stalls at the
@@ -104,6 +133,11 @@ class RefinedPoisson:
         self._buffers = None
         self._graph = None      # the captured outer (fmg_mode="fused")
         self._warm = False
+        #: (eps_hi, eps_lo) padded float32 pairs of the coefficients,
+        #: periodic pads synced once (residual_df32_vcoeff reads them)
+        self._eps_pairs = tuple(
+            tuple(dk.sync_pads(cfg, self.pad(h)) for h in split_f64(a))
+            for a in (eps if self.n_eps else ()))
 
     # -- buffers ---------------------------------------------------------
     def _alloc(self):
@@ -131,12 +165,23 @@ class RefinedPoisson:
         is (garbage pads); returns max |r| over the interior as a 0-dim
         tensor on the device, not read back here."""
         solver, top = self.solver, self.top
-        solver._sync_pads(self.x_hi, top)
-        solver._sync_pads(self.x_lo, top)
-        r = residual_df32_dense(self.cfg, self.x_hi, self.x_lo, self.rhs_hi,
-                                self.rhs_lo, cbs=self.cbs,
-                                lam_pair=self.lam_pair,
-                                out=state["rhs"][top])
+        if self.n_eps:
+            # plain PyTorch ops, like the JAX package's plain XLA: they
+            # read the periodic z/y pads of x on every device (the
+            # kernels below read wrapped indices instead)
+            dk.sync_pads(self.cfg, self.x_hi)
+            dk.sync_pads(self.cfg, self.x_lo)
+            r = state["rhs"][top]
+            r.copy_(residual_df32_vcoeff(
+                self.cfg, self.x_hi, self.x_lo, self.rhs_hi, self.rhs_lo,
+                self._eps_pairs, cbs=self.cbs, lam_pair=self.lam_pair))
+        else:
+            solver._sync_pads(self.x_hi, top)
+            solver._sync_pads(self.x_lo, top)
+            r = residual_df32_dense(self.cfg, self.x_hi, self.x_lo,
+                                    self.rhs_hi, self.rhs_lo, cbs=self.cbs,
+                                    lam_pair=self.lam_pair,
+                                    out=state["rhs"][top])
         return torch.linalg.vector_norm(r[_ISL], float("inf"))
 
     def _outer(self, state):
@@ -168,12 +213,39 @@ class RefinedPoisson:
 
     # -- the loop --------------------------------------------------------
     @torch.no_grad()
+    def prepare(self, state, rhs_hi, rhs_lo):
+        """Set-up of a solve: the rhs pair padded in, x zeroed, and for
+        a variable-coefficient solver the hi parts of the coefficients
+        installed on the inner solver (the inner FMG preconditions with
+        them; their coarse chain and the probed coarse matrix are
+        rebuilt from them)."""
+        solver = self.solver
+        self._alloc()
+        self.pad(rhs_hi, out=self.rhs_hi)
+        self.pad(rhs_lo, out=self.rhs_lo)
+        if self.n_eps:
+            for i, (e_hi, _) in enumerate(self._eps_pairs):
+                solver.set_coefficient(state, e_hi[_ISL], i)
+            solver.prepare_coefficient(state)
+        solver._ensure_direct(state)
+        self.x_hi.zero_()
+        self.x_lo.zero_()
+
+    @torch.no_grad()
     def solve(self, state, rhs_hi, rhs_lo, n_outer: int = 8,
               rtol: float = 0.0):
         """rhs_hi/rhs_lo: interior [Z, Y, X] float32 pair
         (``ops.df32.split_f64`` converts a float64 rhs).  Returns
         (x_hi, x_lo interior views of the instance's buffers,
-        residual-max history, state).
+        residual-max history, state).  :meth:`prepare`, then
+        :meth:`iterate`."""
+        self.prepare(state, rhs_hi, rhs_lo)
+        return self.iterate(state, n_outer, rtol)
+
+    @torch.no_grad()
+    def iterate(self, state, n_outer: int = 8, rtol: float = 0.0):
+        """The outer loop of a prepared solve; returns what ``solve``
+        returns.
 
         The loop is [residual, FMG, accumulate] x n_outer and a closing
         residual: the JAX package's [accumulate, residual, FMG] loop
@@ -182,13 +254,6 @@ class RefinedPoisson:
         device tensors until the end, and the host runs ahead of the
         card.  With ``rtol > 0`` each outer reads its norm and the loop
         ends at the first one at or below ``rtol * norms[0]``."""
-        solver = self.solver
-        self._alloc()
-        self.pad(rhs_hi, out=self.rhs_hi)
-        self.pad(rhs_lo, out=self.rhs_lo)
-        solver._ensure_direct()
-        self.x_hi.zero_()
-        self.x_lo.zero_()
         norms_dev: List[torch.Tensor] = []
         for _ in range(n_outer):
             norms_dev.append(self._run_outer(state))
@@ -206,7 +271,9 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
     """One-shot convenience wrapper.  The JAX package picks the forest,
     sharded, 2D or plain refinement class by solver type; here only the
     uniform 3D dense solver exists so far and anything else raises.
-    lam != 0 = f64-class Helmholtz (operator='helmholtz' inner solver)."""
+    lam != 0 = f64-class Helmholtz (a helmholtz-family inner solver);
+    eps = the float64 coefficient fields of a variable-coefficient
+    solver (see RefinedPoisson)."""
     if not isinstance(solver, DenseMGSolver):
         raise NotImplementedError(
             f"solve_refined: no refinement class for "

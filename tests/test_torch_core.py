@@ -16,6 +16,11 @@ from octree_mg_tpu_torch.core import constants as pconst
 from octree_mg_tpu_torch.core.tree import build_amr_centered
 from octree_mg_tpu_torch.ops.ghost import bc_coeffs
 
+# The suite runs in several worker processes on a few cores and these
+# tensors are small: one intra-op thread per process keeps the
+# workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -136,8 +141,17 @@ def test_make_solver_raises_for_what_waits(case):
 
 @pytest.mark.parametrize("op", ["vlaplacian", "vhelmholtz", "ahelmholtz"])
 def test_variable_coefficients_raise(op):
+    """The variable-coefficient operators build on the dense path (their
+    tests are tests/test_torch_vcoeff.py); what still raises is the
+    plane-valued coefficient ghost synthesis of the AMR patch solvers."""
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    sv = port.make_solver(_tree3(), port.MGConfig(operator=op, device="cpu"))
+    assert isinstance(sv, port.DenseMGSolver) and sv.n_eps in (1, 3)
+    c = sv._kcfgs[sv.levels[-1]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.make_solver(_tree3(), port.MGConfig(operator=op, device="cpu"))
+        dk.DenseStencilConfig(c.dims, c.idr2, c.bc, c.periodic, c.dtype,
+                              b_const=c.b_const, n_eps=sv.n_eps,
+                              eps_bc=[(0.0, 1.0, 0.0)] * 6)
 
 
 def test_make_solver_dispatch_and_levels():
@@ -152,20 +166,21 @@ def test_make_solver_dispatch_and_levels():
 
 
 def test_solve_refined_names_what_is_missing():
-    """The constant-coefficient refined solve is there (its own tests are
-    tests/test_torch_refine.py); what is not names its ROADMAP item, and
-    a float64 solver is told what the refined mode needs."""
+    """The refined solve is there (its own tests are
+    tests/test_torch_refine.py and tests/test_torch_df32_vcoeff.py); what
+    is not names its ROADMAP item, a float64 solver is told what the
+    refined mode needs, and a constant-coefficient solver refuses eps=."""
     ps = port.PoissonSolver(3, (16,) * 3, 8, device="cpu")
     rhs = np.zeros((16,) * 3)
     with pytest.raises(ValueError, match="float32"):
         ps.solve_refined(rhs)
-    with pytest.raises(NotImplementedError, match="A7"):
-        port.solve_refined(ps.solver, None, rhs, rhs, eps=[rhs])
     with pytest.raises(NotImplementedError, match="A9"):
         port.solve_refined(object(), None, rhs, rhs)
     ps32 = port.PoissonSolver(3, (16,) * 3, 8, dtype=torch.float32,
                               device="cpu")
     ps32.set_dirichlet(0.0)
+    with pytest.raises(ValueError, match="eps"):
+        port.solve_refined(ps32.solver, None, rhs, rhs, eps=[rhs])
     phi, info = ps32.solve_refined(rhs, n_outer=1)
     assert phi.dtype == np.float64 and not phi.any()
     assert info["residuals"] == [0.0, 0.0]

@@ -88,3 +88,105 @@ def test_refined_solve_on_card_matches_cpu(mode):
     scale = np.abs(out["cpu"]).max()
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
                                atol=1e-11 * scale)
+
+
+@pytest.mark.cuda
+def test_eps_fields_on_card_are_checked():
+    """A coefficient field of the wrong shape, dtype or device raises on
+    the card; nothing falls back to the plain version."""
+    need_cuda()
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    cfg = dk.DenseStencilConfig((16, 8, 8), (1.0,) * 3,
+                                [(2.0, -1.0, 0.0)] * 6, (False,) * 3,
+                                torch.float32, b_const=[0.0] * 6, n_eps=1)
+    a = torch.zeros(cfg.pshape, dtype=torch.float32, device="cuda")
+    before = dk.launch_counts()
+    with pytest.raises(ValueError, match="shape"):
+        dk.stencil_apply_dense(cfg, a, a, 0.0, [None] * 6, False,
+                               eps=[a[1:]])
+    with pytest.raises(TypeError, match="dtype"):
+        dk.pair_sweep_dense(cfg, a, a, 0.0, [None] * 6, 0, eps=[a.double()])
+    with pytest.raises(ValueError, match="CUDA"):
+        dk.downsweep_dense(cfg, a, a, 0.0, [None] * 6, 0, eps=[a.cpu()])
+    assert dk.launch_counts() == before
+    dk.residual_restrict_dense(cfg, a, a, 0.0, [None] * 6, eps=[a + 1])
+    assert dk.launch_counts()["residual_restrict_dense[n_eps=1]"] == \
+        before["residual_restrict_dense[n_eps=1]"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operator", ["vlaplacian", "ahelmholtz"])
+def test_vcoeff_solver_on_card_matches_cpu(operator):
+    """32^3 float64, two FMGs with smooth coefficients and plane-valued
+    Dirichlet faces: card (eps kernels, probed coarse matrix from the
+    kernel) and CPU agree to 1e-11 of max|phi|."""
+    need_cuda()
+    import octree_mg_tpu_torch as port
+    rhs = np.random.default_rng(1).normal(size=(32,) * 3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ps = port.PoissonSolver(3, (32,) * 3, 8, operator=operator,
+                                device=dev)
+        ps.set_dirichlet(fn=lambda x: np.sin(3 * x[..., 0]) + x[..., 2])
+        sv = ps.solver
+        st = ps._ensure_state()
+        x = sv.cell_centers(sv.levels[-1])
+        for d in range(sv.n_eps):
+            sv.set_coefficient(st, 1.0 + 0.5 * np.cos(
+                2 * np.pi * (x[..., d] + 0.1 * d)), d)
+        sv.prepare_coefficient(st)
+        ps.set_rhs(arrays={sv.levels[-1]: rhs})
+        phi, info = ps.solve(lam=1.5, rtol=0.0, max_cycles=2)
+        out[dev] = phi.cpu().numpy()
+    scale = np.abs(out["cpu"]).max()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                               atol=1e-11 * scale)
+
+
+@pytest.mark.cuda
+def test_fused_vcoeff_after_second_prepare_is_bitwise_eager():
+    """fmg_mode="fused" on a vhelmholtz solver: a second
+    prepare_coefficient with new values outdates the captured graphs
+    (new coarse matrix, same coefficient tensors), and the replays keep
+    the eager bits (chip_smoke.py's fused_mode at 512^3 does the same)."""
+    need_cuda()
+    import octree_mg_tpu_torch as port
+    rng = np.random.default_rng(2)
+    rhs = rng.normal(size=(64,) * 3)
+    e1, e2 = (0.5 + rng.random((64,) * 3) for _ in range(2))
+    out = {}
+    for mode in ("split", "fused"):
+        ps = port.PoissonSolver(3, (64,) * 3, 16, operator="vhelmholtz",
+                                dtype=torch.float32, fmg_mode=mode)
+        ps.set_dirichlet(0.0)
+        sv, st = ps.solver, ps._ensure_state()
+        sv.set_coefficient(st, e1)
+        sv.prepare_coefficient(st)
+        ps.set_rhs(arrays={sv.levels[-1]: rhs})
+        snaps = []
+        for have in (False, True):
+            for _ in range(3):
+                sv.fas_fmg(st, lam=1.5, have_guess=have, need_res=False)
+        snaps.append(sv.interior(st, sv.levels[-1], "phi").clone())
+        sv.set_coefficient(st, e2)
+        sv.prepare_coefficient(st)
+        for _ in range(3):
+            sv.fas_fmg(st, lam=1.5, have_guess=True, need_res=False)
+        snaps.append(sv.interior(st, sv.levels[-1], "phi").clone())
+        out[mode] = snaps
+    for a, b in zip(out["split"], out["fused"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_refined_vcoeff_periodic_on_card_matches_cpu():
+    """ahelmholtz refined solve at 32^3, periodic in y and z: the outer
+    residual (plain PyTorch) reads periodic pad planes that the kernels
+    never write.  Card (eager and graphs) and CPU reach one float64-class
+    solution (chip_smoke.py's cpu_agreement runs the same check)."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    from octree_mg_tpu_torch.ops import df32 as df
+    chip_smoke.refined_vcoeff_periodic(port, df)

@@ -28,6 +28,11 @@ from octree_mg_tpu import BCType as RefBC
 
 from octree_mg_tpu_torch.ops import dense_kernels as dk
 
+# The suite runs in several worker processes on a few cores and these
+# tensors are small: one intra-op thread per process keeps the
+# workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 DIMS = (256, 16, 16)       # fine level: fused-downsweep eligible in JAX
 DIMS_C = (128, 8, 8)       # its coarse level (prolongation source)
 DR = 1.0 / 256

@@ -28,6 +28,11 @@ from octree_mg_tpu.models import PoissonSolver as RefPoisson
 import octree_mg_tpu_torch as port
 from octree_mg_tpu_torch import convert
 
+# The suite runs in several worker processes on a few cores and these
+# tensors are small: one intra-op thread per process keeps the
+# workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 EPS = np.finfo(np.float64).eps
 DIMS = (256, 16, 16)
 KEYS = ("phi", "rhs", "iold", "ires")

@@ -32,6 +32,11 @@ import octree_mg_tpu_torch as port
 from octree_mg_tpu_torch.ops import dense_kernels as dk
 from octree_mg_tpu_torch.ops import df32 as tdf
 
+# The suite runs in several worker processes on a few cores and these
+# tensors are small: one intra-op thread per process keeps the
+# workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
 SIZE, BOX = 32, 8
 ISL = dk._ISL
 
