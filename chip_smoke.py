@@ -12,7 +12,11 @@ object per line:
 * ``checks``   — every kernel against its plain PyTorch version on CUDA
   tensors: 256x128x128, small and ragged periodic levels and an odd one,
   float32 and float64, constant Dirichlet / Neumann / continuous /
-  plane-valued faces, NaN-filled pads; the double-float residual on the
+  plane-valued faces, NaN-filled pads; the forest's kernels on the same
+  levels (the half-sweep of both parities, also with identity-coefficient
+  plane faces; the corr_ready and set modes of the prolongation; the
+  segment pair (1 and 2 pairs), apply and residual with four ghost
+  layers per dim, on every level with even extents); the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
@@ -46,7 +50,8 @@ object per line:
   then the vhelmholtz solver with graphs against eager, bitwise, before
   and after a second ``prepare_coefficient`` with new coefficients;
 * ``cpu_agreement`` — the solver at 64^3 in float64 on the card and on
-  the CPU (plain versions), three FMGs, laplacian and ahelmholtz;
+  the CPU (plain versions), three FMGs, laplacian and ahelmholtz; the
+  32^3-base L and periodic forests the same way (footprint cells);
 * ``vcoeff_path`` — ``PoissonSolver(3, (512,)*3, 16, operator=...,
   dtype=float32)`` for vhelmholtz and ahelmholtz (lam 1.5, Dirichlet 0,
   coefficients 1 + 0.5 cos(2 pi (x_d + 0.1 d)) set and restricted on the
@@ -60,13 +65,30 @@ object per line:
   the first, ms per outer, device time of ``residual_df32_vcoeff`` (plain
   PyTorch ops; beside its bound) and of the inner FMG; the solution under a float64
   ahelmholtz solver's operator on the card within 1e-9 of the first norm;
+* ``forest_path`` — the dense forest at full width: the JAX package's
+  L-shaped benchmark forest (experiments/probe_forest_perf.py) at base
+  256, box 16 (level 1 256^3, level 2 a 512^3 canvas at 75 % fill, level
+  3 256^3; 1.2e8 leaf unknowns) through ``PoissonSolver(tree=...)`` in
+  float32, Dirichlet 0, a seeded normal rhs on the top level (the probe
+  puts ones there; see phase_forest_path): one zero-guess and
+  eight have-guess FMGs (footprint residuals must fall monotonically to
+  below 1e-3 of the first), then eight have-guess FMGs with one sync:
+  ``ms_per_fmg``, ``leaf_unknowns_per_s``, launches (the segment pair
+  and apply and the corr_ready prolongation must have run), peak memory;
+* ``forest_periodic`` — a fully periodic forest (base 128, box 16, a
+  corner patch): its full levels run the sequential path, so
+  ``half_sweep_dense`` must have run;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
   shape, and per coefficient variant ``name[n_eps=k]``: launches on its
   path (the float32 solve for the six stencil kernels, the refined solve
   for the double-float residual, the vcoeff solve for the variants),
   max_abs_err against the plain version, ms (median, CUDA events),
   plain_ms, bound_ms (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
-  whichever is larger), library_ms;
+  whichever is larger), library_ms; then the forest's kernels at the
+  shapes the forest paths give them (the segment pair and residual on
+  level 2's 512^3 canvas with its ghost layers, the corr_ready
+  correction 256^3 -> 512^3, the half-sweep on the periodic forest's
+  128^3 level) and the set mode at the main path's prolongation shape;
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -117,6 +139,34 @@ for _v in EPS_VARIANTS:
 #: sides come from restrict_dense alone and update_coarse (the caller of
 #: residual_restrict_dense) never runs
 CONST_KERNELS = tuple(k for k in SOURCES if k not in EPS_VARIANTS)
+#: the dense forest's kernels: the half-sweep of its sequential path, the
+#: segment-synthesis variants of its fused-canvas path and the two other
+#: modes of the prolongation (corr_ready: its correction; set: no caller
+#: in either package, checked and timed only)
+FOREST_VARIANTS = ("half_sweep_dense", "pair_sweep_dense[segs]",
+                   "stencil_apply_dense[segs]",
+                   "prolong_correct_dense[corr_ready]",
+                   "prolong_correct_dense[set]")
+SOURCES.update({
+    "half_sweep_dense": "octree_mg_tpu_torch/csrc/stencil_sweep.cu",
+    "pair_sweep_dense[segs]": "octree_mg_tpu_torch/csrc/seg_sweep.cu",
+    "stencil_apply_dense[segs]": "octree_mg_tpu_torch/csrc/seg_sweep.cu",
+    "prolong_correct_dense[corr_ready]":
+        "octree_mg_tpu_torch/csrc/prolong_correct.cu",
+    "prolong_correct_dense[set]":
+        "octree_mg_tpu_torch/csrc/prolong_correct.cu"})
+REPLACES.update({
+    "half_sweep_dense": "octree_mg_tpu/ops/dense_kernels.py:979",
+    "pair_sweep_dense[segs]": "octree_mg_tpu/ops/dense_kernels.py:932",
+    "stencil_apply_dense[segs]": "octree_mg_tpu/ops/dense_kernels.py:1061",
+    "prolong_correct_dense[corr_ready]":
+        "octree_mg_tpu/ops/dense_kernels.py:1213",
+    "prolong_correct_dense[set]": "octree_mg_tpu/ops/dense_kernels.py:1213"})
+#: what each forest phase must launch
+FOREST_PATH_KERNELS = ("pair_sweep_dense[segs]", "stencil_apply_dense[segs]",
+                       "prolong_correct_dense[corr_ready]", "restrict_dense")
+FOREST_PERIODIC_KERNELS = FOREST_PATH_KERNELS + ("half_sweep_dense",
+                                                 "stencil_apply_dense")
 FMG_KERNELS = tuple(k for k in CONST_KERNELS if k != "residual_df32_dense")
 REFINED_KERNELS = tuple(k for k in CONST_KERNELS
                         if k != "residual_restrict_dense")
@@ -180,6 +230,11 @@ def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
         b_const = [0.0] * 6
     elif bc_kind == "planes":
         bc = [(2.0, -1.0, 0.0)] * 6
+        b_const = [None] * 6
+    elif bc_kind == "forest":
+        # the forest's sequential levels: ghosts assembled into the
+        # planes, read with identity coefficients
+        bc = [(1.0, 0.0, 0.0)] * 6
         b_const = [None] * 6
     else:
         raise ValueError(bc_kind)
@@ -316,6 +371,74 @@ def variants(dk, cfg, field, planes, lam):
                     cfg, phi, iold, phi_f.clone(), planes)),
                 lambda: inner(dk._prolong_correct_plain(
                     cfg, phi, iold, phi_f.clone(), planes))))
+    out += forest_variants(dk, cfg, phi, rhs, planes, lam, phi_f)
+    return out
+
+
+def forest_variants(dk, cfg, phi, rhs, planes, lam, phi_f):
+    """The forest's kernels on a level: the half-sweep of both parities
+    and the corr_ready / set modes of the prolongation (cfg the coarse
+    level, phi_f a fine field twice its size)."""
+    isl = dk._ISL
+    out = []
+    for parity in (0, 1):
+        out.append((f"half_sweep{parity}",
+                    lambda parity=parity: (dk.half_sweep_dense(
+                        cfg, phi, rhs, lam, planes, parity)[isl],),
+                    lambda parity=parity: (dk._half_plain(
+                        cfg, phi, rhs, lam, planes, parity)[isl],)))
+    for mode in ("corr_ready", "set"):
+        kw = dict(corr_ready=True) if mode == "corr_ready" else dict(add=False)
+        out.append((f"prolong_correct[{mode}]",
+                    lambda kw=kw: (dk.prolong_correct_dense(
+                        cfg, phi, None, phi_f.clone(), planes, **kw)[isl],),
+                    lambda mode=mode: (dk._prolong_correct_plain(
+                        cfg, phi, None, phi_f.clone(), planes, mode)[isl],)))
+    return out
+
+
+def seg_variants(dk, dims, dtype, seed, lam):
+    """The segment-synthesis variants of pair (1 and 2 pairs), apply and
+    residual on a canvas with four ghost layers per dim (both canvas
+    faces, where phys and rb layers lie, and two inside the canvas, where
+    ring layers lie) whose coefficient planes are random and whose masks
+    cover ~70 % of each layer; NaN pads."""
+    X, Y, Z = dims
+    idr2 = (1.0 / X ** 2 * 4, 1.0 / Y ** 2 * 2, 1.0 / Z ** 2)
+    cfg = dk.DenseStencilConfig(dims, idr2, [(1.0, 0.0, 0.0)] * 6,
+                                (True,) * 3, dtype, b_const=[0.0] * 6)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    segs, planes = [], []
+    for d, n in enumerate(dims):
+        segs += [(d, -1, 0), (d, n, 1), (d, n // 2 - 1, 0), (d, n // 2, 1)]
+    for d, _, _ in segs:
+        a = torch.randn(dk._seg_plane_shape(cfg, d), generator=g,
+                        dtype=dtype, device="cuda")
+        a[3] = (torch.rand(a.shape[1:], generator=g, device="cuda")
+                < 0.7).to(dtype)
+        planes.append(a)
+
+    def field():
+        a = torch.full(cfg.pshape, float("nan"), dtype=dtype, device="cuda")
+        a[dk._ISL] = torch.randn((Z, Y, X), generator=g, dtype=dtype,
+                                 device="cuda")
+        return a
+
+    phi, rhs, isl = field(), field(), dk._ISL
+    kw = dict(segs=segs, seg_planes=planes)
+    out = []
+    for n in (1, 2):
+        out.append((f"pairs{n}[segs]",
+                    lambda n=n: (dk.pair_sweep_dense(
+                        cfg, phi, rhs, lam, None, 0, n_pairs=n, **kw)[isl],),
+                    lambda n=n: (dk._seg_pairs_plain(
+                        cfg, phi, rhs, lam, 0, n, segs, planes)[isl],)))
+    for res in (False, True):
+        out.append((("residual" if res else "apply") + "[segs]",
+                    lambda res=res: (dk.stencil_apply_dense(
+                        cfg, phi, rhs, lam, None, res, **kw)[isl],),
+                    lambda res=res: (dk._seg_apply_plain(
+                        cfg, phi, rhs, lam, res, segs, planes)[isl],)))
     return out
 
 
@@ -346,6 +469,20 @@ def phase_checks(dk, df, quick):
                                            seed, n_eps=n_eps)
                     cases += eps_variants(dk, ce, fe, pe, lam,
                                           eps_fields(dk, ce, seed))
+                if bc_kind == "planes":
+                    # the forest's own configurations: identity-coefficient
+                    # plane faces, and segment synthesis
+                    seed += 1
+                    cf, ff, pf = make_case(dk, dims, per, "forest", dtype,
+                                           seed)
+                    X, Y, Z = dims
+                    cf_f = dk.DenseStencilConfig(
+                        (2 * X, 2 * Y, 2 * Z), cf.idr2, cf.bc, cf.periodic,
+                        dtype, b_const=cf.b_const)
+                    cases += forest_variants(dk, cf, ff(cf), ff(cf), pf,
+                                             lam, ff(cf_f))
+                    if all(v % 2 == 0 for v in dims):
+                        cases += seg_variants(dk, dims, dtype, seed, lam)
                 for name, kern, plain in cases:
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
@@ -382,7 +519,11 @@ def phase_checks(dk, df, quick):
                              "max_ulp": u})
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] for r in rows)
+    forest = [r for r in rows if "segs" in r["kernel"] or "half" in
+              r["kernel"] or "[" in r["kernel"] and "prolong" in r["kernel"]]
     emit({"checks": {"cases": len(rows), "eps_cases": n_eps_cases,
+                     "forest_cases": len(forest),
+                     "forest_max_ulp": max(r["max_ulp"] for r in forest),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -420,6 +561,8 @@ def work_model(name, n_f, n_c, item):
     and the division), an application 49 (the coefficients, three per
     side, -lam*p), a residual 50; the double pair updates each cell twice
     and the down-leg adds a residual and two restrictions."""
+    if name in FOREST_VARIANTS:
+        raise ValueError(f"{name}: see forest_work_model")
     if "[" in name:
         base, n_eps = name.split("[")[0], int(name.split("=")[1][:-1])
         nbytes = work_model(base, n_f, n_c, item)[0] + n_eps * n_f * item
@@ -446,6 +589,60 @@ def work_model(name, n_f, n_c, item):
         # and the closing terms (21): 87 flops on an interior cell
         "residual_df32_dense": (5 * n_f * item, 87 * n_f),
     }[name]
+
+
+def forest_work_model(name, n, n_c, plane_bytes, item):
+    """(bytes, flops) of a forest kernel call: n cells of the canvas (the
+    fine canvas of a prolongation), n_c of its coarse window,
+    plane_bytes the ghost planes it reads (the six faces of a half-sweep
+    and of a corr_ready window; the [4, T1, T2] planes of a segment
+    launch).  A half-sweep updates half the cells (11 flops each); a
+    segment pair or apply is the plain one plus its planes."""
+    return {
+        "half_sweep_dense": (3 * n * item + plane_bytes, 11 * n // 2),
+        "pair_sweep_dense[segs]": (3 * n * item + plane_bytes, 2 * 11 * n),
+        "stencil_apply_dense[segs]": (3 * n * item + plane_bytes, 15 * n),
+        # correction window in, fine field read and written
+        "prolong_correct_dense[corr_ready]": (
+            (n_c + 2 * n) * item + plane_bytes, 34 * n_c),
+        # coarse field in, fine field written
+        "prolong_correct_dense[set]": ((n_c + n) * item, 34 * n_c),
+    }[name]
+
+
+def timed_row(name, kern, plain, launches, per_fmg, shape, nbytes, flops,
+              extra=None, inplace=None):
+    """One ``kernels`` row: the kernel against its plain version (max abs
+    error, 0 required), kernel and plain times, bound.  inplace: the
+    buffer that both write into (the prolongation's fine field): each
+    of the two then starts from its original values and is compared on
+    a copy of what it left, never on two views of one storage."""
+    keep = inplace.clone() if inplace is not None else None
+    got = tuple(a.clone() for a in kern())
+    if keep is not None:
+        inplace.copy_(keep)
+    want = tuple(a.clone() for a in plain())
+    if keep is not None:
+        inplace.copy_(keep)
+    del keep
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not all(bool(torch.isfinite(a).all()) for a in got):
+        fail(f"{name}: non-finite output at {shape}")
+    del got, want
+    ms = time_ms(kern, 12)
+    plain_ms = time_ms(plain, 3, warmup=1)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    if err != 0.0:
+        fail(f"{name}: differs from its plain version at {shape} (max abs "
+             f"err {err}; tolerance 0, identical arithmetic)")
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_per_fmg": per_fmg, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "library_ms": None, "shape": list(shape), "dtype": "float32",
+            **(extra or {})}
 
 
 def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
@@ -1274,6 +1471,308 @@ def fused_vcoeff(pkg):
     return info
 
 
+# ---------------------------------------------------------------------------
+# the dense forest
+# ---------------------------------------------------------------------------
+
+def _refine(tm, t, lvl, pred):
+    ids = t.lvls[lvl].ids
+    pick = [int(b) for b in ids if pred(t.ix[int(b)])]
+    tm.add_children_bulk(t, np.array(pick, np.int64))
+    tm.set_leaves_parents(t, lvl)
+    tm.set_next_level_ids(t, lvl)
+    tm.set_neighbors_lvl(t, lvl + 1)
+
+
+def forest_tree(pkg, tm, kind, base, box):
+    """The forests of these checks and of the port's tests, built by
+    either package (``pkg`` and its tree module ``tm``, so that the tests
+    build the same tree in the JAX package): base cells a side (or an
+    (X, Y, Z) extent for "slab"), boxes of ``box`` cells, nb = base //
+    box boxes a side, h = (nb + 1) // 2.
+
+    * "L": the JAX package's forest benchmark tree
+      (experiments/probe_forest_perf.py:43-50), level 2 over ix0 <= h or
+      ix1 <= h (an L over three quarters of the domain), level 3 over
+      the corner ix <= h;
+    * "two": two disjoint corner patches, ix <= nb/2 and ix > nb/2;
+    * "periodic": a fully periodic domain with one corner patch ix <=
+      nb/2;
+    * "slab": an (X, Y, Z) domain with an L-shaped level 2 over iy <= c
+      or iz <= c, c half the boxes of y.
+
+    At base 16, box 4 the first three are tests/test_dense_forest.py's
+    forests, and "slab" at (64, 16, 16) is its _seg_tree."""
+    dims = [base] * 3 if isinstance(base, int) else list(base)
+    nb = dims[1] // box
+    h = (nb + 1) // 2
+    t = pkg.build_rectangle(3, dims, box, [1.0 / n for n in dims], [0] * 3,
+                            periodic=[kind == "periodic"] * 3)
+    if kind == "L":
+        _refine(tm, t, 1, lambda ix: ix[0] <= h or ix[1] <= h)
+        _refine(tm, t, 2, lambda ix: np.all(ix <= h))
+        tm.finalize_amr(t, 3)
+        return t
+    pick = {"two": lambda ix: np.all(ix <= nb // 2) or np.all(ix > nb // 2),
+            "periodic": lambda ix: np.all(ix <= nb // 2),
+            "slab": lambda ix: ix[1] <= nb // 2 or ix[2] <= nb // 2}[kind]
+    _refine(tm, t, 1, pick)
+    tm.finalize_amr(t, 2)
+    return t
+
+
+def leaf_unknowns(t, box):
+    """Leaf cells of the tree (experiments/probe_forest_perf.py:53-55)."""
+    return sum(len(t.lvls[l].leaves)
+               for l in range(1, t.highest_lvl + 1)) * box ** 3
+
+
+def footprint_finite(sv, state, lvl):
+    m = torch.as_tensor(sv.footprint_mask(lvl), device="cuda")
+    return bool(torch.isfinite(sv.interior(state, lvl, "phi")[m]).all())
+
+
+def phase_forest(pkg, dk, name, tree, box, rhs_top, need, dirichlet,
+                 n_have=8, n_timed=8):
+    """A forest through ``PoissonSolver(tree=...)`` in float32: one
+    zero-guess and ``n_have`` have-guess FMGs through ``solve`` (the
+    footprint max-norm residual after each), launches counted over that
+    run; then ``n_timed`` have-guess FMGs without the residual and one
+    synchronisation at the end.  Returns (solver, state, launches of the
+    run, launches per timed FMG, the emitted record)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = int(tree.domain_size_lvl[1][0])
+    ps = pkg.PoissonSolver(3, (base,) * 3, box, tree=tree,
+                           dtype=torch.float32)
+    sv = ps.solver
+    if not isinstance(sv, pkg.DenseForestMGSolver):
+        fail(f"{name}: make_solver gave {type(sv).__name__}")
+    if dirichlet:
+        ps.set_dirichlet(0.0)
+    top = sv.levels[-1]
+    ps.set_rhs(arrays={top: rhs_top(sv, top)})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dk.reset_launch_counts()
+    phi, info = ps.solve(rtol=0.0, atol=0.0, max_cycles=1 + n_have)
+    launches = dk.launch_counts()
+    hist = info["residuals"]
+    if tuple(phi.shape) != sv._ishape(top) or not footprint_finite(
+            sv, ps.state, top):
+        fail(f"{name}: phi has a wrong shape or non-finite footprint values")
+    check_fmg_history(hist, name)
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"{name} launched no kernel for {missing}")
+    state = ps.state
+    sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t1 = time.perf_counter()
+    for _ in range(n_timed):
+        sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / n_timed
+    per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items() if v}
+    n_unk = leaf_unknowns(tree, box)
+    rec = {"model": f"PoissonSolver(tree={name} base {base} box {box}, "
+                    f"float32), laplacian, "
+                    f"{'Dirichlet 0' if dirichlet else 'fully periodic'}",
+           "levels": {str(l): {"canvas": list(sv.dims[l]),
+                               "fill": sv.geom[l].n_cells
+                               / float(np.prod(sv.dims[l])),
+                               "path": "seg" if sv._seg_desc(l) is not None
+                               else "sequential",
+                               "ghost_layers": None if sv._seg_desc(l) is None
+                               else len(sv._seg_desc(l)[0].segs)}
+                      for l in sv.levels},
+           "leaf_unknowns": n_unk, "residuals": hist, "cycles": len(hist),
+           "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+           "setup_s": setup_s, "ms_per_fmg": 1e3 * dt,
+           "leaf_unknowns_per_s": n_unk / dt,
+           "launches_in_solve": {k: v for k, v in launches.items() if v},
+           "launches_per_fmg": per_fmg,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    return sv, state, launches, per_fmg, rec
+
+
+def phase_forest_path(pkg, dk, base=256):
+    """The slice at full width: the L forest at base 256, box 16 (level 2
+    a 512^3 canvas at 75 % fill), Dirichlet 0, laplacian, float32 (the
+    JAX package's probe_forest_perf.py set-up), with a seeded normal rhs
+    on the top level where the probe puts ones: with ones the float32
+    footprint residual reaches its floor within ~100x of the first FMG's
+    (88x at base 128 on the CPU), so the 1e-3 convergence check could
+    not tell a working cycle from a broken one; the time of an FMG does
+    not depend on the values.  Then the kernel rows
+    of its segment launches and its correction at the shapes it gives
+    them: level 2's canvas with its ghost layers, and the 256^3 -> 512^3
+    correction window."""
+    box = 16
+    from octree_mg_tpu_torch.core import tree as tm
+    tree = forest_tree(pkg, tm, "L", base, box)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sv, state, launches, per_fmg, rec = phase_forest(
+        pkg, dk, "forest_path", tree, box,
+        lambda sv, top: torch.randn(sv._ishape(top), generator=g,
+                                    dtype=torch.float32, device="cuda"),
+        FOREST_PATH_KERNELS, dirichlet=True)
+    emit({"forest_path": rec})
+    rows = []
+    lvl = 2
+    cfg = sv._seg_kcfg(lvl)
+    descs, planes = sv._seg_data(state, lvl)
+    phi, rhs, isl = state["phi"][lvl], state["rhs"][lvl], dk._ISL
+    n = int(np.prod(sv.dims[lvl]))
+    pb = sum(p.numel() for p in planes) * 4
+    shape = list(sv.dims[lvl])
+    extra = {"ghost_layers": len(descs.segs), "level": lvl}
+    rows.append(timed_row(
+        "pair_sweep_dense[segs]",
+        lambda: (dk.pair_sweep_dense(cfg, phi, rhs, 0.0, None, 0, n_pairs=2,
+                                     segs=descs, seg_planes=planes)[isl],),
+        lambda: (dk._seg_pairs_plain(cfg, phi, rhs, 0.0, 0, 2, descs.segs,
+                                     planes)[isl],),
+        launches["pair_sweep_dense[segs]"],
+        per_fmg.get("pair_sweep_dense[segs]", 0), shape,
+        *forest_work_model("pair_sweep_dense[segs]", n, 0, pb, 4),
+        dict(extra, n_pairs=2)))
+    rows.append(timed_row(
+        "stencil_apply_dense[segs]",
+        lambda: (dk.stencil_apply_dense(cfg, phi, rhs, 0.0, None, True,
+                                        segs=descs, seg_planes=planes)[isl],),
+        lambda: (dk._seg_apply_plain(cfg, phi, rhs, 0.0, True, descs.segs,
+                                     planes)[isl],),
+        launches["stencil_apply_dense[segs]"],
+        per_fmg.get("stencil_apply_dense[segs]", 0), shape,
+        *forest_work_model("stencil_apply_dense[segs]", n, 0, pb, 4),
+        dict(extra, residual=True)))
+    # the correction of level 2 from level 1: its window is level 1's
+    # whole 256^3 canvas with a ring
+    X, Y, Z = sv.dims[lvl]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    sub = torch.randn((Z // 2 + 2, Y // 2 + 2, X // 2 + 2), generator=g,
+                      device="cuda")
+    cfg_w, cp, wplanes = sv._corr_window(sub)
+    fine = phi.clone()
+    del state, sv
+    torch.cuda.empty_cache()
+    n_c = (X // 2) * (Y // 2) * (Z // 2)
+    wpb = sum(p.numel() for p in wplanes) * 4
+    rows.append(timed_row(
+        "prolong_correct_dense[corr_ready]",
+        lambda: (dk.prolong_correct_dense(cfg_w, cp, None, fine, wplanes,
+                                          corr_ready=True)[isl],),
+        lambda: (dk._prolong_correct_plain(cfg_w, cp, None, fine, wplanes,
+                                           "corr_ready")[isl],),
+        launches["prolong_correct_dense[corr_ready]"],
+        per_fmg.get("prolong_correct_dense[corr_ready]", 0), shape,
+        *forest_work_model("prolong_correct_dense[corr_ready]", n, n_c,
+                           wpb, 4),
+        {"window": [X // 2 + 2, Y // 2 + 2, Z // 2 + 2]}, inplace=fine))
+    return rows, launches
+
+
+def phase_forest_periodic(pkg, dk, base=128):
+    """The fully periodic forest at base 128, box 16, one corner patch: its
+    full periodic levels carry wrap segments and run the sequential path
+    (ring writes, assembled face planes, ``half_sweep_dense`` between
+    refreshes), the patch the segment path.  rhs: seeded normal on the
+    top level (the solver removes its mean).  Then the half-sweep's kernel
+    row at level 1's 128^3 canvas with its assembled planes."""
+    box = 16
+    from octree_mg_tpu_torch.core import tree as tm
+    tree = forest_tree(pkg, tm, "periodic", base, box)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    sv, state, launches, per_fmg, rec = phase_forest(
+        pkg, dk, "forest_periodic", tree, box,
+        lambda sv, top: torch.randn(sv._ishape(top), generator=g,
+                                    dtype=torch.float32, device="cuda"),
+        FOREST_PERIODIC_KERNELS, dirichlet=False)
+    emit({"forest_periodic": rec})
+    lvl = 1
+    cfg = sv._kcfgs[lvl]
+    ringed, planes, _ = sv._assemble(state, lvl, "phi")
+    rhs, isl = state["rhs"][lvl], dk._ISL
+    n = int(np.prod(sv.dims[lvl]))
+    row = timed_row(
+        "half_sweep_dense",
+        lambda: (dk.half_sweep_dense(cfg, ringed, rhs, 0.0, planes, 0)[isl],),
+        lambda: (dk._half_plain(cfg, ringed, rhs, 0.0, planes, 0)[isl],),
+        launches["half_sweep_dense"], per_fmg.get("half_sweep_dense", 0),
+        list(sv.dims[lvl]),
+        *forest_work_model("half_sweep_dense", n, 0,
+                           sum(p.numel() for p in planes) * 4, 4),
+        {"level": lvl, "parity": 0})
+    del state, sv
+    torch.cuda.empty_cache()
+    return [row], launches
+
+
+def phase_set_mode_row(dk, launches_forest, n=512):
+    """The set mode (no caller in either package) timed at the main
+    path's 256^3 -> 512^3 prolongation."""
+    cfg_c, field_c, planes_c = make_case(dk, (n // 2,) * 3, (False,) * 3,
+                                         "dirichlet", torch.float32, 98,
+                                         nan_pads=False)
+    cfg_c.b_const = [0.0] * 6
+    phi_c = field_c(cfg_c)
+    # random, not zeros: on zeros a kernel that added would pass as set
+    g = torch.Generator(device="cuda").manual_seed(23)
+    fine = torch.randn(dk.padded_shape((n,) * 3), generator=g,
+                       device="cuda")
+    isl = dk._ISL
+    row = timed_row(
+        "prolong_correct_dense[set]",
+        lambda: (dk.prolong_correct_dense(cfg_c, phi_c, None, fine, planes_c,
+                                          add=False)[isl],),
+        lambda: (dk._prolong_correct_plain(cfg_c, phi_c, None, fine,
+                                           planes_c, "set")[isl],),
+        launches_forest["prolong_correct_dense[set]"], 0, [n] * 3,
+        *forest_work_model("prolong_correct_dense[set]", n ** 3,
+                           (n // 2) ** 3, 0, 4),
+        {"path": "no caller in either package: checked and timed only"},
+        inplace=fine)
+    del fine, phi_c
+    torch.cuda.empty_cache()
+    return row
+
+
+def forest_cpu_agreement(pkg, kinds=("L", "periodic")):
+    """The 32^3-base L forest and the periodic forest, float64, three
+    FMGs on the card and on the CPU (plain versions), footprint cells."""
+    from octree_mg_tpu_torch.core import tree as tm
+    out = {}
+    rng = np.random.default_rng(17)
+    for kind in kinds:
+        res, phis = {}, {}
+        for dev in ("cuda", "cpu"):
+            t = forest_tree(pkg, tm, kind, 32, 8)
+            ps = pkg.PoissonSolver(3, (32,) * 3, 8, tree=t,
+                                   dtype=torch.float64, device=dev)
+            sv = ps.solver
+            if kind == "L":
+                ps.set_dirichlet(0.25)
+            top = sv.levels[-1]
+            if dev == "cuda":
+                rhs = rng.normal(size=sv._ishape(top))
+            ps.set_rhs(arrays={top: rhs})
+            phi, info = ps.solve(rtol=0.0, max_cycles=3)
+            phis[dev] = np.where(sv.footprint_mask(top),
+                                 phi.cpu().numpy(), 0.0)
+            res[dev] = np.array(info["residuals"])
+        out[f"forest_{kind}"] = {
+            "phi_max_rel_diff": float(np.abs(phis["cuda"] - phis["cpu"]).max()
+                                      / np.abs(phis["cpu"]).max()),
+            "residual_max_rel_diff": float(np.max(
+                np.abs(res["cuda"] - res["cpu"]) / np.abs(res["cpu"]))),
+            "residuals_cuda": res["cuda"].tolist(),
+            "residuals_cpu": res["cpu"].tolist()}
+    return out
+
+
 def phase_cpu_agreement(pkg, df):
     """64^3 float64, three FMGs, on the card and on the CPU.  The stencil
     arithmetic is identical on both; the two matrix-vector products of
@@ -1311,6 +1810,7 @@ def phase_cpu_agreement(pkg, df):
                     "residual_max_rel_diff": res_d,
                     "residuals_cuda": out["cuda"][1].tolist(),
                     "residuals_cpu": out["cpu"][1].tolist()}
+    rows.update(forest_cpu_agreement(pkg))
     emit({"cpu_agreement": {
         "dims": [n] * 3, "dtype": "float64", "fmgs": 3,
         "bound": bound, "residual_bound": bound_res,
@@ -1376,11 +1876,15 @@ def main(argv) -> int:
              if vcoeff[int(k.split("=")[1][:-1])][0][k] == 0]
     if never:
         fail(f"the variable-coefficient paths never launched {never}")
+    forest_rows, launches_forest = phase_forest_path(pkg, dk)
+    periodic_rows, launches_periodic = phase_forest_periodic(pkg, dk)
+    forest_rows += periodic_rows
+    forest_rows.append(phase_set_mode_row(dk, launches_forest))
     rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
                                         vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,
           "seconds_after_build": time.perf_counter() - t0})
-    emit({"kernels": rows})
+    emit({"kernels": rows + forest_rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,13 @@ disassembled with ``cuobjdump -sass``.  Each kernel of OTHER_ROOT is held
 against its counterpart here, instruction by instruction: the
 instruction text and both 64-bit words of its encoding, addresses
 dropped.  The counterpart has the same name and template arguments, or
-those arguments followed by a trailing 0 (the coefficient count NE = 0
-that the streaming kernel gained).  Kernels here without a counterpart
-there (the NE = 1 and NE = 3 variants) are listed as new.
+those arguments followed by a trailing 0: the template parameter a
+kernel gained since (the coefficient count NE = 0 of the streaming
+kernel against a tree before it; against a tree that has NE, the
+streaming kernel's SEG = 0 and the prolongation's MODE = 0, add).
+Kernels here without a counterpart there (new variants: NE = 1 and 3,
+SEG = 1, the NS = 1 half-sweep, prolongation modes 1 and 2) are listed
+as new.
 
 Prints one JSON object: {"kernels": [{"name", "counterpart",
 "instructions", "identical", "first_difference"}], "new": [...],

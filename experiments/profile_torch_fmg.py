@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where one FMG of the PyTorch package spends its time on one GPU.
 
-    python3 experiments/profile_torch_fmg.py            # all of the below
-    python3 experiments/profile_torch_fmg.py --vcoeff   # the last two only
+    python3 experiments/profile_torch_fmg.py            # the uniform passes
+    python3 experiments/profile_torch_fmg.py --vcoeff   # the coefficient ones
+    python3 experiments/profile_torch_fmg.py --forest   # the forest ones
 
 On the 512^3 float32 main path (``PoissonSolver(3, (512,)*3, 16)``,
 Dirichlet 0, seeded random right-hand side) it prints, one JSON object
@@ -32,7 +33,12 @@ per line:
 * ``profile_refined_vcoeff`` — the ``profile_refined`` pass for the
   ahelmholtz refined solve (lam 0.31, three coefficient fields
   0.5 + U[0,1)): its outer is dominated by the plain-PyTorch
-  ``residual_df32_vcoeff``, whose ~900 elementwise kernels show by name.
+  ``residual_df32_vcoeff``, whose ~900 elementwise kernels show by name;
+* ``profile_forest`` (``--forest`` only) — the ``profile`` pass for the
+  dense forests of ``chip_smoke.py``: the L forest at base 256, box 16
+  (``forest_path``) and the periodic forest at base 128 (``forest_periodic``),
+  float32: the busy share says how much of an FMG is the card's and how
+  much the host's eager ghost assembly, the kernel names what runs.
 
 Needs a CUDA device and nvcc.
 """
@@ -262,6 +268,29 @@ def phase_profile_refined_vcoeff(n_outer=2):
     emit({"profile_refined_vcoeff": profiled(run, n_outer, "outer")})
 
 
+def phase_profile_forest(n=4):
+    import chip_smoke
+    from octree_mg_tpu_torch.core import tree as tm
+    for name, tree, dirichlet in (
+            ("forest_path", chip_smoke.forest_tree(pkg, tm, "L", 256, 16),
+             True),
+            ("forest_periodic",
+             chip_smoke.forest_tree(pkg, tm, "periodic", 128, 16), False)):
+        torch.cuda.empty_cache()
+        ps = pkg.PoissonSolver(3, (1,) * 3, 16, tree=tree,
+                               dtype=torch.float32)
+        if dirichlet:
+            ps.set_dirichlet(0.0)
+        top = ps.solver.levels[-1]
+        g = torch.Generator(device="cuda").manual_seed(11)
+        ps.set_rhs(arrays={top: torch.randn(ps.solver._ishape(top),
+                                            generator=g, device="cuda")})
+        ps.solve(rtol=0.0, max_cycles=3)
+        emit({"profile_forest": {"name": name, **profiled(
+            lambda: loop_ms(ps, n, False), n, "fmg")}})
+        del ps
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fmg: needs a CUDA device")
@@ -269,6 +298,9 @@ if __name__ == "__main__":
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__})
+    if "--forest" in sys.argv[1:]:
+        phase_profile_forest()
+        sys.exit(0)
     if "--vcoeff" not in sys.argv[1:]:
         solver = main_path()
         phase_profile(solver)

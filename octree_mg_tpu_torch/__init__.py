@@ -6,8 +6,9 @@ Hopper GPU.  This package holds what has been brought over so far: the
 uniform 3D solve on dense levels for the five operators (laplacian,
 helmholtz and the variable-coefficient vlaplacian, vhelmholtz,
 ahelmholtz; FAS V-cycle and FMG, GSRB pair smoothing, direct eigenbasis
-coarse solve, assembled or probed) and its f64-class refined mode
-(double-float residual around the float32 FMG), whose stencil,
+coarse solve, assembled or probed), its f64-class refined mode
+(double-float residual around the float32 FMG) and the dense forest
+(any 2:1-balanced 3D octree, laplacian and helmholtz), whose stencil,
 restriction, prolongation and double-float residual passes are CUDA
 kernels written by hand (``csrc/``), each beside a plain PyTorch version
 that serves CPU tensors.
@@ -21,6 +22,7 @@ from .core.constants import (BCType, Geometry, Operator, Smoother, IPHI,
 from .core.tree import Tree, build_rectangle, box_r_min
 from .solve.multigrid import MGConfig
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
+from .solve.dense_forest import DenseForestMGSolver, dense_forest_supported
 from .models.poisson import PoissonSolver
 from .solve.refine import RefinedPoisson, solve_refined
 from .ops.df32 import df32_ok, df32_vcoeff_ok, split_f64
@@ -32,6 +34,7 @@ __all__ = [
     "IPHI", "IRHS", "IOLD", "IRES", "NUM_VARS",
     "Tree", "build_rectangle", "box_r_min",
     "MGConfig", "DenseMGSolver", "dense_supported", "make_solver",
+    "DenseForestMGSolver", "dense_forest_supported",
     "PoissonSolver", "RefinedPoisson", "solve_refined", "df32_ok",
     "df32_vcoeff_ok", "split_f64", "state_from_numpy", "state_to_numpy",
     "direct_from_numpy", "df_pair_from_numpy", "df_pair_to_numpy",

@@ -9,7 +9,9 @@ plain numpy arrays:
 
 ``state_from_numpy`` puts such a state on a solver's device in its
 dtype, checking every shape level by level (the fields it carries are
-the solver's: the coefficient fields of its operator included);
+the solver's: the coefficient fields of its operator included; a dense
+forest's fields are its level canvases and its boundary planes the raw,
+unpadded face values [Z, Y] / [Z, X] / [Y, X]);
 ``state_to_numpy`` is the reverse; ``direct_from_numpy`` does the same
 for the eigenbasis package of the direct coarse solve (``V``, ``Vinv``,
 ``d``, ``tiny``), whether the JAX package assembled it from the stencil
@@ -63,7 +65,7 @@ def state_from_numpy(solver, np_state: Dict) -> Dict:
         out = []
         for nb, p in enumerate(planes):
             p = np.asarray(p)
-            want = (1, 1) if solver.periodic[nb // 2] else cfg.plane_shape(nb)
+            want = solver._bc_plane_shape(lvl, nb)
             if tuple(p.shape) != tuple(want):
                 raise ValueError(f"bc[{lvl}][{nb}]: shape {p.shape}, "
                                  f"expected {want}")

@@ -45,6 +45,31 @@ struct EpsParams {
   const void* f[3];   // the padded coefficient fields, read-only
 };
 
+// The ghost layers of a dense-forest canvas, for the segment-synthesis
+// variants of the stencil kernels (the forest's fused-canvas path),
+// mirrored by ops/dense_kernels.py:_SegParams.  A kernel argument of its
+// own, passed last, so that the parameter layout of every other kernel
+// stays what it was.
+//
+// Descriptor j is a one-cell-thick ghost layer at canvas coordinate c
+// along dim d, on side 0 (below its footprint run: readers at c + 1
+// substitute their low neighbour) or side 1 (readers at c - 1 substitute
+// their high neighbour).  Its plane [4, T1, T2] holds, per transverse
+// position in the padded layout of that dim's face planes (x: [Z+2PZ,
+// Y+2PY], y: [Z+2PZ, X], z: [Y+2PY, X]), a0 = c0*b, a1 = c1, a2 = c2 and
+// a mask m; where m != 0 the reader's neighbour is
+//   ghost = (a0 + a1*x1) + a2*x2,
+// x1 the reader itself and x2 its other neighbour along d.  lut maps a
+// reader to its descriptor: entry base_d + 2*g + side (base 0, 2X,
+// 2X + 2Y for d = x, y, z) is the descriptor whose readers sit at
+// coordinate g, or -1.
+constexpr int MAX_SEGS = 96;
+struct SegParams {
+  int n;                          // descriptors (0: not a segment launch)
+  const int* lut;                 // [2*(X+Y+Z)] reader -> descriptor
+  const void* plane[MAX_SEGS];    // [4, T1, T2] per descriptor
+};
+
 __device__ __forceinline__ int wrap_idx(int g, int n) {
   g %= n;
   return g < 0 ? g + n : g;
@@ -197,6 +222,35 @@ __device__ __forceinline__ T eps_apply(const LevelParams& P, T p,
     out = out + c[2 * d + 1] * (hi[d] - p);
   }
   return out;
+}
+
+// Segment synthesis of the (lo, hi) neighbours along dim d of a cell
+// with source coordinates (sx, sy, sz) and value v, from its raw
+// neighbours: descriptor jlo (or -1) serves the low side, jhi the high
+// side.  The raw values of the other side are the x2 of the formula.
+template <typename T>
+__device__ __forceinline__ void seg_pair(const LevelParams& P,
+                                         const SegParams& S, int d, int jlo,
+                                         int jhi, int sx, int sy, int sz, T v,
+                                         T lo_raw, T hi_raw, T& lo, T& hi) {
+  lo = lo_raw;
+  hi = hi_raw;
+  if (jlo < 0 && jhi < 0) return;
+  const long long YP = P.Y + 2 * PY, ZP = P.Z + 2 * PZ;
+  long long o, st;
+  if (d == 0) { o = (sz + PZ) * YP + (sy + PY); st = ZP * YP; }
+  else if (d == 1) { o = (long long)(sz + PZ) * P.X + sx; st = ZP * P.X; }
+  else { o = (long long)(sy + PY) * P.X + sx; st = YP * P.X; }
+  if (jlo >= 0) {
+    const T* a = (const T*)S.plane[jlo] + o;
+    if (__ldg(a + 3 * st) != (T)0)
+      lo = (__ldg(a) + __ldg(a + st) * v) + __ldg(a + 2 * st) * hi_raw;
+  }
+  if (jhi >= 0) {
+    const T* a = (const T*)S.plane[jhi] + o;
+    if (__ldg(a + 3 * st) != (T)0)
+      hi = (__ldg(a) + __ldg(a + st) * v) + __ldg(a + 2 * st) * lo_raw;
+  }
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

@@ -20,6 +20,14 @@
 // index, slot and predicate arithmetic that more cells per thread would
 // share.
 //
+// half_sweep_dense (n_sweeps 1, constant coefficients) replaces the Pallas
+// entry point of that name: ONE half-sweep updating the cells of parity
+// red_parity, every other cell copied; the NS = 1 instantiation of the
+// same wavefront (halo 1, four planes in the ring).  The dense forest's
+// sequential smoother calls it between ghost refreshes, with its ghosts
+// in the six plane-valued faces.  Bound: bytes, as a pair, for half the
+// updates.
+//
 // The variable-coefficient variants (E->n 1 or 3) replace the Pallas
 // bodies' eps windows (_halfsweep / _apply_expr with eps): the same ring
 // and wavefront, with the coefficients of each updated cell and of its
@@ -37,6 +45,12 @@ static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
   if (mode == M_RESIDUAL)
     return launch_stream<T, 0, M_RESIDUAL, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (mode != M_PAIRS) return (int)cudaErrorInvalidValue;
+  if (P.n_sweeps == 1) {
+    // half_sweep_dense: constant coefficients only
+    if constexpr (NE == 0)
+      return launch_stream<T, 1, M_PAIRS, 0>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (P.n_sweeps == 2)
     return launch_stream<T, 2, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (P.n_sweeps == 4)
@@ -56,8 +70,8 @@ static int dispatch_eps(int mode, const LevelParams& P, const EpsParams& E,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = float64; mode: 0 = n_sweeps half-sweeps (2 or
-// 4), 1 = A(phi), 2 = rhs - A(phi); E: E->n coefficient fields (0, 1 or
+// dtype: 0 = float32, 1 = float64; mode: 0 = n_sweeps half-sweeps (1, 2
+// or 4; 1 only with E->n 0), 1 = A(phi), 2 = rhs - A(phi); E: E->n coefficient fields (0, 1 or
 // 3) in E->f, or null for none.  Returns the cudaError_t of the launch.
 extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
                                  const EpsParams* E, const void* phi,

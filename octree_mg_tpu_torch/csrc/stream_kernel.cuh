@@ -31,6 +31,13 @@
 // forms and reads the coefficients of a cell and its six neighbours from
 // device memory (face_coeffs): the ring, the wavefront and the geometry
 // are the same for every NE, and the NE = 0 code paths are untouched.
+//
+// SEG = 1 is the segment-synthesis variant of the dense forest's
+// fused-canvas path (NE = 0 only): no physical-face synthesis at all;
+// x is periodic (wrapped indices), a y or z neighbour outside the canvas
+// reads 0, and a reader next to one of the canvas's ghost layers
+// substitutes that layer's ghost (seg_pair, stencil_common.cuh).  The
+// SEG = 0 code paths are untouched.
 #pragma once
 #include "stencil_common.cuh"
 
@@ -76,12 +83,14 @@ struct Geo {
   }
 };
 
-template <typename T, int NS, int MODE, int NE>
+template <typename T, int NS, int MODE, int NE, int SEG>
 __global__ void __launch_bounds__(Geo<NS, MODE>::NT)
 stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
               const T* __restrict__ rhs, T* __restrict__ out,
               T* __restrict__ phic_out, T* __restrict__ iresc_out,
-              EpsParams E) {
+              EpsParams E, SegParams S) {
+  static_assert(SEG == 0 || NE == 0, "segment synthesis: constant "
+                "coefficients only");
   using G = Geo<NS, MODE>;
   constexpr int H = G::H, WX = G::WX, PL = G::PL, NB = G::NB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -116,6 +125,21 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
     goff[c] = sxs[c] < 0 ? 0 : (long long)(sy + PY) * P.X + sxs[c];
   }
   const long long gplane = (long long)(P.Y + 2 * PY) * P.X;
+  // SEG: the descriptors serving this thread's cells along x (per cell,
+  // low and high side) and y
+  int jx[2][2] = {{-1, -1}, {-1, -1}}, jy[2] = {-1, -1};
+  if constexpr (SEG != 0) {
+    if (sy >= 0) {
+      jy[0] = __ldg(S.lut + 2 * P.X + 2 * sy);
+      jy[1] = __ldg(S.lut + 2 * P.X + 2 * sy + 1);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      if (sxs[c] >= 0) {
+        jx[c][0] = __ldg(S.lut + 2 * sxs[c]);
+        jx[c][1] = __ldg(S.lut + 2 * sxs[c] + 1);
+      }
+  }
   const int pb = (gx + gy) & 1;                     // parity of cell a at z = 0
   const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
   const T inv_den = (T)P.inv_den;
@@ -145,6 +169,23 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
     neighbor_pair<T>(P, 0, g, P.X, v, xl, xh, sx, sy, sz, lo[0], hi[0]);
     neighbor_pair<T>(P, 1, gy, P.Y, v, yl, yh, sx, sy, sz, lo[1], hi[1]);
     neighbor_pair<T>(P, 2, p, P.Z, v, zl, zh, sx, sy, sz, lo[2], hi[2]);
+  };
+
+  // SEG: (lo, hi) of cell c of plane p = t+1-k (0 <= p < Z): raw loads,
+  // then the ghost layers' substitutions
+  auto seg_neighbors = [&](int p, int k, int c, int i, T v, T lo[3],
+                           T hi[3]) {
+    const int sc = slot(k), sm = slot(k + 1), sp = slot(k - 1);
+    const T xl = s_phi[sc + i - 1], xh = s_phi[sc + i + 1];
+    const T yl = s_phi[sc + i - WX], yh = s_phi[sc + i + WX];
+    const T zl = s_phi[sm + i], zh = s_phi[sp + i];
+    const int sx = c ? sxs[1] : sxs[0];
+    const int* lz = S.lut + 2 * (P.X + P.Y) + 2 * p;
+    seg_pair<T>(P, S, 0, c ? jx[1][0] : jx[0][0], c ? jx[1][1] : jx[0][1],
+                sx, sy, p, v, xl, xh, lo[0], hi[0]);
+    seg_pair<T>(P, S, 1, jy[0], jy[1], sx, sy, p, v, yl, yh, lo[1], hi[1]);
+    seg_pair<T>(P, S, 2, __ldg(lz), __ldg(lz + 1), sx, sy, p, v, zl, zh,
+                lo[2], hi[2]);
   };
 
   const int t_last = G::RES ? ze + 2 * NS : ze - 1 + 2 * NS;
@@ -182,7 +223,11 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
       const int i = i0 + c, sc = slot(2 + 2 * s);
       const T v = s_phi[sc + i];
       T lo[3], hi[3];
-      neighbors(p, 2 + 2 * s, c ? face[1] : face[0], sxc, gx + c, i, v, lo, hi);
+      if constexpr (SEG != 0)
+        seg_neighbors(p, 2 + 2 * s, c, i, v, lo, hi);
+      else
+        neighbors(p, 2 + 2 * s, c ? face[1] : face[0], sxc, gx + c, i, v, lo,
+                  hi);
       if constexpr (NE > 0) {
         T cf[6];
         face_coeffs<T, NE>(P, E, sxc, sy, src_idx(p, P.Z, P.per[2]), cf);
@@ -213,7 +258,10 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
           continue;
         }
         T lo[3], hi[3];
-        neighbors(r, KR, face[c], sxs[c], gx + c, i, v, lo, hi);
+        if constexpr (SEG != 0)
+          seg_neighbors(r, KR, c, i, v, lo, hi);
+        else
+          neighbors(r, KR, face[c], sxs[c], gx + c, i, v, lo, hi);
         T a;
         if constexpr (NE > 0) {
           T cf[6];
@@ -275,13 +323,13 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
   }
 }
 
-template <typename T, int NS, int MODE, int NE>
+template <typename T, int NS, int MODE, int NE, int SEG = 0>
 static int launch_stream(const LevelParams& P, const EpsParams& E,
                          int fine_out, const void* phi, const void* rhs,
                          void* out, void* phic_out, void* iresc_out,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const SegParams* S = nullptr) {
   using G = Geo<NS, MODE>;
-  auto kernel = stream_kernel<T, NS, MODE, NE>;
+  auto kernel = stream_kernel<T, NS, MODE, NE, SEG>;
   const size_t smem = G::smem_bytes(sizeof(T));
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -303,6 +351,7 @@ static int launch_stream(const LevelParams& P, const EpsParams& E,
   dim3 grid(cdiv(P.X, G::TX), cdiv(P.Y, G::TY), cdiv(P.Z, cz));
   kernel<<<grid, G::NT, smem, stream>>>(P, cz, fine_out, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
-                                        (T*)iresc_out, E);
+                                        (T*)iresc_out, E,
+                                        S ? *S : SegParams{});
   return (int)cudaGetLastError();
 }

@@ -18,11 +18,15 @@ from ..solve.multigrid import MGConfig
 
 
 class PoissonSolver:
-    """Solve A(phi) = rhs on a uniform rectangular 3D grid.
+    """Solve A(phi) = rhs on a uniform rectangular 3D grid, or on any
+    2:1-balanced 3D octree passed as ``tree`` (the dense forest).
 
     ``solve``/``phi`` return the assembled global interior array
-    [Z, Y, X].  The solver runs on ``device`` ("cuda" unless told
-    otherwise) through the hand-written kernels of ops/dense_kernels.
+    [Z, Y, X] — on a forest the top level's canvas, whose cells outside
+    ``solver.footprint_mask(top)`` are garbage, and ``solve``'s residual
+    is the max-norm over the footprint cells.  The solver runs on
+    ``device`` ("cuda" unless told otherwise) through the hand-written
+    kernels of ops/dense_kernels.
 
     Example::
 

@@ -19,14 +19,23 @@ y/z pad planes, which the caller keeps current with :func:`sync_pads`
 never touch a pad.  Every function returns fields whose pads are
 uninitialized (``torch.empty``).
 
-Six entry points, each a wrapper that runs its plain version for a CPU
+Seven entry points, each a wrapper that runs its plain version for a CPU
 tensor and launches its CUDA kernel (``csrc/*.cu``, built at first use)
 for a CUDA tensor — or raises; there is no fallback on the card:
 
 * ``pair_sweep_dense`` — ``n_pairs`` fused red+black GSRB pairs (K1).
+* ``half_sweep_dense`` — one GSRB half-sweep of a given parity (K1 with
+  one half-sweep; the dense forest's sequential smoother).
 * ``stencil_apply_dense`` — ``A(phi)`` or ``rhs - A(phi)`` (K1).
 * ``downsweep_dense`` — pairs + residual + both restrictions (K2).
 * ``residual_restrict_dense`` — residual + both restrictions (K2).
+
+``pair_sweep_dense`` and ``stencil_apply_dense`` also take a dense-forest
+canvas's ghost layers (``segs``/``seg_planes``, the fused-canvas path):
+then no physical-face synthesis runs, x wraps, a y or z read outside the
+canvas is zero, and a reader next to a ghost layer substitutes
+``(a0 + a1*x1) + a2*x2`` from the layer's planes (``seg_sweep.cu``;
+launches counted under ``name[segs]``).
 
 The first four also carry the variable-coefficient operators
 (``cfg.n_eps`` 1 for vlaplacian/vhelmholtz, 3 for ahelmholtz): they
@@ -36,7 +45,9 @@ Neumann-zero coefficient ghosts (ghost = the cell's own value) at
 physical faces.  Their launches are counted under ``name[n_eps=k]``.
 * ``restrict_dense`` — 2x2x2 full weighting (K3).
 * ``prolong_correct_dense`` — ``phi_f += prolong(phi_c - iold_c)`` (K4),
-  in place on ``phi_f``.
+  in place on ``phi_f``; or ``phi_f += prolong(phi_c)`` (``corr_ready``,
+  the forest's correction) or ``phi_f = prolong(phi_c)`` (``add=False``),
+  counted under ``prolong_correct_dense[corr_ready]`` / ``[set]``.
 
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
@@ -46,7 +57,7 @@ the multiply; ``1/(den0+lam)`` is evaluated in the working dtype.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +75,11 @@ _ISL = (slice(PZ, -PZ), slice(PY, -PY), slice(None))
 _LAUNCHES = {"pair_sweep_dense": 0, "stencil_apply_dense": 0,
              "downsweep_dense": 0, "residual_restrict_dense": 0,
              "restrict_dense": 0, "prolong_correct_dense": 0,
-             "residual_df32_dense": 0}      # the wrapper lives in ops/df32
+             "residual_df32_dense": 0,      # the wrapper lives in ops/df32
+             "half_sweep_dense": 0,
+             "pair_sweep_dense[segs]": 0, "stencil_apply_dense[segs]": 0,
+             "prolong_correct_dense[set]": 0,
+             "prolong_correct_dense[corr_ready]": 0}
 #: the entry points with coefficient variants, and their counter names
 EPS_ENTRIES = ("pair_sweep_dense", "stencil_apply_dense", "downsweep_dense",
                "residual_restrict_dense")
@@ -242,13 +257,17 @@ def _bpw_full(cfg, bplanes):
     return out
 
 
-def _neighbor_ops(cfg, p, d, axis, masks, bpw):
+def _neighbor_ops(cfg, p, d, axis, masks, bpw, segd=None):
     """(lo, hi) neighbor-value arrays along dim d with inline BC synth.
 
     bpw: per direction the boundary value (Python float or a tensor
-    broadcast to the array shape); masks: from :func:`_face_masks`."""
+    broadcast to the array shape); masks: from :func:`_face_masks`;
+    segd: the ghost layers of dim d of a segment launch (see
+    :func:`_seg_substitute`), read with masks all None."""
     lo_raw = torch.roll(p, +1, axis)
     hi_raw = torch.roll(p, -1, axis)
+    if segd:
+        return _seg_substitute(p, lo_raw, hi_raw, d, segd)
     if masks[d] is None:
         # periodic: x wraps are exact rolls; z/y wraps come from the
         # caller-maintained pad planes, and the roll's own wraparound
@@ -264,6 +283,33 @@ def _neighbor_ops(cfg, p, d, axis, masks, bpw):
         ghi = ghi + c2h * lo_raw
     m_lo, m_hi = masks[d]
     return torch.where(m_lo, glo, lo_raw), torch.where(m_hi, ghi, hi_raw)
+
+
+def _reader_plane(d, r):
+    """Index of the padded-array plane at coordinate r of dim d."""
+    return ((PZ + r,), (slice(None), PY + r), (slice(None), slice(None), r))[
+        2 - d]
+
+
+def _seg_substitute(p, lo_raw, hi_raw, d, layers):
+    """Segment synthesis along dim d (the JAX package's ``_neighbor_ops``
+    segd branch): for each ghost layer (c, side, a) with planes a =
+    [c0*b, c1, c2, mask], the readers at c + 1 (side 0) substitute their
+    low neighbour, those at c - 1 (side 1) their high one, by
+    ``(a0 + a1*x1) + a2*x2`` where the mask is non-zero — x1 the reader,
+    x2 its raw neighbour on the other side.  Only the reader plane is
+    touched."""
+    lo, hi = lo_raw.clone(), hi_raw.clone()
+    for c, side, a in layers:
+        sl = _reader_plane(d, c + 1 if side == 0 else c - 1)
+        m = a[3] != 0.0
+        if side == 0:
+            lo[sl] = torch.where(m, (a[0] + a[1] * p[sl]) + a[2] * hi_raw[sl],
+                                 lo[sl])
+        else:
+            hi[sl] = torch.where(m, (a[0] + a[1] * p[sl]) + a[2] * lo_raw[sl],
+                                 hi[sl])
+    return lo, hi
 
 
 def _eps_neighbor_ops(e, d, axis, masks):
@@ -294,7 +340,7 @@ def _face_coeffs(cfg, eps, d, axis, masks):
             2.0 * e0 * ehi / (e0 + ehi) * idr2)
 
 
-def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=()):
+def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=(), segd=None):
     """One masked GSRB half-sweep over the array (constant coefficient,
     m_laplacian.f90 / m_helmholtz.f90 arithmetic order; with eps the
     harmonic-mean form of m_vlaplacian.f90:51-128 /
@@ -317,13 +363,14 @@ def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=()):
         return torch.where(upd, new, p) if red else torch.where(upd, p, new)
     acc = -rhs_w
     for d, axis in _DIM_AXIS:
-        lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
+        lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw,
+                               None if segd is None else segd[d])
         acc = acc + cfg.rnd(cfg.idr2[d]) * (lo + hi)
     new = acc * cfg.inv_den(lam)
     return torch.where(upd, new, p) if red else torch.where(upd, p, new)
 
 
-def _apply_expr(cfg, p, lam, masks, bpw, eps=()):
+def _apply_expr(cfg, p, lam, masks, bpw, eps=(), segd=None):
     """A(phi) over the array: out = -lam*c; out += idr2[d]*(lo+hi-2c),
     or with eps out += c_lo*(lo - c) + c_hi*(hi - c) per dim."""
     out = (-cfg.rnd(lam)) * p
@@ -335,7 +382,8 @@ def _apply_expr(cfg, p, lam, masks, bpw, eps=()):
             out = out + c_hi * (hi - p)
         return out
     for d, axis in _DIM_AXIS:
-        lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
+        lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw,
+                               None if segd is None else segd[d])
         out = out + cfg.rnd(cfg.idr2[d]) * (lo + hi - 2.0 * p)
     return out
 
@@ -367,6 +415,58 @@ def _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps=()):
     return rhs - out if residual else out
 
 
+def _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps=()):
+    """One half-sweep updating the cells of the given parity."""
+    g = _full_iotas(cfg, phi.device)
+    return _halfsweep(cfg, phi, rhs, lam, _face_masks(cfg, g),
+                      _parity_mask(g, parity), True, _bpw_full(cfg, bplanes),
+                      eps)
+
+
+_NO_MASKS = {0: None, 1: None, 2: None}
+
+
+def _zero_pads(cfg, p):
+    """A copy of p whose y/z pads (every cell outside the canvas) are
+    zero: what a segment launch reads there."""
+    q = p.clone()
+    q[:PZ] = 0.0
+    q[PZ + cfg.Z:] = 0.0
+    q[:, :PY] = 0.0
+    q[:, PY + cfg.Y:] = 0.0
+    return q
+
+
+def _seg_layers(segs, seg_planes):
+    """{d: [(c, side, planes)]}: the ghost layers of a segment launch by
+    normal dim."""
+    out = {0: [], 1: [], 2: []}
+    for (d, c, side), a in zip(segs, seg_planes):
+        out[d].append((c, side, a))
+    return out
+
+
+def _seg_pairs_plain(cfg, phi, rhs, lam, red_parity, n_pairs, segs,
+                     seg_planes):
+    """n_pairs red+black pairs with segment synthesis: the pads are read
+    as zero before every half-sweep, so k pairs in one call are exactly
+    k single pairs."""
+    g = _full_iotas(cfg, phi.device)
+    upd = _parity_mask(g, red_parity)
+    segd = _seg_layers(segs, seg_planes)
+    for _ in range(n_pairs):
+        for red in (True, False):
+            phi = _halfsweep(cfg, _zero_pads(cfg, phi), rhs, lam, _NO_MASKS,
+                             upd, red, None, segd=segd)
+    return phi
+
+
+def _seg_apply_plain(cfg, phi, rhs, lam, residual, segs, seg_planes):
+    out = _apply_expr(cfg, _zero_pads(cfg, phi), lam, _NO_MASKS, None,
+                      segd=_seg_layers(segs, seg_planes))
+    return rhs - out if residual else out
+
+
 def _restrict_plain(cfg_f, fine):
     """Full weighting in the reference's order: (z0+z1), then + y
     neighbour, then + x neighbour, then / 8."""
@@ -390,20 +490,26 @@ def _down_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=()):
     return phi, _restrict_plain(cfg, phi), _restrict_plain(cfg, res)
 
 
-def _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c):
+def _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c,
+                           mode="add"):
+    """mode "add": phi_f += prolong(phi_c - iold_c); "corr_ready":
+    phi_f += prolong(phi_c); "set": phi_f = prolong(phi_c) on the
+    interior.  In place on phi_f; iold_c is read in mode "add" only."""
     g = _full_iotas(cfg_c, phi_c.device)
     masks = _face_masks(cfg_c, g)
     bpw = _bpw_full(cfg_c, bplanes_c)
-    corr = phi_c - iold_c
+    corr = phi_c - iold_c if mode == "add" else phi_c
     # neighbor values of corr with ghost semantics: synth(phi) -
     # synth(iold) at physical faces (the c0*b terms cancel only
     # mathematically, so both synths are evaluated)
     lo, hi = {}, {}
     for d, axis in _DIM_AXIS:
         lop, hip = _neighbor_ops(cfg_c, phi_c, d, axis, masks, bpw)
-        loi, hii = _neighbor_ops(cfg_c, iold_c, d, axis, masks, bpw)
-        lo[d] = (lop - loi)[_ISL]
-        hi[d] = (hip - hii)[_ISL]
+        if mode == "add":
+            loi, hii = _neighbor_ops(cfg_c, iold_c, d, axis, masks, bpw)
+            lop, hip = lop - loi, hip - hii
+        lo[d] = lop[_ISL]
+        hi[d] = hip[_ISL]
     # mg_prolong_sparse parity values; bit d of the key = high child
     # along dim d
     vals = {0: 0.25 * corr[_ISL]}
@@ -416,7 +522,10 @@ def _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c):
     core_f = phi_f[_ISL]
     for bits, v in vals.items():
         bx, by, bz = bits & 1, (bits >> 1) & 1, (bits >> 2) & 1
-        core_f[bz::2, by::2, bx::2] += v
+        if mode == "set":
+            core_f[bz::2, by::2, bx::2] = v
+        else:
+            core_f[bz::2, by::2, bx::2] += v
     return phi_f
 
 
@@ -439,6 +548,17 @@ class _LevelParams(ctypes.Structure):
 class _EpsParams(ctypes.Structure):
     """Mirror of ``EpsParams`` in csrc/stencil_common.cuh."""
     _fields_ = [("n", ctypes.c_int), ("f", ctypes.c_void_p * 3)]
+
+
+#: most ghost layers a segment launch takes (``MAX_SEGS`` of
+#: csrc/stencil_common.cuh)
+MAX_SEGS = 96
+
+
+class _SegParams(ctypes.Structure):
+    """Mirror of ``SegParams`` in csrc/stencil_common.cuh."""
+    _fields_ = [("n", ctypes.c_int), ("lut", ctypes.c_void_p),
+                ("plane", ctypes.c_void_p * MAX_SEGS)]
 
 
 def _check_field(cfg, t, name, shape=None):
@@ -482,15 +602,19 @@ def _eps_params(cfg, eps) -> _EpsParams:
     return E
 
 
-def _params(cfg, lam, bplanes, red_parity=0, n_sweeps=0) -> _LevelParams:
+def _params(cfg, lam, bplanes, red_parity=0, n_sweeps=0,
+            seg=False) -> _LevelParams:
+    """seg: a segment launch, x periodic and nothing of the BCs read."""
     P = _LevelParams()
     P.X, P.Y, P.Z = cfg.dims
     P.red_parity, P.n_sweeps = int(red_parity), int(n_sweeps)
     for d in range(3):
-        P.per[d] = int(cfg.periodic[d])
+        P.per[d] = int(d == 0) if seg else int(cfg.periodic[d])
         P.idr2[d] = cfg.rnd(cfg.idr2[d])
     P.neg_lam = -cfg.rnd(lam)
     P.inv_den = cfg.inv_den(lam)
+    if seg:
+        return P
     for i in range(6):
         c0, c1, c2 = cfg.bc[i]
         P.c0[i], P.c1[i], P.c2[i] = cfg.rnd(c0), cfg.rnd(c1), cfg.rnd(c2)
@@ -526,8 +650,11 @@ _ARGTYPES = {
                       _VP],
     "omg_restrict": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      _VP, _VP, _VP],
-    "omg_prolong_correct": [ctypes.c_int, ctypes.POINTER(_LevelParams), _VP,
-                            _VP, _VP, _VP],
+    "omg_prolong_correct": [ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(_LevelParams), _VP, _VP, _VP, _VP],
+    "omg_seg_sweep": [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(_LevelParams),
+                      ctypes.POINTER(_SegParams), _VP, _VP, _VP, _VP],
 }
 _fns = {}
 
@@ -549,6 +676,88 @@ def _dt(cfg) -> int:
 _MODE_PAIRS, _MODE_APPLY, _MODE_RESIDUAL = 0, 1, 2
 
 
+def _seg_plane_shape(cfg, d):
+    """Shape of one ghost layer's planes [4, T1, T2]: the padded
+    layout of dim d's face planes."""
+    ZP, YP, X = cfg.pshape
+    return (4,) + ((ZP, YP), (ZP, X), (YP, X))[d]
+
+
+class SegLayers(NamedTuple):
+    """A canvas's ghost layers, checked, with their reader -> layer table
+    (``SegParams.lut``) on the launches' device: made once per canvas
+    geometry by :func:`seg_layers` and passed as ``segs=``."""
+    dims: Tuple[int, int, int]
+    segs: Tuple[Tuple[int, int, int], ...]
+    lut: torch.Tensor
+
+
+def seg_layers(cfg, segs, device) -> SegLayers:
+    """Check a canvas's ghost layers (unique (d, c, side) with readers
+    inside the canvas, at most ``MAX_SEGS``) and build their table."""
+    segs = tuple(tuple(int(v) for v in k) for k in segs)
+    if len(set(segs)) != len(segs):
+        raise ValueError("segs: no layer twice")
+    if len(segs) > MAX_SEGS:
+        raise ValueError(f"segs: {len(segs)} ghost layers, the kernel "
+                         f"takes {MAX_SEGS}")
+    X, Y, Z = cfg.dims
+    a = np.full(2 * (X + Y + Z), -1, np.int32)
+    base = (0, 2 * X, 2 * (X + Y))
+    for j, (d, c, side) in enumerate(segs):
+        r = c + 1 if side == 0 else c - 1
+        if d not in (0, 1, 2) or side not in (0, 1) \
+                or not 0 <= r < cfg.dims[d]:
+            raise ValueError(f"segs: layer {(d, c, side)} has no reader in "
+                             f"the canvas {cfg.dims}")
+        a[base[d] + 2 * r + side] = j
+    return SegLayers(tuple(cfg.dims), segs, torch.from_numpy(a).to(device))
+
+
+def _check_segs(cfg, segs, seg_planes, eps, device):
+    """The ghost layers of a segment launch (a :class:`SegLayers` of this
+    canvas, or descriptors to check now) and one [4, T1, T2] plane per
+    layer; constant coefficients."""
+    if eps:
+        raise NotImplementedError("segment synthesis: constant "
+                                  "coefficients only")
+    if not isinstance(segs, SegLayers):
+        segs = seg_layers(cfg, segs, device)
+    elif segs.dims != tuple(cfg.dims) or segs.lut.device != device:
+        raise ValueError(f"segs: layers of a {segs.dims} canvas on "
+                         f"{segs.lut.device}, launched on {cfg.dims} on "
+                         f"{device}")
+    seg_planes = list(seg_planes)
+    if len(segs.segs) != len(seg_planes):
+        raise ValueError("segs: one plane per layer")
+    for (d, c, side), a in zip(segs.segs, seg_planes):
+        if a.dtype != cfg.dtype or tuple(a.shape) != _seg_plane_shape(cfg, d):
+            raise ValueError(f"seg plane of {(d, c, side)}: {a.dtype} "
+                             f"{tuple(a.shape)}, expected {cfg.dtype} "
+                             f"{_seg_plane_shape(cfg, d)}")
+    return segs, seg_planes
+
+
+def _seg_launch(name, cfg, mode, phi, rhs, lam, red_parity, n_sweeps, segs,
+                seg_planes):
+    _check_field(cfg, phi, "phi")
+    _check_field(cfg, rhs, "rhs")
+    S = _SegParams()
+    S.n = len(segs.segs)
+    S.lut = segs.lut.data_ptr()
+    for j, ((d, _, _), a) in enumerate(zip(segs.segs, seg_planes)):
+        _check_field(cfg, a, f"seg_planes[{j}]", _seg_plane_shape(cfg, d))
+        S.plane[j] = a.data_ptr()
+    P = _params(cfg, lam, None, red_parity, n_sweeps, seg=True)
+    out = torch.empty_like(phi)
+    err = _fn("seg_sweep", "omg_seg_sweep")(
+        _dt(cfg), mode, ctypes.byref(P), ctypes.byref(S), phi.data_ptr(),
+        rhs.data_ptr(), out.data_ptr(), _stream(phi))
+    _raise_on(err, name)
+    _LAUNCHES[name + "[segs]"] += 1
+    return out
+
+
 def _coarse_empty(cfg, like):
     return torch.empty(padded_shape((cfg.X // 2, cfg.Y // 2, cfg.Z // 2)),
                        dtype=like.dtype, device=like.device)
@@ -559,7 +768,8 @@ def _coarse_empty(cfg, like):
 # ---------------------------------------------------------------------------
 
 def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                     red_parity: int, n_pairs: int = 1, eps=()):
+                     red_parity: int, n_pairs: int = 1, eps=(), segs=None,
+                     seg_planes=None):
     """Fused [red half-sweep, ghost refresh, black half-sweep] x n_pairs.
 
     phi/rhs: padded_shape(dims); lam: host scalar; bplanes: 6 padded
@@ -571,10 +781,28 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     cell to two single pairs with a pad re-sync between.  On CUDA it is
     one pass over device memory with a 4-deep halo.  CPU tensors need
     their periodic pads current (:func:`sync_pads`), eps fields too.
-    eps: cfg.n_eps padded coefficient fields."""
+    eps: cfg.n_eps padded coefficient fields.
+
+    segs/seg_planes: a dense-forest canvas's ghost layers ((d, c, side)
+    descriptors, or a :class:`SegLayers` made once for the canvas, and
+    one [4, T1, T2] plane each, see ``csrc/stencil_common.cuh``);
+    then bplanes and cfg's BC fields are not read, x wraps and y/z reads
+    outside the canvas are zero, and the ghosts are synthesized at read
+    time, so the pairs need no refresh between them."""
     eps = _check_eps(cfg, eps, "pair_sweep_dense")
     if n_pairs not in (1, 2):
         raise ValueError("pair_sweep_dense: n_pairs must be 1 or 2")
+    if segs is not None:
+        segs, seg_planes = _check_segs(cfg, segs, seg_planes, eps,
+                                       phi.device)
+        if cfg.X % 2:
+            raise ValueError(f"pair_sweep_dense: segment launches wrap x, "
+                             f"which needs an even extent, got {cfg.dims}")
+        if not phi.is_cuda:
+            return _seg_pairs_plain(cfg, phi, rhs, lam, red_parity, n_pairs,
+                                    segs.segs, seg_planes)
+        return _seg_launch("pair_sweep_dense", cfg, _MODE_PAIRS, phi, rhs,
+                           lam, red_parity, 2 * n_pairs, segs, seg_planes)
     if n_pairs == 2 and not cfg.periodic_even:
         raise ValueError(f"pair_sweep_dense: a double pair needs even extents "
                          f"on periodic axes, got {cfg.dims}; run single pairs")
@@ -594,12 +822,52 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     return out
 
 
+def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
+                     parity: int, eps=()):
+    """ONE GSRB half-sweep: update the cells with (gx+gy+gz)%2 == parity,
+    copy the others.  Returns a new field.
+
+    The dense forest runs at half-sweep granularity where its ghosts are
+    refreshed between half-sweeps (the reference's refill cadence,
+    smooth_boxes, m_multigrid.f90:404-424): two calls with a refresh
+    between are one pair.  The arithmetic of an updated cell is that of
+    pair_sweep_dense's red half.  On the card: constant coefficients."""
+    eps = _check_eps(cfg, eps, "half_sweep_dense")
+    if not phi.is_cuda:
+        return _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps)
+    if eps:
+        raise NotImplementedError("half_sweep_dense: the kernel has constant "
+                                  "coefficients only (variable-coefficient "
+                                  "forests: ROADMAP A9)")
+    _check_field(cfg, phi, "phi")
+    _check_field(cfg, rhs, "rhs")
+    P = _params(cfg, lam, bplanes, parity, 1)
+    E = _eps_params(cfg, ())
+    out = torch.empty_like(phi)
+    err = _fn("stencil_sweep", "omg_stencil_sweep")(
+        _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), _stream(phi))
+    _raise_on(err, "half_sweep_dense")
+    _LAUNCHES["half_sweep_dense"] += 1
+    return out
+
+
 def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                        residual: bool, eps=()):
+                        residual: bool, eps=(), segs=None, seg_planes=None):
     """A(phi) (or rhs - A(phi)) in one pass (box_lpl/box_helmh +
     residual_box, m_multigrid.f90:426-436; with eps box_vlpl/box_vhelmh/
-    box_ahelmh).  Returns a new field."""
+    box_ahelmh).  Returns a new field.  segs/seg_planes: a forest
+    canvas's ghost layers, as in :func:`pair_sweep_dense`."""
     eps = _check_eps(cfg, eps, "stencil_apply_dense")
+    if segs is not None:
+        segs, seg_planes = _check_segs(cfg, segs, seg_planes, eps,
+                                       phi.device)
+        if not phi.is_cuda:
+            return _seg_apply_plain(cfg, phi, rhs, lam, residual, segs.segs,
+                                    seg_planes)
+        return _seg_launch("stencil_apply_dense", cfg,
+                           _MODE_RESIDUAL if residual else _MODE_APPLY, phi,
+                           rhs, lam, 0, 0, segs, seg_planes)
     if not phi.is_cuda:
         return _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps)
     _check_field(cfg, phi, "phi")
@@ -686,30 +954,41 @@ def restrict_dense(cfg_f: DenseStencilConfig, fine):
 
 
 def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
-                          bplanes_c):
+                          bplanes_c, add: bool = True,
+                          corr_ready: bool = False):
     """Fused correct_children (m_multigrid.f90:387-402): corr = phi_c -
     iold_c with ghost-ring semantics (BC synthesis / periodic wraps),
     mg_prolong_sparse D-linear weights (m_prolong.f90:159-240), added
     into phi_f IN PLACE (the JAX package returns a new array instead;
     its buffer is donated there).  Returns phi_f.
 
-    Only this mode (add=True, corr_ready=False) exists here; the set
-    mode and the ready-made-correction mode of the JAX package wait.
-    CPU tensors need the periodic pads of phi_c and iold_c current."""
+    add=False (set mode, mg_prolong): iold_c is not read and the
+    prolonged phi_c replaces phi_f's interior.  corr_ready=True: phi_c
+    already is the correction (iold_c not read) and its prolongation is
+    added — the dense forest's correction, whose window ring rides the
+    plane-valued faces.  CPU tensors need the periodic pads of phi_c (and
+    iold_c) current.  A write on the card bumps phi_f's version counter,
+    as an in-place PyTorch operation would."""
+    mode = "set" if not add else "corr_ready" if corr_ready else "add"
     X, Y, Z = cfg_c.dims
     shape_f = padded_shape((2 * X, 2 * Y, 2 * Z))
     if tuple(phi_f.shape) != shape_f:
         raise ValueError(f"phi_f: shape {tuple(phi_f.shape)}, expected "
                          f"{shape_f}")
     if not phi_c.is_cuda:
-        return _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c)
+        return _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c,
+                                      mode)
     _check_field(cfg_c, phi_c, "phi_c")
-    _check_field(cfg_c, iold_c, "iold_c")
+    if mode == "add":
+        _check_field(cfg_c, iold_c, "iold_c")
     _check_field(cfg_c, phi_f, "phi_f", shape_f)
     P = _params(cfg_c, 0.0, bplanes_c)
     err = _fn("prolong_correct", "omg_prolong_correct")(
-        _dt(cfg_c), ctypes.byref(P), phi_c.data_ptr(), iold_c.data_ptr(),
+        _dt(cfg_c), ("add", "set", "corr_ready").index(mode), ctypes.byref(P),
+        phi_c.data_ptr(), iold_c.data_ptr() if mode == "add" else None,
         phi_f.data_ptr(), _stream(phi_c))
     _raise_on(err, "prolong_correct_dense")
-    _LAUNCHES["prolong_correct_dense"] += 1
+    torch.autograd.graph.increment_version(phi_f)
+    _LAUNCHES["prolong_correct_dense" if mode == "add"
+              else f"prolong_correct_dense[{mode}]"] += 1
     return phi_f

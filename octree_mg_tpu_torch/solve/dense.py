@@ -36,9 +36,12 @@ reference's Neumann-zero default.  The direct coarse solve then probes
 the coarsest level's operator column by column (its matrix depends on
 the coefficients).
 
-Gating: 3D cartesian GSRB on uniform trees.  AMR, forests, 2D, the boxed
-solver and plane-valued coefficient ghosts (``eps_bc``) are not part of
-this package yet (``make_solver`` raises).
+Gating: 3D cartesian GSRB on uniform trees.  ``make_solver`` routes as
+the JAX package does: uniform trees here, rectangular AMR patch trees to
+the dense-patch AMR solver (still to be ported: it raises), every other
+2:1-balanced 3D octree to the dense forest (solve/dense_forest.py, a
+subclass of this solver).  2D and the boxed solver are not part of this
+package yet (``make_solver`` raises).
 """
 from __future__ import annotations
 
@@ -72,21 +75,27 @@ def dense_supported(tree: Tree, cfg: MGConfig) -> bool:
 
 
 def make_solver(tree: Tree, config: Optional[MGConfig] = None):
-    """The dense fast path for a uniform 3D tree.  Everything else the
-    JAX package dispatches here (2D, AMR patches, forests, the boxed
-    solver) is still to be ported and raises."""
+    """The dense fast path for a uniform 3D tree, the dense forest for
+    other 2:1-balanced 3D octrees (constant coefficients), in the JAX
+    package's order.  What it would dispatch elsewhere (2D, rectangular
+    AMR patch trees, variable-coefficient forests, the boxed solver) is
+    still to be ported and raises, naming its ROADMAP item."""
+    from .dense_amr import dense_amr_supported
+    from .dense_forest import DenseForestMGSolver, dense_forest_supported
     cfg = config or MGConfig()
     if dense_supported(tree, cfg):
         return DenseMGSolver(tree, cfg)
     if tree.ndim == 2:
         what = "2D paths (ROADMAP A10)"
-    elif tree.highest_lvl > 1:
-        what = "dense-patch AMR and forests (ROADMAP A8, A9)"
+    elif dense_amr_supported(tree, cfg):
+        what = "the dense-patch AMR solver (ROADMAP A8)"
+    elif dense_forest_supported(tree, cfg):
+        return DenseForestMGSolver(tree, cfg)
     else:
         what = "the boxed MGSolver (ROADMAP A11)"
     raise NotImplementedError(
-        f"octree_mg_tpu_torch covers uniform 3D cartesian GSRB only; this "
-        f"configuration needs {what}")
+        f"octree_mg_tpu_torch covers 3D cartesian GSRB on uniform trees "
+        f"and dense forests; this configuration needs {what}")
 
 
 _ISL = (slice(dk.PZ, -dk.PZ), slice(dk.PY, -dk.PY), slice(None))
@@ -158,13 +167,16 @@ class DenseMGSolver:
     #: coarse-solve level (matrix size bound)
     DIRECT_MAX_CELLS = 512
 
+    #: support predicate checked at construction (the forest overrides)
+    _supported = staticmethod(dense_supported)
+
     def __init__(self, tree: Tree, config: Optional[MGConfig] = None):
         self.tree = tree
         self.cfg = config or MGConfig()
         cfg = self.cfg
-        if not dense_supported(tree, cfg):
-            raise ValueError("DenseMGSolver: not a uniform 3D cartesian GSRB "
-                             "configuration (see dense_supported)")
+        if not self._supported(tree, cfg):
+            raise ValueError(f"{type(self).__name__}: configuration outside "
+                             f"its gate ({self._supported.__name__})")
         if cfg.fmg_mode not in ("split", "fused"):
             raise ValueError(f"MGConfig.fmg_mode must be 'split' or 'fused', "
                              f"got {cfg.fmg_mode!r}")
@@ -248,10 +260,25 @@ class DenseMGSolver:
         self._graphs = {}
         self._graph_epoch += 1
 
+    @staticmethod
+    def _lvl_of(u) -> int:
+        """Real tree level of a level key (an int here; the JAX package's
+        multi-canvas forest uses (lvl, c) keys), for per-level tree
+        attributes (dr, box size)."""
+        return u if isinstance(u, int) else u[0]
+
+    def _unit0(self, lvl):
+        """State key of a level's (single) canvas."""
+        return lvl
+
+    def _coarse_of(self, u):
+        """Key of the coarse level under level key u."""
+        return u - 1
+
     def _bc_static(self, lvl: int):
         """Per-direction (c0,c1,c2) or None on periodic axes."""
         out = []
-        dr = self.tree.dr[lvl]
+        dr = self.tree.dr[self._lvl_of(lvl)]
         for nbd in range(2 * self.ndim):
             d = nbd // 2
             if self.periodic[d]:
@@ -348,6 +375,12 @@ class DenseMGSolver:
         self._graphs = {}
         self._graph_epoch += 1
         return state
+
+    def _bc_plane_shape(self, lvl: int, nb: int) -> Tuple[int, int]:
+        """Shape of the state's boundary-value plane of face nb."""
+        if self.periodic[nb // 2]:
+            return (1, 1)
+        return self._kcfgs[lvl].plane_shape(nb)
 
     def _eval_bc_planes(self, lvl: int) -> List[torch.Tensor]:
         """Boundary-value planes b per direction, padded to match the
@@ -565,6 +598,98 @@ class DenseMGSolver:
                                  state["bc"][lvl_c])
         return state
 
+    def _prolong_rect(self, sub):
+        """D-linear prolongation of [Zc+2, Yc+2, Xc+2] -> [2Zc, 2Yc, 2Xc]
+        (mg_prolong_sparse weights, m_prolong.f90:159-240), in the plain
+        version's order: 0.25*centre, then + 0.25*neighbour per dim x, y,
+        z."""
+        ctr = sub[1:-1, 1:-1, 1:-1]
+
+        def shifted(d, s):
+            sl = [slice(1, -1)] * 3
+            ax = 2 - d
+            sl[ax] = slice(1 + s, sub.shape[ax] - 1 + s)
+            return sub[tuple(sl)]
+
+        vals = {0: 0.25 * ctr}
+        for d in range(3):
+            lo, hi = 0.25 * shifted(d, -1), 0.25 * shifted(d, +1)
+            new = {}
+            for key, a in vals.items():
+                new[key] = a + lo
+                new[key | (1 << d)] = a + hi
+            vals = new
+        Zc, Yc, Xc = ctr.shape
+        out = torch.empty((2 * Zc, 2 * Yc, 2 * Xc), dtype=sub.dtype,
+                          device=sub.device)
+        for bits, v in vals.items():
+            out[(bits >> 2) & 1::2, (bits >> 1) & 1::2, bits & 1::2] = v
+        return out
+
+    def _ring_bc(self, lvl, key="phi"):
+        """(c0,c1,c2) per face for ghost-ring synthesis; coefficient
+        fields (eps*) take the reference's Neumann-zero default, ghost =
+        own value (m_vlaplacian.f90:25-28)."""
+        if key.startswith("eps"):
+            return [(0.0, 1.0, 0.0)] * (2 * self.ndim)
+        return self._bc_static(lvl)
+
+    def _var_with_ring(self, state, lvl, key):
+        """One variable with a one-cell ghost ring [Z+2, Y+2, X+2]: ring
+        faces from the bc_to_gc formula (ghost = c0*b + c1*x1 + c2*x2,
+        m_ghost_cells.f90:682-698) or the periodic wrap."""
+        X, Y, Z = self.dims[lvl]
+        arr = state[key][lvl]
+        bp = state["bc"][lvl]
+        bc = self._ring_bc(lvl, key)
+        out = torch.zeros((Z + 2, Y + 2, X + 2), dtype=arr.dtype,
+                          device=arr.device)
+        out[1:-1, 1:-1, 1:-1] = arr[_ISL]
+        pads = (dk.PZ, dk.PY, 0)
+        for nbd in range(6):
+            d = nbd // 2
+            lowside = nbd % 2 == 0
+            ax = 2 - d
+            n_d = (X, Y, Z)[d]
+
+            def pick(idx):
+                sl = list(_ISL)
+                sl[ax] = idx + pads[ax]
+                return arr[tuple(sl)]
+
+            if self.periodic[d]:
+                ring = pick(n_d - 1 if lowside else 0)
+            else:
+                x1 = pick(0 if lowside else n_d - 1)
+                x2 = pick(1 if lowside else n_d - 2)
+                bpl = (bp[nbd][dk.PZ:-dk.PZ, dk.PY:-dk.PY] if d == 0
+                       else bp[nbd][dk.PZ:-dk.PZ, :] if d == 1
+                       else bp[nbd][dk.PY:-dk.PY, :])
+                c0, c1, c2 = bc[nbd]
+                ring = c0 * bpl + c1 * x1
+                if c2 != 0.0:
+                    ring = ring + c2 * x2
+            sl: List = [slice(1, -1)] * 3
+            sl[ax] = 0 if lowside else -1
+            out[tuple(sl)] = ring
+        return out
+
+    def prolong_set(self, state, lvl_c, key_from="phi", key_to="phi",
+                    with_ring: bool = False):
+        """Non-additive prolongation of level lvl_c into the interior of
+        lvl_c + 1, in place (the JAX package's free-space seeding).
+        with_ring=True synthesizes the coarse ghost ring from the BCs
+        (mg_prolong's use of parent ghost cells); otherwise it is zero."""
+        if with_ring:
+            corr = self._var_with_ring(state, lvl_c, key_from)
+        else:
+            src = state[key_from][lvl_c]
+            corr = torch.zeros(tuple(np.array(self.dims[lvl_c])[::-1] + 2),
+                               dtype=src.dtype, device=src.device)
+            corr[1:-1, 1:-1, 1:-1] = src[_ISL]
+        state[key_to][lvl_c + 1][_ISL] = self._prolong_rect(corr)
+        return state
+
     # -- subtract mean (fully periodic) ---------------------------------
     def _subtract_mean(self, state, key):
         """Leaf mean removal (subtract_mean, m_multigrid.f90:245-294;
@@ -688,14 +813,12 @@ class DenseMGSolver:
     def _coarse_direct(self, state, lam):
         """phi = A^{-1}(rhs - A(0)) via the precomputed eigenbasis: two
         matrix-vector products in the working dtype (TF32 off)."""
-        lvl = self.levels[0]
+        lvl = self._unit0(self.levels[0])
         dd = self._direct
         isl = self._isl
-        cfg = self._kcfgs[lvl]
-        zero = torch.zeros_like(state["phi"][lvl])
-        bterm = dk.stencil_apply_dense(
-            cfg, zero, state["rhs"][lvl], lam, state["bc"][lvl],
-            residual=False, eps=self._eps(state, lvl))[isl].reshape(-1)
+        zero = dict(state)
+        zero["phi"] = {lvl: torch.zeros_like(state["phi"][lvl])}
+        bterm = self._apply_op(zero, lvl, lam)[isl].reshape(-1)
         r = state["rhs"][lvl][isl].reshape(-1) - bterm
         comp = dd["Vinv"] @ r
         # a null mode of A stays null only while lam leaves it unshifted

@@ -71,6 +71,11 @@ class RefinedPoisson:
     def __init__(self, solver: DenseMGSolver, nch: Optional[int] = None,
                  bc_values: Optional[List[float]] = None,
                  lam: float = 0.0, eps=None):
+        from .dense_forest import DenseForestMGSolver
+        if isinstance(solver, DenseForestMGSolver):
+            raise NotImplementedError(
+                "RefinedPoisson: the refined forest solve "
+                "(RefinedForestPoisson) waits for ROADMAP A9")
         self.solver = solver
         self.lam = float(lam)
         self.lam_pair = split_lam(lam)
@@ -274,7 +279,9 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
     lam != 0 = f64-class Helmholtz (a helmholtz-family inner solver);
     eps = the float64 coefficient fields of a variable-coefficient
     solver (see RefinedPoisson)."""
-    if not isinstance(solver, DenseMGSolver):
+    from .dense_forest import DenseForestMGSolver
+    if not isinstance(solver, DenseMGSolver) \
+            or isinstance(solver, DenseForestMGSolver):
         raise NotImplementedError(
             f"solve_refined: no refinement class for "
             f"{type(solver).__name__} yet: forests wait for ROADMAP A9, 2D "
