@@ -21,6 +21,8 @@ object per line:
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
   0.5 + U[0,1) with NaN pads) on every level shape, dtype and BC kind;
+  the boxed solver's flat half-sweep (float32/float64, D = 1, 2, 3, nc
+  2 to 16, 1, 7 and 4096 boxes, lam 0 and 0.7, both parities);
   ``max_ulp`` must be 0 (the kernels repeat the plain arithmetic
   operation by operation, built with --fmad=false);
 * ``main_path`` — ``PoissonSolver(3, (512,)*3, 16, dtype=float32)``, zero
@@ -51,7 +53,8 @@ object per line:
   and after a second ``prepare_coefficient`` with new coefficients;
 * ``cpu_agreement`` — the solver at 64^3 in float64 on the card and on
   the CPU (plain versions), three FMGs, laplacian and ahelmholtz; the
-  32^3-base L and periodic forests the same way (footprint cells);
+  32^3-base L and periodic forests the same way (footprint cells); the
+  boxed solver on the sparse periodic tree at base 32, box 4, two FMGs;
 * ``vcoeff_path`` — ``PoissonSolver(3, (512,)*3, 16, operator=...,
   dtype=float32)`` for vhelmholtz and ahelmholtz (lam 1.5, Dirichlet 0,
   coefficients 1 + 0.5 cos(2 pi (x_d + 0.1 d)) set and restricted on the
@@ -78,6 +81,16 @@ object per line:
 * ``forest_periodic`` — a fully periodic forest (base 128, box 16, a
   corner patch): its full levels run the sequential path, so
   ``half_sweep_dense`` must have run;
+* ``boxed_path`` — the boxed solver at full width: ``PoissonSolver(3,
+  (256,)*3, 16, tree=..., periodic=True)`` on the fully periodic sparse
+  tree (two corner patches of a quarter extent), which ``make_solver``
+  sends to ``MGSolver``, float64 (see phase_boxed_path for why not
+  float32), the flat half-sweep kernel on: one zero-guess and eight
+  have-guess FMGs (residuals must fall monotonically below 1e-3 of the
+  first), eight timed have-guess FMGs (``ms_per_fmg``,
+  ``leaf_unknowns_per_s``, launches and coarse-loop host reads per FMG,
+  peak memory, set-up seconds), and two FMGs with the kernel against two
+  with the torch-ops smoother from one state, which must agree bitwise;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
   shape, and per coefficient variant ``name[n_eps=k]``: launches on its
   path (the float32 solve for the six stencil kernels, the refined solve
@@ -89,6 +102,8 @@ object per line:
   level 2's 512^3 canvas with its ghost layers, the corr_ready
   correction 256^3 -> 512^3, the half-sweep on the periodic forest's
   128^3 level) and the set mode at the main path's prolongation shape;
+  the flat half-sweep at the boxed path's level-1 shape [4096, 18^3]
+  (float32, its float64 time beside it);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -167,6 +182,10 @@ FOREST_PATH_KERNELS = ("pair_sweep_dense[segs]", "stencil_apply_dense[segs]",
                        "prolong_correct_dense[corr_ready]", "restrict_dense")
 FOREST_PERIODIC_KERNELS = FOREST_PATH_KERNELS + ("half_sweep_dense",
                                                  "stencil_apply_dense")
+#: the boxed solver's kernel (MGSolver with MGExperimental.pallas_smoother)
+SOURCES["half_sweep_flat"] = "octree_mg_tpu_torch/csrc/flat_sweep.cu"
+REPLACES["half_sweep_flat"] = "octree_mg_tpu/ops/pallas_smoother.py:50"
+BOXED_KERNELS = ("half_sweep_flat",)
 FMG_KERNELS = tuple(k for k in CONST_KERNELS if k != "residual_df32_dense")
 REFINED_KERNELS = tuple(k for k in CONST_KERNELS
                         if k != "residual_restrict_dense")
@@ -517,17 +536,59 @@ def phase_checks(dk, df, quick):
                              "bc": bc_kind, "lam": lam,
                              "bc_values_override": bvals is not None,
                              "max_ulp": u})
+    flat = flat_cases()
+    worst = max([worst] + [r["max_ulp"] for r in flat])
+    rows += flat
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] for r in rows)
-    forest = [r for r in rows if "segs" in r["kernel"] or "half" in
-              r["kernel"] or "[" in r["kernel"] and "prolong" in r["kernel"]]
+    forest = [r for r in rows if "segs" in r["kernel"]
+              or r["kernel"] in ("half_sweep0", "half_sweep1")
+              or "[" in r["kernel"] and "prolong" in r["kernel"]]
     emit({"checks": {"cases": len(rows), "eps_cases": n_eps_cases,
                      "forest_cases": len(forest),
                      "forest_max_ulp": max(r["max_ulp"] for r in forest),
+                     "flat_cases": len(flat),
+                     "flat_max_ulp": max(r["max_ulp"] for r in flat),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
         fail(f"{len(bad)} kernel cases differ from their plain version")
+
+
+def flat_cases():
+    """The boxed solver's half-sweep kernel against its plain version:
+    float32 and float64, D = 1, 2, 3, nc 2, 4, 8, 16, n = 1, 7 and 4096
+    boxes, lam 0 and 0.7, both parities; random fields, ghosts included
+    (the kernel must leave them as they are)."""
+    from octree_mg_tpu_torch.ops import flat_smoother as fs
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for dtype in (torch.float32, torch.float64):
+        for ndim in (1, 2, 3):
+            idr2 = (7.3, 2.0, 0.55)[:ndim]
+            for nc in (2, 4, 8, 16):
+                S = (nc + 2) ** ndim
+                for n in (1, 7, 4096):
+                    phi = torch.randn((n, S), generator=g, dtype=dtype,
+                                      device="cuda")
+                    rhs = torch.randn((n, S), generator=g, dtype=dtype,
+                                      device="cuda")
+                    for lam in (0.0, 0.7):
+                        for parity in (0, 1):
+                            want = fs._half_sweep_flat_plain(
+                                phi, rhs, ndim, nc, idr2, lam, parity)
+                            got = fs.half_sweep_flat(phi.clone(), rhs, ndim,
+                                                     nc, idr2, lam, parity)
+                            torch.cuda.synchronize()
+                            u = ulp_diff(got, want)
+                            rows.append({
+                                "kernel": "half_sweep_flat", "ndim": ndim,
+                                "nc": nc, "n": n, "dtype": str(dtype)[6:],
+                                "lam": lam, "parity": parity,
+                                "max_ulp": u if u >= 0 else 1 << 62})
+                    del phi, rhs
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1499,15 +1560,24 @@ def forest_tree(pkg, tm, kind, base, box):
     * "periodic": a fully periodic domain with one corner patch ix <=
       nb/2;
     * "slab": an (X, Y, Z) domain with an L-shaped level 2 over iy <= c
-      or iz <= c, c half the boxes of y.
+      or iz <= c, c half the boxes of y;
+    * "sparse" / "sparse_periodic": two corner patches of a quarter of
+      the extent, ix <= nb/4 and ix > nb - nb/4, in a closed or a fully
+      periodic domain (at base 256, box 16: 1024 level-2 boxes, 3.1 % of
+      the level-2 canvas, so the dense forest's fill gate rejects it;
+      the closed one goes to the JAX package's multi-canvas forest, the
+      periodic one, whose mean removal that solver refuses, to the boxed
+      MGSolver).
 
     At base 16, box 4 the first three are tests/test_dense_forest.py's
     forests, and "slab" at (64, 16, 16) is its _seg_tree."""
     dims = [base] * 3 if isinstance(base, int) else list(base)
     nb = dims[1] // box
     h = (nb + 1) // 2
+    q = nb // 4
     t = pkg.build_rectangle(3, dims, box, [1.0 / n for n in dims], [0] * 3,
-                            periodic=[kind == "periodic"] * 3)
+                            periodic=[kind in ("periodic",
+                                               "sparse_periodic")] * 3)
     if kind == "L":
         _refine(tm, t, 1, lambda ix: ix[0] <= h or ix[1] <= h)
         _refine(tm, t, 2, lambda ix: np.all(ix <= h))
@@ -1515,7 +1585,10 @@ def forest_tree(pkg, tm, kind, base, box):
         return t
     pick = {"two": lambda ix: np.all(ix <= nb // 2) or np.all(ix > nb // 2),
             "periodic": lambda ix: np.all(ix <= nb // 2),
-            "slab": lambda ix: ix[1] <= nb // 2 or ix[2] <= nb // 2}[kind]
+            "slab": lambda ix: ix[1] <= nb // 2 or ix[2] <= nb // 2,
+            "sparse": lambda ix: np.all(ix <= q) or np.all(ix > nb - q),
+            "sparse_periodic":
+                lambda ix: np.all(ix <= q) or np.all(ix > nb - q)}[kind]
     _refine(tm, t, 1, pick)
     tm.finalize_amr(t, 2)
     return t
@@ -1740,6 +1813,190 @@ def phase_set_mode_row(dk, launches_forest, n=512):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the boxed solver
+# ---------------------------------------------------------------------------
+
+def clone_boxed(state):
+    return {"cc": {l: t.clone() for l, t in state["cc"].items()},
+            "bc": {l: [p.clone() for p in ps] for l, ps in state["bc"].items()}}
+
+
+def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8):
+    """The boxed solver at full width, through the normal entry:
+    ``PoissonSolver(3, (256,)*3, 16, tree=t, periodic=True)`` on the
+    fully periodic sparse tree (two corner patches of a quarter extent:
+    4096 level-1 boxes, 1024 level-2 boxes at 3.1 % of the level-2
+    canvas; 2.04e7 leaf unknowns), which ``make_solver`` sends to
+    ``MGSolver``; laplacian, float64, the flat half-sweep kernel on
+    (``MGExperimental(pallas_smoother=True)``), a seeded normal rhs on
+    every box of levels 1 and 2 (the FMG's FAS update replaces it on
+    parents; the solver removes its leaf mean).  One zero-guess and
+    ``n_have`` have-guess FMGs through ``solve`` (residuals must fall
+    monotonically to the float32 floor and end below 1e-3 of the first),
+    launches and coarse-loop host reads counted over that run; then
+    ``n_timed`` have-guess FMGs without the residual, one sync at the
+    end; then two FMGs from one state with the kernel and with the
+    default torch-ops smoother, which must agree bitwise.  Returns the
+    kernel's ``kernels`` row at the path's top shape (level 1's planes,
+    [4096, 18^3]) in float32, with its float64 time beside it, and the
+    launches of the solve.
+
+    float64, not float32: with the reference's coarse rule (residual
+    1e-8 of its start, at most 1000 iterations) a fully periodic boxed
+    FAS solve does not converge in float32, in either package.  The
+    coarse right-hand side A(phi_c) + R(r) of a singular periodic problem
+    is consistent only to float32 rounding of terms as large as phi, so
+    the coarse loop never reaches its tolerance, runs to its cap in every
+    V-cycle and drifts along the constant null space: on the CPU at base
+    32 the port's float32 residuals stall near 5 % of the first, the JAX
+    package's at base 16 fall to 4e-4 and climb back to 1e-2 of it; in
+    float64 the solve contracts ~14x per FMG with ~13 coarse-loop host
+    reads an FMG (base 32, CPU)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    from octree_mg_tpu_torch.ops import flat_smoother as fs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = forest_tree(pkg, tm, "sparse_periodic", base, box)
+    t_tree = time.perf_counter() - t0
+    ps = pkg.PoissonSolver(
+        3, (base,) * 3, box, tree=tree, periodic=True, dtype=torch.float64,
+        experimental=pkg.MGExperimental(pallas_smoother=True))
+    sv = ps.solver
+    if type(sv) is not pkg.MGSolver:
+        fail(f"boxed_path: make_solver gave {type(sv).__name__}")
+    t_maps = time.perf_counter() - t0 - t_tree
+    g = torch.Generator(device="cuda").manual_seed(41)
+    ps.set_rhs(arrays={l: torch.randn((len(tree.lvls[l].ids),) + (box,) * 3,
+                                      generator=g, dtype=torch.float64,
+                                      device="cuda")
+                       for l in (1, 2)})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    dk.reset_launch_counts()
+    sv.coarse_host_reads = 0
+    phi, info = ps.solve(rtol=0.0, atol=0.0, max_cycles=1 + n_have)
+    launches = dk.launch_counts()
+    reads_solve = sv.coarse_host_reads
+    hist = info["residuals"]
+    top = sv.levels[-1]
+    want = (len(tree.lvls[top].ids),) + (box + 2,) * 3
+    if tuple(phi.shape) != want or not bool(torch.isfinite(phi).all()):
+        fail("boxed_path: phi has a wrong shape or non-finite values")
+    check_fmg_history(hist, "boxed_path")
+    missing = [k for k in BOXED_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"boxed_path launched no kernel for {missing}")
+
+    state = ps.state
+    sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    sv.coarse_host_reads = 0
+    t1 = time.perf_counter()
+    for _ in range(n_timed):
+        sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / n_timed
+    per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items() if v}
+    reads_per_fmg = sv.coarse_host_reads / n_timed
+
+    # the kernel against the torch-ops smoother: two FMGs from one state
+    other = clone_boxed(state)
+    runs = {}
+    for use_kernel, st in ((True, state), (False, other)):
+        sv.cfg.experimental.pallas_smoother = use_kernel
+        res = [float(sv.fas_fmg(st, have_guess=True)[1]) for _ in range(2)]
+        runs[use_kernel] = (st, res)
+    sv.cfg.experimental.pallas_smoother = True
+    same = (runs[True][1] == runs[False][1] and all(
+        torch.equal(state["cc"][l], other["cc"][l]) for l in sv.levels))
+    del other, runs
+    n_unk = leaf_unknowns(tree, box)
+    rec = {"model": f"PoissonSolver(3, ({base},)*3, {box}, tree="
+                    f"sparse_periodic, periodic=True, float64, "
+                    f"pallas_smoother=True) -> make_solver -> "
+                    f"{type(sv).__name__}, laplacian",
+           "levels": {str(l): {"boxes": sv.static[l]["n_boxes"],
+                               "nc": sv.static[l]["nc"]}
+                      for l in sv.levels},
+           "level2_canvas_fill": len(tree.lvls[2].ids) * box ** 3
+           / float((2 * base) ** 3),
+           "leaf_unknowns": n_unk, "residuals": hist, "cycles": len(hist),
+           "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+           "setup_s": {"tree": t_tree, "maps_and_solver": t_maps,
+                       "allocation_and_rhs": setup_s - t_tree - t_maps,
+                       "total": setup_s},
+           "ms_per_fmg": 1e3 * dt, "leaf_unknowns_per_s": n_unk / dt,
+           "launches_in_solve": {k: v for k, v in launches.items() if v},
+           "launches_per_fmg": per_fmg,
+           "coarse_host_reads_in_solve": reads_solve,
+           "coarse_host_reads_per_fmg": reads_per_fmg,
+           "kernel_vs_torch_ops_smoother_bitwise": same,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit({"boxed_path": rec})
+    if not same:
+        fail("boxed_path: the flat half-sweep kernel and the torch-ops "
+             "smoother gave different FMGs")
+
+    # the kernel row at level 1's shape, on float32 copies of the state's
+    # planes; the float64 time on the planes themselves beside it
+    lvl = 1
+    nc = sv.static[lvl]["nc"]
+    n, S = sv.static[lvl]["n_boxes"], (nc + 2) ** 3
+    idr2 = sv.static[lvl]["idr2"]
+    phi64 = state["cc"][lvl][0].reshape(n, S)
+    rhs64 = state["cc"][lvl][1].reshape(n, S)
+    ms64 = time_ms(lambda: fs.half_sweep_flat(phi64, rhs64, 3, nc, idr2,
+                                              0.0, 0), 12)
+    phi_f, rhs_f = phi64.float(), rhs64.float()
+    del state, sv, ps, phi64, rhs64
+    torch.cuda.empty_cache()
+    row = timed_row(
+        "half_sweep_flat",
+        lambda: (fs.half_sweep_flat(phi_f, rhs_f, 3, nc, idr2, 0.0, 0),),
+        lambda: (fs._half_sweep_flat_plain(phi_f, rhs_f, 3, nc, idr2, 0.0,
+                                           0),),
+        launches["half_sweep_flat"], per_fmg.get("half_sweep_flat", 0),
+        [n, S], 3 * n * S * 4, 11 * n * nc ** 3 // 2,
+        {"level": lvl, "parity": 0, "path_dtype": "float64",
+         "ms_float64": ms64,
+         "bound_ms_float64": 1e3 * 3 * n * S * 8 / HBM_BYTES_PER_S,
+         "library_ms_note":
+         "no single PyTorch call computes a masked half-sweep"},
+        inplace=phi_f)
+    return [row], launches
+
+
+def boxed_cpu_agreement(pkg, base=32, box=4):
+    """The sparse periodic tree at base 32, box 4, float64, the kernel
+    smoother on, two FMGs on the card and on the CPU (plain versions)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    rng = np.random.default_rng(19)
+    res, phis = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = forest_tree(pkg, tm, "sparse_periodic", base, box)
+        ps = pkg.PoissonSolver(
+            3, (base,) * 3, box, tree=t, periodic=True, dtype=torch.float64,
+            device=dev, experimental=pkg.MGExperimental(pallas_smoother=True))
+        if dev == "cuda":
+            rhs = {l: rng.normal(size=(len(t.lvls[l].ids),) + (box,) * 3)
+                   for l in (1, 2)}
+        ps.set_rhs(arrays=rhs)
+        phi, info = ps.solve(rtol=0.0, max_cycles=2)
+        phis[dev] = phi.cpu().numpy()
+        res[dev] = np.array(info["residuals"])
+    return {
+        "phi_max_rel_diff": float(np.abs(phis["cuda"] - phis["cpu"]).max()
+                                  / np.abs(phis["cpu"]).max()),
+        "residual_max_rel_diff": float(np.max(
+            np.abs(res["cuda"] - res["cpu"]) / np.abs(res["cpu"]))),
+        "residuals_cuda": res["cuda"].tolist(),
+        "residuals_cpu": res["cpu"].tolist()}
+
+
 def forest_cpu_agreement(pkg, kinds=("L", "periodic")):
     """The 32^3-base L forest and the periodic forest, float64, three
     FMGs on the card and on the CPU (plain versions), footprint cells."""
@@ -1811,6 +2068,7 @@ def phase_cpu_agreement(pkg, df):
                     "residuals_cuda": out["cuda"][1].tolist(),
                     "residuals_cpu": out["cpu"][1].tolist()}
     rows.update(forest_cpu_agreement(pkg))
+    rows["boxed"] = boxed_cpu_agreement(pkg)
     emit({"cpu_agreement": {
         "dims": [n] * 3, "dtype": "float64", "fmgs": 3,
         "bound": bound, "residual_bound": bound_res,
@@ -1827,6 +2085,7 @@ def phase_cpu_agreement(pkg, df):
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     quick = "--quick" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script measures the GPU "
@@ -1880,11 +2139,13 @@ def main(argv) -> int:
     periodic_rows, launches_periodic = phase_forest_periodic(pkg, dk)
     forest_rows += periodic_rows
     forest_rows.append(phase_set_mode_row(dk, launches_forest))
+    boxed_rows, _ = phase_boxed_path(pkg, dk)
     rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
                                         vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,
-          "seconds_after_build": time.perf_counter() - t0})
-    emit({"kernels": rows + forest_rows})
+          "seconds_after_build": time.perf_counter() - t0,
+          "seconds_total": time.perf_counter() - t_start})
+    emit({"kernels": rows + forest_rows + boxed_rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

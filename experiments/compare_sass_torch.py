@@ -16,8 +16,8 @@ kernel gained since (the coefficient count NE = 0 of the streaming
 kernel against a tree before it; against a tree that has NE, the
 streaming kernel's SEG = 0 and the prolongation's MODE = 0, add).
 Kernels here without a counterpart there (new variants: NE = 1 and 3,
-SEG = 1, the NS = 1 half-sweep, prolongation modes 1 and 2) are listed
-as new.
+SEG = 1, the NS = 1 half-sweep, prolongation modes 1 and 2, the boxed
+solver's flat half-sweep) are listed as new.
 
 Prints one JSON object: {"kernels": [{"name", "counterpart",
 "instructions", "identical", "first_difference"}], "new": [...],

@@ -4,6 +4,7 @@
     python3 experiments/profile_torch_fmg.py            # the uniform passes
     python3 experiments/profile_torch_fmg.py --vcoeff   # the coefficient ones
     python3 experiments/profile_torch_fmg.py --forest   # the forest ones
+    python3 experiments/profile_torch_fmg.py --boxed    # the boxed solver
 
 On the 512^3 float32 main path (``PoissonSolver(3, (512,)*3, 16)``,
 Dirichlet 0, seeded random right-hand side) it prints, one JSON object
@@ -38,7 +39,12 @@ per line:
   dense forests of ``chip_smoke.py``: the L forest at base 256, box 16
   (``forest_path``) and the periodic forest at base 128 (``forest_periodic``),
   float32: the busy share says how much of an FMG is the card's and how
-  much the host's eager ghost assembly, the kernel names what runs.
+  much the host's eager ghost assembly, the kernel names what runs;
+* ``profile_boxed`` (``--boxed`` only) — the same pass for
+  ``chip_smoke.py``'s ``boxed_path``: the boxed solver (``MGSolver``) on
+  the fully periodic sparse tree at base 256, box 16, float64, the flat
+  half-sweep kernel on; with the kernel launches and the coarse loop's
+  host reads per FMG.
 
 Needs a CUDA device and nvcc.
 """
@@ -111,6 +117,8 @@ def profiled(run, n, unit):
            f"wall_ms_per_{unit}_profiler_off": run()}
     if rows:
         out.update({f"device_ms_per_{unit}": busy, "busy_share": busy / wall,
+                    f"device_calls_per_{unit}": sum(
+                        r[f"calls_per_{unit}"] for r in rows),
                     "by_kernel": rows[:20]})
     else:
         out["device_time"] = "not measured: the profiler saw no device events"
@@ -291,6 +299,27 @@ def phase_profile_forest(n=4):
         del ps
 
 
+def phase_profile_boxed(n=4):
+    import chip_smoke
+    from octree_mg_tpu_torch.core import tree as tm
+    tree = chip_smoke.forest_tree(pkg, tm, "sparse_periodic", 256, 16)
+    torch.cuda.empty_cache()
+    ps = pkg.PoissonSolver(
+        3, (256,) * 3, 16, tree=tree, periodic=True, dtype=torch.float64,
+        experimental=pkg.MGExperimental(pallas_smoother=True))
+    g = torch.Generator(device="cuda").manual_seed(41)
+    ps.set_rhs(arrays={l: torch.randn((len(tree.lvls[l].ids), 16, 16, 16),
+                                      generator=g, dtype=torch.float64,
+                                      device="cuda") for l in (1, 2)})
+    ps.solve(rtol=0.0, max_cycles=3)
+    sv = ps.solver
+    sv.coarse_host_reads = 0
+    out = profiled(lambda: loop_ms(ps, n, False), n, "fmg")
+    # profiled() runs the loop three times (warm-up, profiled, off)
+    out["coarse_host_reads_per_fmg"] = sv.coarse_host_reads / (3 * n)
+    emit({"profile_boxed": out})
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("profile_torch_fmg: needs a CUDA device")
@@ -300,6 +329,9 @@ if __name__ == "__main__":
     emit({"card": smi, "torch": torch.__version__})
     if "--forest" in sys.argv[1:]:
         phase_profile_forest()
+        sys.exit(0)
+    if "--boxed" in sys.argv[1:]:
+        phase_profile_boxed()
         sys.exit(0)
     if "--vcoeff" not in sys.argv[1:]:
         solver = main_path()

@@ -11,7 +11,10 @@ coarse solve, assembled or probed), its f64-class refined mode
 (any 2:1-balanced 3D octree, laplacian and helmholtz), whose stencil,
 restriction, prolongation and double-float residual passes are CUDA
 kernels written by hand (``csrc/``), each beside a plain PyTorch version
-that serves CPU tensors.
+that serves CPU tensors; and the boxed solver ``MGSolver`` (ghost-padded
+boxes in 1D, 2D and 3D, all five operators, the 2D cylindrical
+laplacian, GSRB or Jacobi), which serves what no dense path takes, with
+its flat-box half-sweep as a CUDA kernel.
 
 It imports ``torch`` and ``numpy`` only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
@@ -20,7 +23,7 @@ unless the caller passes ``device="cpu"``.
 from .core.constants import (BCType, Geometry, Operator, Smoother, IPHI,
                              IRHS, IOLD, IRES, NUM_VARS)
 from .core.tree import Tree, build_rectangle, box_r_min
-from .solve.multigrid import MGConfig
+from .solve.multigrid import MGConfig, MGExperimental, MGSolver
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
 from .solve.dense_forest import DenseForestMGSolver, dense_forest_supported
 from .models.poisson import PoissonSolver
@@ -33,7 +36,7 @@ __all__ = [
     "BCType", "Geometry", "Operator", "Smoother",
     "IPHI", "IRHS", "IOLD", "IRES", "NUM_VARS",
     "Tree", "build_rectangle", "box_r_min",
-    "MGConfig", "DenseMGSolver", "dense_supported", "make_solver",
+    "MGConfig", "MGExperimental", "MGSolver", "DenseMGSolver", "dense_supported", "make_solver",
     "DenseForestMGSolver", "dense_forest_supported",
     "PoissonSolver", "RefinedPoisson", "solve_refined", "df32_ok",
     "df32_vcoeff_ok", "split_f64", "state_from_numpy", "state_to_numpy",

@@ -20,7 +20,14 @@ or probed it from the coefficients.
 The refined solve's state crosses the same way: ``df_pair_from_numpy``
 puts a padded double-float pair (the solution ``(x_hi, x_lo)`` or the
 right-hand side) into a ``RefinedPoisson``'s own buffers, and
-``df_pair_to_numpy`` reads one back.  Its host constants need no
+``df_pair_to_numpy`` reads one back.
+
+The boxed solver (``MGSolver``) has the JAX package's boxed layout,
+
+    {"cc": {lvl: ndarray [n_vars, n_boxes, (nc+2)^D]},
+     "bc": {lvl: [2D boundary-value planes [n_boxes, nc^(D-1)]]}},
+
+which ``state_from_numpy`` checks and carries the same way.  Its host constants need no
 conversion: ``RefinedPoisson.cbs`` (six ``(hi, lo)`` pairs) and
 ``lam_pair`` are plain Python floats in both packages and can be
 compared or assigned as they are.
@@ -40,10 +47,40 @@ def _to_tensor(solver, a) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(solver.device, solver.cfg.dtype)
 
 
+def _boxed_from_numpy(solver, np_state: Dict) -> Dict:
+    state: Dict = {"cc": {}, "bc": {}}
+    for lvl in solver.levels:
+        st = solver.static[lvl]
+        want = ((solver.n_vars, st["n_boxes"])
+                + (st["nc"] + 2,) * solver.ndim)
+        a = np.asarray(np_state["cc"][lvl])
+        if tuple(a.shape) != want:
+            raise ValueError(f"cc[{lvl}]: shape {a.shape}, this solver has "
+                             f"{want}")
+        state["cc"][lvl] = _to_tensor(solver, a)
+        planes = list(np_state["bc"][lvl])
+        if len(planes) != 2 * solver.ndim:
+            raise ValueError(f"bc[{lvl}]: expected {2 * solver.ndim} planes")
+        fshape = (st["nc"],) * (solver.ndim - 1)
+        out = []
+        for nb, p in enumerate(planes):
+            p = np.asarray(p)
+            if tuple(p.shape) != (st["n_boxes"],) + fshape:
+                raise ValueError(f"bc[{lvl}][{nb}]: shape {p.shape}, "
+                                 f"expected {(st['n_boxes'],) + fshape}")
+            out.append(_to_tensor(solver, p))
+        state["bc"][lvl] = out
+    return state
+
+
 def state_from_numpy(solver, np_state: Dict) -> Dict:
     """A new state for ``solver`` holding the values of ``np_state``: the
     fields of ``solver._field_keys`` (eps0.. for the variable-coefficient
-    operators) and the boundary planes."""
+    operators) and the boundary planes; for the boxed solver its "cc"
+    arrays and boundary planes."""
+    from .solve.multigrid import MGSolver
+    if isinstance(solver, MGSolver):
+        return _boxed_from_numpy(solver, np_state)
     keys = solver._field_keys
     missing = [k for k in keys if k not in np_state]
     if missing:

@@ -1,8 +1,9 @@
 """High-level Poisson/Helmholtz solver model.
 
-Convenience front end over the dense solver, covering the reference's
-uniform-grid workflow (tests/test_uniform_grid.f90) as a library API:
-build tree -> set BCs -> set rhs -> solve to tolerance.
+Convenience front end over the solvers ``make_solver`` picks, covering
+the reference's test program workflows (tests/test_uniform_grid.f90,
+test_refinement.f90) as a library API: build tree -> set BCs -> set rhs
+-> solve to tolerance.
 """
 from __future__ import annotations
 
@@ -11,22 +12,24 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.constants import IPHI, BCType
+from ..core.constants import IPHI, IRHS, BCType
 from ..core.tree import Tree, build_rectangle
 from ..solve.dense import make_solver
-from ..solve.multigrid import MGConfig
+from ..solve.multigrid import MGConfig, MGSolver
 
 
 class PoissonSolver:
-    """Solve A(phi) = rhs on a uniform rectangular 3D grid, or on any
-    2:1-balanced 3D octree passed as ``tree`` (the dense forest).
+    """Solve A(phi) = rhs on a uniform rectangular grid, or on a tree
+    passed as ``tree``, with the solver ``make_solver`` picks.
 
-    ``solve``/``phi`` return the assembled global interior array
-    [Z, Y, X] — on a forest the top level's canvas, whose cells outside
-    ``solver.footprint_mask(top)`` are garbage, and ``solve``'s residual
-    is the max-norm over the footprint cells.  The solver runs on
-    ``device`` ("cuda" unless told otherwise) through the hand-written
-    kernels of ops/dense_kernels.
+    For a dense solver ``solve``/``phi`` return the assembled global
+    interior array [Z, Y, X] — on a forest the top level's canvas, whose
+    cells outside ``solver.footprint_mask(top)`` are garbage, and
+    ``solve``'s residual is the max-norm over the footprint cells.  For
+    the boxed solver (``MGSolver``: 1D, Jacobi, fully periodic sparse
+    trees, ...) they return the top level's ghost-padded per-box plane
+    [n_boxes, (nc+2)^D].  The solver runs on ``device`` ("cuda" unless
+    told otherwise) through the hand-written kernels.
 
     Example::
 
@@ -60,6 +63,7 @@ class PoissonSolver:
                                                  geometry=geometry,
                                                  dtype=dtype, device=device,
                                                  **cfg_kwargs))
+        self.dense = not isinstance(self.solver, MGSolver)
         self.state = None
         self._refined = None   # (bc_values, RefinedPoisson) of solve_refined
 
@@ -69,8 +73,11 @@ class PoissonSolver:
         self._refined = None
         if self.state is not None:
             # the state's boundary planes were evaluated at allocation
-            for lvl in self.solver.levels:
-                self.state["bc"][lvl] = self.solver._eval_bc_planes(lvl)
+            sv = self.solver
+            for lvl in sv.levels:
+                self.state["bc"][lvl] = (sv._eval_bc_planes(lvl)
+                                         if self.dense
+                                         else sv._eval_bc_values(lvl))
 
     def set_dirichlet(self, value=0.0, fn: Optional[Callable] = None):
         self._set_bc(IPHI, BCType.DIRICHLET, value=value, fn=fn)
@@ -89,11 +96,24 @@ class PoissonSolver:
 
     def set_rhs(self, rhs_fn: Optional[Callable] = None,
                 arrays: Optional[dict] = None):
-        """rhs from a coordinate function x[...,3]->f (evaluated on every
-        level) or explicit per-level interior arrays [Z, Y, X] (numpy
-        arrays or tensors)."""
+        """rhs from a coordinate function x[...,D]->f (evaluated on every
+        level) or explicit per-level arrays (numpy arrays or tensors):
+        the interior [Z, Y, X] for a dense solver, the per-box interiors
+        [n_boxes, (nc,)*D] for the boxed solver."""
         state = self._ensure_state()
         sv = self.solver
+        if not self.dense:
+            isl = (slice(None),) + (slice(1, -1),) * sv.ndim
+            for lvl in sv.levels:
+                if arrays is not None and lvl in arrays:
+                    vals = arrays[lvl]
+                elif rhs_fn is not None:
+                    vals = np.asarray(rhs_fn(sv.cell_centers(lvl)[isl]))
+                else:
+                    continue
+                state["cc"][lvl][IRHS][isl] = torch.as_tensor(
+                    vals, dtype=sv.cfg.dtype, device=sv.device)
+            return
         for lvl in sv.levels:
             if arrays is not None and lvl in arrays:
                 vals = arrays[lvl]
@@ -111,8 +131,10 @@ class PoissonSolver:
 
         The first cycle is a zero-guess FMG, every later one continues
         from the current phi.  Each cycle reads its residual back to the
-        host (one device synchronization per cycle).  Returns (top-level
-        interior phi [Z, Y, X], info dict).
+        host (one device synchronization per cycle; the boxed solver's
+        coarse loop reads one more per coarse iteration).  Returns
+        (top-level phi, info dict): the interior [Z, Y, X] of a dense
+        solver, the ghost-padded per-box plane of the boxed solver.
         """
         state = self._ensure_state()
         sv = self.solver
@@ -131,10 +153,15 @@ class PoissonSolver:
                 break
         self.state = state
         info = {"residuals": history, "cycles": len(history)}
-        return sv.interior(state, sv.levels[-1], "phi"), info
+        top = sv.levels[-1]
+        if not self.dense:
+            return state["cc"][top][IPHI], info
+        return sv.interior(state, top, "phi"), info
 
     def phi(self, lvl: Optional[int] = None) -> np.ndarray:
         lvl = self.solver.levels[-1] if lvl is None else lvl
+        if not self.dense:
+            return self.state["cc"][lvl][IPHI].cpu().numpy()
         return self.solver.interior(self.state, lvl, "phi").cpu().numpy()
 
     # -- f64-class solve with float32 kernels ------------------------------
@@ -159,6 +186,8 @@ class PoissonSolver:
         with the same ``bc_values``."""
         from ..ops.df32 import split_f64
         from ..solve.refine import RefinedPoisson
+        if not self.dense:
+            raise ValueError("solve_refined requires a dense fast path")
         state = self._ensure_state()
         if isinstance(rhs, tuple):
             rhs_hi, rhs_lo = rhs

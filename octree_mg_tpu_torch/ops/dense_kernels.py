@@ -79,7 +79,8 @@ _LAUNCHES = {"pair_sweep_dense": 0, "stencil_apply_dense": 0,
              "half_sweep_dense": 0,
              "pair_sweep_dense[segs]": 0, "stencil_apply_dense[segs]": 0,
              "prolong_correct_dense[set]": 0,
-             "prolong_correct_dense[corr_ready]": 0}
+             "prolong_correct_dense[corr_ready]": 0,
+             "half_sweep_flat": 0}          # the wrapper lives in ops/flat_smoother
 #: the entry points with coefficient variants, and their counter names
 EPS_ENTRIES = ("pair_sweep_dense", "stencil_apply_dense", "downsweep_dense",
                "residual_restrict_dense")

@@ -37,11 +37,11 @@ the coarsest level's operator column by column (its matrix depends on
 the coefficients).
 
 Gating: 3D cartesian GSRB on uniform trees.  ``make_solver`` routes as
-the JAX package does: uniform trees here, rectangular AMR patch trees to
-the dense-patch AMR solver (still to be ported: it raises), every other
-2:1-balanced 3D octree to the dense forest (solve/dense_forest.py, a
-subclass of this solver).  2D and the boxed solver are not part of this
-package yet (``make_solver`` raises).
+the JAX package does: uniform trees here, every other 2:1-balanced 3D
+octree the dense forest's gate admits to the dense forest
+(solve/dense_forest.py, a subclass of this solver), what no dense path
+takes to the boxed solver (solve/multigrid.py); paths still to be ported
+(rectangular AMR patches, sparse multi-canvas forests, 2D) raise.
 """
 from __future__ import annotations
 
@@ -74,28 +74,50 @@ def dense_supported(tree: Tree, cfg: MGConfig) -> bool:
             and cfg.smoother in ("gsrb", "gs"))
 
 
+def _dense2d_ops(cfg: MGConfig) -> bool:
+    """Whether the operator, geometry and smoother gate shared by the JAX
+    package's 2D dense paths (``dense2d``, ``dense_amr2d``,
+    ``dense_forest2d``, ``dense_multiforest2d``) passes: the five
+    cartesian operators, or the cylindrical laplacian, with GSRB."""
+    geom_ok = (cfg.geometry == "cartesian"
+               or (cfg.geometry == "cylindrical"
+                   and cfg.operator == "laplacian"))
+    return (cfg.operator in _OP_N_EPS and geom_ok
+            and cfg.smoother in ("gsrb", "gs"))
+
+
 def make_solver(tree: Tree, config: Optional[MGConfig] = None):
-    """The dense fast path for a uniform 3D tree, the dense forest for
-    other 2:1-balanced 3D octrees (constant coefficients), in the JAX
-    package's order.  What it would dispatch elsewhere (2D, rectangular
-    AMR patch trees, variable-coefficient forests, the boxed solver) is
-    still to be ported and raises, naming its ROADMAP item."""
+    """The solver the JAX package's ``make_solver`` would pick, in its
+    order: the dense fast path for a uniform 3D tree, the dense forest
+    for other 2:1-balanced 3D octrees (constant coefficients), and the
+    boxed ``MGSolver`` for what no dense path takes (1D, the Jacobi
+    smoother, operators or geometries the 2D paths reject, fully
+    periodic sparse trees).  What it would dispatch to a path still to
+    be ported raises, naming its ROADMAP item: rectangular AMR patch
+    trees (A8), sparse multi-canvas forests (A9), variable-coefficient
+    forests (A14), and every 2D configuration some 2D dense path's
+    operator gate admits (A10) — whether that path would take the tree
+    or leave it to the boxed solver."""
     from .dense_amr import dense_amr_supported
     from .dense_forest import DenseForestMGSolver, dense_forest_supported
+    from .dense_multiforest import dense_multiforest_supported
+    from .multigrid import MGSolver
     cfg = config or MGConfig()
     if dense_supported(tree, cfg):
         return DenseMGSolver(tree, cfg)
-    if tree.ndim == 2:
+    if tree.ndim == 2 and _dense2d_ops(cfg):
         what = "2D paths (ROADMAP A10)"
     elif dense_amr_supported(tree, cfg):
         what = "the dense-patch AMR solver (ROADMAP A8)"
     elif dense_forest_supported(tree, cfg):
         return DenseForestMGSolver(tree, cfg)
+    elif dense_multiforest_supported(tree, cfg):
+        what = "the multi-canvas dense forest (ROADMAP A9)"
     else:
-        what = "the boxed MGSolver (ROADMAP A11)"
+        return MGSolver(tree, cfg)
     raise NotImplementedError(
-        f"octree_mg_tpu_torch covers 3D cartesian GSRB on uniform trees "
-        f"and dense forests; this configuration needs {what}")
+        f"octree_mg_tpu_torch: the JAX package may send this "
+        f"configuration to {what}, which is still to be ported")
 
 
 _ISL = (slice(dk.PZ, -dk.PZ), slice(dk.PY, -dk.PY), slice(None))

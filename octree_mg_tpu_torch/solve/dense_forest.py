@@ -183,9 +183,12 @@ def _dep_memo(obj, name, lvlkey, deps, build):
 class _LevelGeom:
     """Canvas geometry of one refinement level."""
 
-    def __init__(self, tree: Tree, lvl: int):
+    def __init__(self, tree: Tree, lvl: int, ids=None):
+        """ids: a subset of the level's boxes (one connected component,
+        for the multi-canvas gate); all of them by default."""
         self.nc = nc = tree.box_size_lvl[lvl]
-        ix = tree.ix[tree.lvls[lvl].ids] - 1      # [n, 3] 0-based box coords
+        ids = tree.lvls[lvl].ids if ids is None else np.asarray(ids)
+        ix = tree.ix[ids] - 1                     # [n, 3] 0-based box coords
         self.box_lo = ix.min(axis=0)              # canvas origin, box units
         box_hi = ix.max(axis=0) + 1
         self.B = box_hi - self.box_lo             # canvas extent, box units

@@ -124,6 +124,10 @@ def _tree3(n=16, box=8, per=False):
 
 @pytest.mark.parametrize("case", ["2d", "amr", "jacobi", "cylindrical"])
 def test_make_solver_raises_for_what_waits(case):
+    """2D dense paths and rectangular AMR patches still wait and raise; a
+    uniform 3D tree with the Jacobi smoother or cylindrical geometry is
+    no dense path's and goes to the boxed MGSolver, as in the JAX
+    package."""
     cfg = port.MGConfig(device="cpu")
     tree = _tree3()
     if case == "2d":
@@ -135,6 +139,9 @@ def test_make_solver_raises_for_what_waits(case):
         cfg.smoother = "jacobi"
     else:
         cfg.geometry = "cylindrical"
+    if case in ("jacobi", "cylindrical"):
+        assert type(port.make_solver(tree, cfg)) is port.MGSolver
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.make_solver(tree, cfg)
 

@@ -232,3 +232,35 @@ def test_forest_kernels_on_card_are_checked():
     assert after["pair_sweep_dense[segs]"] == \
         before["pair_sweep_dense[segs]"] + 1
     assert after["pair_sweep_dense"] == before["pair_sweep_dense"]
+
+
+@pytest.mark.cuda
+def test_flat_half_sweep_kernel_equals_plain_version_bitwise():
+    """The boxed solver's half-sweep kernel against its plain version:
+    float32/float64, D = 1, 2, 3, nc 2 to 16, 1 to 4096 boxes, lam 0 and
+    0.7, both parities (chip_smoke.py's cases): 0 ulp; launches counted."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    dk.reset_launch_counts()
+    rows = chip_smoke.flat_cases()
+    assert rows and all(r["max_ulp"] == 0 for r in rows)
+    assert dk.launch_counts()["half_sweep_flat"] == len(rows)
+
+
+@pytest.mark.cuda
+def test_boxed_solver_on_card_matches_cpu():
+    """The sparse periodic tree at base 32, box 4, float64, the kernel
+    smoother on: two FMGs on the card and on the CPU agree to 1e-11 of
+    max|phi| (residuals 1e-8), and the card ran the kernel."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    dk.reset_launch_counts()
+    r = chip_smoke.boxed_cpu_agreement(port)
+    assert dk.launch_counts()["half_sweep_flat"] > 0
+    assert r["phi_max_rel_diff"] < 1e-11, r
+    assert r["residual_max_rel_diff"] < 1e-8, r
