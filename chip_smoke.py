@@ -84,8 +84,10 @@ object per line:
 * ``boxed_path`` — the boxed solver at full width: ``PoissonSolver(3,
   (256,)*3, 16, tree=..., periodic=True)`` on the fully periodic sparse
   tree (two corner patches of a quarter extent), which ``make_solver``
-  sends to ``MGSolver``, float64 (see phase_boxed_path for why not
-  float32), the flat half-sweep kernel on: one zero-guess and eight
+  sends to ``MGSolver``, the flat half-sweep kernel on: in float32 two
+  FMGs (finite, the residual below its first; the coarse loop runs to
+  its cap, see phase_boxed_path) and the kernel row on that state; in
+  float64 one zero-guess and eight
   have-guess FMGs (residuals must fall monotonically below 1e-3 of the
   first), eight timed have-guess FMGs (``ms_per_fmg``,
   ``leaf_unknowns_per_s``, launches and coarse-loop host reads per FMG,
@@ -1822,56 +1824,125 @@ def clone_boxed(state):
             "bc": {l: [p.clone() for p in ps] for l, ps in state["bc"].items()}}
 
 
-def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8):
+def flat_sweep_bytes(n, nc, ndim, item):
+    """Bytes one flat half-sweep must move, counted as ``work_model``
+    counts ``half_sweep_dense``: phi's interior and face ghosts read
+    (the stencil reads no edge or corner ghost), rhs's interior read,
+    phi's interior written (a checkerboard covers every sector)."""
+    return item * n * (3 * nc ** ndim + 2 * ndim * nc ** (ndim - 1))
+
+
+def boxed_poisson(pkg, tree, base, box, dtype):
+    """The boxed path's entry with the kernel smoother on."""
+    ps = pkg.PoissonSolver(
+        3, (base,) * 3, box, tree=tree, periodic=True, dtype=dtype,
+        experimental=pkg.MGExperimental(pallas_smoother=True))
+    if type(ps.solver) is not pkg.MGSolver:
+        fail(f"boxed_path: make_solver gave {type(ps.solver).__name__}")
+    return ps
+
+
+def seed_boxed_rhs(ps, tree, box, dtype):
+    """A seeded normal rhs on every box of levels 1 and 2 (the FMG's FAS
+    update replaces it on parents; the solver removes its leaf mean)."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+    ps.set_rhs(arrays={l: torch.randn((len(tree.lvls[l].ids),) + (box,) * 3,
+                                      generator=g, dtype=dtype,
+                                      device="cuda")
+                       for l in (1, 2)})
+
+
+def check_boxed_phi(phi, sv, tree, box, what):
+    want = (len(tree.lvls[sv.levels[-1]].ids),) + (box + 2,) * 3
+    if tuple(phi.shape) != want or not bool(torch.isfinite(phi).all()):
+        fail(f"{what}: phi has a wrong shape or non-finite values")
+
+
+def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8,
+                     n_f32=2):
     """The boxed solver at full width, through the normal entry:
     ``PoissonSolver(3, (256,)*3, 16, tree=t, periodic=True)`` on the
     fully periodic sparse tree (two corner patches of a quarter extent:
     4096 level-1 boxes, 1024 level-2 boxes at 3.1 % of the level-2
     canvas; 2.04e7 leaf unknowns), which ``make_solver`` sends to
-    ``MGSolver``; laplacian, float64, the flat half-sweep kernel on
-    (``MGExperimental(pallas_smoother=True)``), a seeded normal rhs on
-    every box of levels 1 and 2 (the FMG's FAS update replaces it on
-    parents; the solver removes its leaf mean).  One zero-guess and
-    ``n_have`` have-guess FMGs through ``solve`` (residuals must fall
-    monotonically to the float32 floor and end below 1e-3 of the first),
-    launches and coarse-loop host reads counted over that run; then
-    ``n_timed`` have-guess FMGs without the residual, one sync at the
-    end; then two FMGs from one state with the kernel and with the
-    default torch-ops smoother, which must agree bitwise.  Returns the
-    kernel's ``kernels`` row at the path's top shape (level 1's planes,
-    [4096, 18^3]) in float32, with its float64 time beside it, and the
-    launches of the solve.
+    ``MGSolver``; laplacian, the flat half-sweep kernel on
+    (``MGExperimental(pallas_smoother=True)``).
 
-    float64, not float32: with the reference's coarse rule (residual
-    1e-8 of its start, at most 1000 iterations) a fully periodic boxed
-    FAS solve does not converge in float32, in either package.  The
-    coarse right-hand side A(phi_c) + R(r) of a singular periodic problem
-    is consistent only to float32 rounding of terms as large as phi, so
-    the coarse loop never reaches its tolerance, runs to its cap in every
-    V-cycle and drifts along the constant null space: on the CPU at base
-    32 the port's float32 residuals stall near 5 % of the first, the JAX
-    package's at base 16 fall to 4e-4 and climb back to 1e-2 of it; in
-    float64 the solve contracts ~14x per FMG with ~13 coarse-loop host
-    reads an FMG (base 32, CPU)."""
+    First float32: one zero-guess and ``n_f32 - 1`` have-guess FMGs
+    through ``solve`` (finite phi of the right shape, the kernel
+    launched, the residual below its first; residuals, coarse-loop host
+    reads and wall time recorded), and the kernel's row timed on that
+    state's level-1 planes ([4096, 18^3]).  With the reference's coarse
+    rule (residual 1e-8 of its start, at most 1000 iterations) a fully
+    periodic float32 solve does not converge monotonically in either
+    package: the coarse loop runs to its cap and the residuals rise and
+    fall (tests/test_torch_boxed.py::
+    test_float32_periodic_solve_stalls_in_both_packages).  So the
+    convergence check runs in float64: one zero-guess and ``n_have``
+    have-guess FMGs (residuals must fall monotonically to below 1e-3 of
+    the first), launches and coarse-loop host reads counted over that
+    run; ``n_timed`` have-guess FMGs without the residual, one sync at
+    the end; two FMGs from one state with the kernel and with the
+    default torch-ops smoother, which must agree bitwise.  Returns the
+    kernel's ``kernels`` row (float32 time, the float64 time beside it)
+    and the launches of the float64 solve."""
     from octree_mg_tpu_torch.core import tree as tm
     from octree_mg_tpu_torch.ops import flat_smoother as fs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+    # float32: the configuration as a user would first run it
+    tree = forest_tree(pkg, tm, "sparse_periodic", base, box)
+    ps = boxed_poisson(pkg, tree, base, box, torch.float32)
+    seed_boxed_rhs(ps, tree, box, torch.float32)
+    sv = ps.solver
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    sv.coarse_host_reads = 0
+    t1 = time.perf_counter()
+    phi, info = ps.solve(rtol=0.0, atol=0.0, max_cycles=n_f32)
+    torch.cuda.synchronize()
+    s_f32 = time.perf_counter() - t1
+    launches_f32 = dk.launch_counts()
+    hist32 = info["residuals"]
+    check_boxed_phi(phi, sv, tree, box, "boxed_path float32")
+    if not (all(np.isfinite(hist32)) and hist32[-1] < hist32[0]):
+        fail(f"boxed_path float32: residuals {hist32}")
+    if launches_f32["half_sweep_flat"] == 0:
+        fail("boxed_path float32 launched no half_sweep_flat")
+    rec32 = {"residuals": hist32,
+             "monotone": all(b < a for a, b in zip(hist32, hist32[1:])),
+             "s_per_fmg": s_f32 / n_f32,
+             "coarse_host_reads_per_fmg": sv.coarse_host_reads / n_f32,
+             "max_coarse_cycles": sv.cfg.max_coarse_cycles,
+             "half_sweep_flat_launches": launches_f32["half_sweep_flat"]}
+    lvl = 1
+    nc, n = sv.static[lvl]["nc"], sv.static[lvl]["n_boxes"]
+    S, idr2 = (nc + 2) ** 3, sv.static[lvl]["idr2"]
+    phi32 = ps.state["cc"][lvl][0].reshape(n, S)
+    rhs32 = ps.state["cc"][lvl][1].reshape(n, S)
+    row = timed_row(
+        "half_sweep_flat",
+        lambda: (fs.half_sweep_flat(phi32, rhs32, 3, nc, idr2, 0.0, 0),),
+        lambda: (fs._half_sweep_flat_plain(phi32, rhs32, 3, nc, idr2, 0.0,
+                                           0),),
+        0, 0, [n, S], flat_sweep_bytes(n, nc, 3, 4), 11 * n * nc ** 3 // 2,
+        {"level": lvl, "parity": 0,
+         "state": "the float32 boxed solve's level-1 planes",
+         "library_ms_note":
+         "no single PyTorch call computes a masked half-sweep"},
+        inplace=phi32)
+    del phi32, rhs32, phi, ps, sv
+    torch.cuda.empty_cache()
+
+    # float64: the convergence check, the clock and the bitwise check
     t0 = time.perf_counter()
     tree = forest_tree(pkg, tm, "sparse_periodic", base, box)
     t_tree = time.perf_counter() - t0
-    ps = pkg.PoissonSolver(
-        3, (base,) * 3, box, tree=tree, periodic=True, dtype=torch.float64,
-        experimental=pkg.MGExperimental(pallas_smoother=True))
+    ps = boxed_poisson(pkg, tree, base, box, torch.float64)
     sv = ps.solver
-    if type(sv) is not pkg.MGSolver:
-        fail(f"boxed_path: make_solver gave {type(sv).__name__}")
     t_maps = time.perf_counter() - t0 - t_tree
-    g = torch.Generator(device="cuda").manual_seed(41)
-    ps.set_rhs(arrays={l: torch.randn((len(tree.lvls[l].ids),) + (box,) * 3,
-                                      generator=g, dtype=torch.float64,
-                                      device="cuda")
-                       for l in (1, 2)})
+    seed_boxed_rhs(ps, tree, box, torch.float64)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -1881,10 +1952,7 @@ def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8):
     launches = dk.launch_counts()
     reads_solve = sv.coarse_host_reads
     hist = info["residuals"]
-    top = sv.levels[-1]
-    want = (len(tree.lvls[top].ids),) + (box + 2,) * 3
-    if tuple(phi.shape) != want or not bool(torch.isfinite(phi).all()):
-        fail("boxed_path: phi has a wrong shape or non-finite values")
+    check_boxed_phi(phi, sv, tree, box, "boxed_path")
     check_fmg_history(hist, "boxed_path")
     missing = [k for k in BOXED_KERNELS if launches[k] == 0]
     if missing:
@@ -1916,7 +1984,7 @@ def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8):
     del other, runs
     n_unk = leaf_unknowns(tree, box)
     rec = {"model": f"PoissonSolver(3, ({base},)*3, {box}, tree="
-                    f"sparse_periodic, periodic=True, float64, "
+                    f"sparse_periodic, periodic=True, "
                     f"pallas_smoother=True) -> make_solver -> "
                     f"{type(sv).__name__}, laplacian",
            "levels": {str(l): {"boxes": sv.static[l]["n_boxes"],
@@ -1924,49 +1992,40 @@ def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8):
                       for l in sv.levels},
            "level2_canvas_fill": len(tree.lvls[2].ids) * box ** 3
            / float((2 * base) ** 3),
-           "leaf_unknowns": n_unk, "residuals": hist, "cycles": len(hist),
-           "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
-           "setup_s": {"tree": t_tree, "maps_and_solver": t_maps,
-                       "allocation_and_rhs": setup_s - t_tree - t_maps,
-                       "total": setup_s},
-           "ms_per_fmg": 1e3 * dt, "leaf_unknowns_per_s": n_unk / dt,
-           "launches_in_solve": {k: v for k, v in launches.items() if v},
-           "launches_per_fmg": per_fmg,
-           "coarse_host_reads_in_solve": reads_solve,
-           "coarse_host_reads_per_fmg": reads_per_fmg,
-           "kernel_vs_torch_ops_smoother_bitwise": same,
+           "leaf_unknowns": n_unk,
+           "float32": rec32,
+           "float64": {
+               "residuals": hist, "cycles": len(hist),
+               "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+               "setup_s": {"tree": t_tree, "maps_and_solver": t_maps,
+                           "allocation_and_rhs": setup_s - t_tree - t_maps,
+                           "total": setup_s},
+               "ms_per_fmg": 1e3 * dt, "leaf_unknowns_per_s": n_unk / dt,
+               "launches_in_solve": {k: v for k, v in launches.items() if v},
+               "launches_per_fmg": per_fmg,
+               "coarse_host_reads_in_solve": reads_solve,
+               "coarse_host_reads_per_fmg": reads_per_fmg,
+               "kernel_vs_torch_ops_smoother_bitwise": same},
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit({"boxed_path": rec})
     if not same:
         fail("boxed_path: the flat half-sweep kernel and the torch-ops "
              "smoother gave different FMGs")
 
-    # the kernel row at level 1's shape, on float32 copies of the state's
-    # planes; the float64 time on the planes themselves beside it
-    lvl = 1
-    nc = sv.static[lvl]["nc"]
-    n, S = sv.static[lvl]["n_boxes"], (nc + 2) ** 3
-    idr2 = sv.static[lvl]["idr2"]
+    # the float64 time at the same shape, on the float64 state's planes
     phi64 = state["cc"][lvl][0].reshape(n, S)
     rhs64 = state["cc"][lvl][1].reshape(n, S)
-    ms64 = time_ms(lambda: fs.half_sweep_flat(phi64, rhs64, 3, nc, idr2,
-                                              0.0, 0), 12)
-    phi_f, rhs_f = phi64.float(), rhs64.float()
+    row.update({
+        "launches": launches["half_sweep_flat"],
+        "launches_per_fmg": per_fmg.get("half_sweep_flat", 0),
+        "launches_path": "the float64 solve (the float32 solve: "
+                         f"{launches_f32['half_sweep_flat']})",
+        "ms_float64": time_ms(lambda: fs.half_sweep_flat(
+            phi64, rhs64, 3, nc, idr2, 0.0, 0), 12),
+        "bound_ms_float64": 1e3 * flat_sweep_bytes(n, nc, 3, 8)
+        / HBM_BYTES_PER_S})
     del state, sv, ps, phi64, rhs64
     torch.cuda.empty_cache()
-    row = timed_row(
-        "half_sweep_flat",
-        lambda: (fs.half_sweep_flat(phi_f, rhs_f, 3, nc, idr2, 0.0, 0),),
-        lambda: (fs._half_sweep_flat_plain(phi_f, rhs_f, 3, nc, idr2, 0.0,
-                                           0),),
-        launches["half_sweep_flat"], per_fmg.get("half_sweep_flat", 0),
-        [n, S], 3 * n * S * 4, 11 * n * nc ** 3 // 2,
-        {"level": lvl, "parity": 0, "path_dtype": "float64",
-         "ms_float64": ms64,
-         "bound_ms_float64": 1e3 * 3 * n * S * 8 / HBM_BYTES_PER_S,
-         "library_ms_note":
-         "no single PyTorch call computes a masked half-sweep"},
-        inplace=phi_f)
     return [row], launches
 
 

@@ -41,10 +41,10 @@ per line:
   float32: the busy share says how much of an FMG is the card's and how
   much the host's eager ghost assembly, the kernel names what runs;
 * ``profile_boxed`` (``--boxed`` only) — the same pass for
-  ``chip_smoke.py``'s ``boxed_path``: the boxed solver (``MGSolver``) on
-  the fully periodic sparse tree at base 256, box 16, float64, the flat
-  half-sweep kernel on; with the kernel launches and the coarse loop's
-  host reads per FMG.
+  ``chip_smoke.py``'s ``boxed_path`` float64 solve: the boxed solver
+  (``MGSolver``) on the fully periodic sparse tree at base 256, box 16,
+  the flat half-sweep kernel on; with the kernel launches and the
+  coarse loop's host reads per FMG.
 
 Needs a CUDA device and nvcc.
 """
@@ -304,13 +304,8 @@ def phase_profile_boxed(n=4):
     from octree_mg_tpu_torch.core import tree as tm
     tree = chip_smoke.forest_tree(pkg, tm, "sparse_periodic", 256, 16)
     torch.cuda.empty_cache()
-    ps = pkg.PoissonSolver(
-        3, (256,) * 3, 16, tree=tree, periodic=True, dtype=torch.float64,
-        experimental=pkg.MGExperimental(pallas_smoother=True))
-    g = torch.Generator(device="cuda").manual_seed(41)
-    ps.set_rhs(arrays={l: torch.randn((len(tree.lvls[l].ids), 16, 16, 16),
-                                      generator=g, dtype=torch.float64,
-                                      device="cuda") for l in (1, 2)})
+    ps = chip_smoke.boxed_poisson(pkg, tree, 256, 16, torch.float64)
+    chip_smoke.seed_boxed_rhs(ps, tree, 16, torch.float64)
     ps.solve(rtol=0.0, max_cycles=3)
     sv = ps.solver
     sv.coarse_host_reads = 0

@@ -57,7 +57,7 @@ the multiply; ``1/(den0+lam)`` is evaluated in the working dtype.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,16 +71,16 @@ PY = 8
 _ISL = (slice(PZ, -PZ), slice(PY, -PY), slice(None))
 
 #: launches per entry point since the last reset; a wrapper adds one
-#: where it launches its kernel, and nowhere else
+#: where it launches its kernel (through record_launch), and nowhere else
 _LAUNCHES = {"pair_sweep_dense": 0, "stencil_apply_dense": 0,
              "downsweep_dense": 0, "residual_restrict_dense": 0,
              "restrict_dense": 0, "prolong_correct_dense": 0,
-             "residual_df32_dense": 0,      # the wrapper lives in ops/df32
+             "residual_df32_dense": 0,
              "half_sweep_dense": 0,
              "pair_sweep_dense[segs]": 0, "stencil_apply_dense[segs]": 0,
              "prolong_correct_dense[set]": 0,
              "prolong_correct_dense[corr_ready]": 0,
-             "half_sweep_flat": 0}          # the wrapper lives in ops/flat_smoother
+             "half_sweep_flat": 0}
 #: the entry points with coefficient variants, and their counter names
 EPS_ENTRIES = ("pair_sweep_dense", "stencil_apply_dense", "downsweep_dense",
                "residual_restrict_dense")
@@ -631,13 +631,20 @@ def _params(cfg, lam, bplanes, red_parity=0, n_sweeps=0,
     return P
 
 
-def _stream(t: torch.Tensor) -> int:
+def cuda_stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on(err: int, what: str) -> None:
+def record_launch(err: int, what: str,
+                  counter: Optional[str] = None) -> None:
+    """After a kernel's launch: raise if it failed, else add one to its
+    launch counter (``counter``, default ``what``).  Every kernel
+    wrapper of the package counts its launches here, those of ops/df32
+    and ops/flat_smoother too."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+    _LAUNCHES[counter or what] += 1
 
 
 _VP = ctypes.c_void_p
@@ -753,9 +760,8 @@ def _seg_launch(name, cfg, mode, phi, rhs, lam, red_parity, n_sweeps, segs,
     out = torch.empty_like(phi)
     err = _fn("seg_sweep", "omg_seg_sweep")(
         _dt(cfg), mode, ctypes.byref(P), ctypes.byref(S), phi.data_ptr(),
-        rhs.data_ptr(), out.data_ptr(), _stream(phi))
-    _raise_on(err, name)
-    _LAUNCHES[name + "[segs]"] += 1
+        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+    record_launch(err, name, name + "[segs]")
     return out
 
 
@@ -817,9 +823,9 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
-        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), _stream(phi))
-    _raise_on(err, "pair_sweep_dense")
-    _LAUNCHES[variant_name("pair_sweep_dense", cfg.n_eps)] += 1
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+    record_launch(err, "pair_sweep_dense",
+                  variant_name("pair_sweep_dense", cfg.n_eps))
     return out
 
 
@@ -847,9 +853,8 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
-        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), _stream(phi))
-    _raise_on(err, "half_sweep_dense")
-    _LAUNCHES["half_sweep_dense"] += 1
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+    record_launch(err, "half_sweep_dense")
     return out
 
 
@@ -879,9 +884,9 @@ def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_RESIDUAL if residual else _MODE_APPLY,
         ctypes.byref(P), ctypes.byref(E), phi.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-        _stream(phi))
-    _raise_on(err, "stencil_apply_dense")
-    _LAUNCHES[variant_name("stencil_apply_dense", cfg.n_eps)] += 1
+        cuda_stream(phi))
+    record_launch(err, "stencil_apply_dense",
+                  variant_name("stencil_apply_dense", cfg.n_eps))
     return out
 
 
@@ -903,9 +908,8 @@ def _downsweep(name, cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
         _dt(cfg), int(fine_out), ctypes.byref(P), ctypes.byref(E),
         phi.data_ptr(),
         rhs.data_ptr(), phi_out.data_ptr() if fine_out else None,
-        phi_c.data_ptr(), ires_c.data_ptr(), _stream(phi))
-    _raise_on(err, name)
-    _LAUNCHES[variant_name(name, cfg.n_eps)] += 1
+        phi_c.data_ptr(), ires_c.data_ptr(), cuda_stream(phi))
+    record_launch(err, name, variant_name(name, cfg.n_eps))
     return phi_out, phi_c, ires_c
 
 
@@ -948,9 +952,8 @@ def restrict_dense(cfg_f: DenseStencilConfig, fine):
     coarse = _coarse_empty(cfg_f, fine)
     err = _fn("restrict", "omg_restrict")(
         _dt(cfg_f), cfg_f.X // 2, cfg_f.Y // 2, cfg_f.Z // 2,
-        fine.data_ptr(), coarse.data_ptr(), _stream(fine))
-    _raise_on(err, "restrict_dense")
-    _LAUNCHES["restrict_dense"] += 1
+        fine.data_ptr(), coarse.data_ptr(), cuda_stream(fine))
+    record_launch(err, "restrict_dense")
     return coarse
 
 
@@ -987,9 +990,9 @@ def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
     err = _fn("prolong_correct", "omg_prolong_correct")(
         _dt(cfg_c), ("add", "set", "corr_ready").index(mode), ctypes.byref(P),
         phi_c.data_ptr(), iold_c.data_ptr() if mode == "add" else None,
-        phi_f.data_ptr(), _stream(phi_c))
-    _raise_on(err, "prolong_correct_dense")
+        phi_f.data_ptr(), cuda_stream(phi_c))
+    record_launch(err, "prolong_correct_dense",
+                  "prolong_correct_dense" if mode == "add"
+                  else f"prolong_correct_dense[{mode}]")
     torch.autograd.graph.increment_version(phi_f)
-    _LAUNCHES["prolong_correct_dense" if mode == "add"
-              else f"prolong_correct_dense[{mode}]"] += 1
     return phi_f

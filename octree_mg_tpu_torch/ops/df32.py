@@ -383,9 +383,9 @@ def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
     Q.lam_hi, Q.lam_lo = lam_pair if lam_pair is not None else (0.0, 0.0)
     err = dk._fn("residual_df32", "omg_residual_df32")(
         ctypes.byref(P), ctypes.byref(Q), xhi.data_ptr(), xlo.data_ptr(),
-        rhshi.data_ptr(), rhslo.data_ptr(), out.data_ptr(), dk._stream(xhi))
-    dk._raise_on(err, "residual_df32_dense")
-    dk._LAUNCHES["residual_df32_dense"] += 1
+        rhshi.data_ptr(), rhslo.data_ptr(), out.data_ptr(),
+        dk.cuda_stream(xhi))
+    dk.record_launch(err, "residual_df32_dense")
     return out
 
 

@@ -123,9 +123,8 @@ def half_sweep_flat(phi_flat: torch.Tensor, rhs_flat: torch.Tensor,
     err = _kernel()(0 if phi_flat.dtype == torch.float32 else 1, ndim, n,
                     nc, int(parity_val), coef, _fac(ndim, idr2, lam),
                     phi_flat.data_ptr(), rhs_flat.data_ptr(),
-                    dk._stream(phi_flat))
-    dk._raise_on(err, "half_sweep_flat")
-    dk._LAUNCHES["half_sweep_flat"] += 1
+                    dk.cuda_stream(phi_flat))
+    dk.record_launch(err, "half_sweep_flat")
     torch.autograd.graph.increment_version(phi_flat)
     return phi_flat
 

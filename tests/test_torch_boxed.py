@@ -406,6 +406,79 @@ def test_fmg_matches_reference(kind):
     compare_states(rs, rst, pst, rr, pr, f"{kind} FMG")
 
 
+def coarse_solves_counted(ps):
+    """Wrap ``ps._coarse_solve`` to record each call's host reads (its
+    iterations + 1)."""
+    reads = []
+    inner = ps._coarse_solve
+
+    def counted(*args):
+        before = ps.coarse_host_reads
+        out = inner(*args)
+        reads.append(ps.coarse_host_reads - before)
+        return out
+    ps._coarse_solve = counted
+    return reads
+
+
+def cast(rst, dtype):
+    return {"cc": {l: a.astype(dtype) for l, a in rst["cc"].items()},
+            "bc": {l: [p.astype(dtype) for p in b]
+                   for l, b in rst["bc"].items()}}
+
+
+@pytest.mark.slow
+def test_float32_periodic_solve_stalls_in_both_packages():
+    """Why chip_smoke.py's boxed_path checks convergence in float64.  In
+    float32 the reference's coarse rule (residual 1e-8 of its start, at
+    most ``max_coarse_cycles`` iterations) is out of reach on the fully
+    periodic sparse tree: the coarse loop runs to its cap in every FMG,
+    in both packages (the JAX package's first FMG changes when the cap
+    moves from 1000 to 1001), and eight FMGs' residuals rise as well as
+    fall in both.  In float64 the same problem falls monotonically,
+    ~14x per FMG, and no coarse solve reaches the cap."""
+    n_fmg = 8
+    out = {}
+    for dt_r, dt_p in ((jnp.float32, torch.float32),
+                       (jnp.float64, torch.float64)):
+        rs = ref.MGSolver(build("sparse_periodic", ref, rtm),
+                          ref.MGConfig(dtype=dt_r))
+        ps = port.MGSolver(build("sparse_periodic", port, ptm),
+                           port.MGConfig(device="cpu", dtype=dt_p))
+        rst, pst = seeded(rs, ps)       # the port's in its own dtype
+        rst = cast(rst, dt_r)
+        reads = coarse_solves_counted(ps)
+        hr, hp, per_fmg = [], [], []
+        for k in range(n_fmg):
+            rst, r = rs.fas_fmg(rst, have_guess=k > 0)
+            hr.append(float(r))
+            n0 = len(reads)
+            pst, r = ps.fas_fmg(pst, have_guess=k > 0)
+            hp.append(float(r))
+            per_fmg.append(reads[n0:])
+        out[dt_p] = (rs, hr, hp, per_fmg)
+
+    cap = port.MGConfig().max_coarse_cycles
+    rs, hr, hp, per_fmg = out[torch.float32]
+    assert all(cap + 1 in r for r in per_fmg), per_fmg
+    for h in (hr, hp):
+        assert all(np.isfinite(h))
+        assert any(b > a for a, b in zip(h, h[1:])), h
+    # the reference's loop runs to its cap too: one more allowed
+    # iteration changes its first FMG
+    rs1 = ref.MGSolver(build("sparse_periodic", ref, rtm),
+                       ref.MGConfig(dtype=jnp.float32,
+                                    max_coarse_cycles=cap + 1))
+    rst1, _ = seeded(rs1, port.MGSolver(build("sparse_periodic", port, ptm),
+                                        port.MGConfig(device="cpu")))
+    assert float(rs1.fas_fmg(cast(rst1, jnp.float32))[1]) != hr[0]
+
+    rs, hr, hp, per_fmg = out[torch.float64]
+    assert max(max(r) for r in per_fmg) < cap + 1, per_fmg
+    for h in (hr, hp):
+        assert all(b < a / 10 for a, b in zip(h, h[1:])), h
+
+
 def test_poisson_solver_on_the_sparse_periodic_tree():
     """PoissonSolver(tree=...) through make_solver to the boxed solver:
     per-box planes, the residual falls ~10x per FMG, phi's mean over the
