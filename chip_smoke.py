@@ -16,7 +16,12 @@ object per line:
   levels (the half-sweep of both parities, also with identity-coefficient
   plane faces; the corr_ready and set modes of the prolongation; the
   segment pair (1 and 2 pairs), apply and residual with four ghost
-  layers per dim, on every level with even extents); the double-float residual on the
+  layers per dim, on every level with even extents); the z-slab variants
+  (z_gates) of the pair (1 and 2 pairs), apply, residual and
+  prolongation (add) for n_eps 0/1/3 on slabs of 4, 8 and 72 planes,
+  every gate pair, periodic and physical z, the pads of a gated-off face
+  random and every other pad NaN, with both gates on also against the
+  ungated kernels, and the double-float residual's slab variant; the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
@@ -93,6 +98,19 @@ object per line:
   ``leaf_unknowns_per_s``, launches and coarse-loop host reads per FMG,
   peak memory, set-up seconds), and two FMGs with the kernel against two
   with the torch-ops smoother from one state, which must agree bitwise;
+* ``sharded_path`` — the main path's problem through
+  ``ShardedDenseMGSolver(n_shards=8)`` (K slabs on one card; levels 512
+  to 32 sharded, 16 replicated, 8 the direct coarse level): one
+  zero-guess and eight have-guess FMGs against the single-device
+  solver's on the same rhs (phi within 1e-5 of max|phi|, the difference
+  and its place printed), ms per have-guess FMG of both, launches, the
+  stage breakdown of both, and overlap_halo off bitwise against on;
+* ``sharded_periodic`` — fully periodic 128^3 over 8 slabs, sharded
+  against single; ``sharded_refined`` — ``ShardedRefinedPoisson`` at
+  512^3, n_outer=10, norms against ``RefinedPoisson``'s (1e-5
+  relative), ms per outer; ``sharded_vcoeff`` — vhelmholtz at 128^3 over
+  8 slabs against single; ``cpu_agreement.sharded`` — 32^3 over 8 slabs,
+  float64, card against CPU;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
   shape, and per coefficient variant ``name[n_eps=k]``: launches on its
   path (the float32 solve for the six stencil kernels, the refined solve
@@ -105,7 +123,11 @@ object per line:
   correction 256^3 -> 512^3, the half-sweep on the periodic forest's
   128^3 level) and the set mode at the main path's prolongation shape;
   the flat half-sweep at the boxed path's level-1 shape [4096, 18^3]
-  (float32, its float64 time beside it);
+  (float32, its float64 time beside it); the slab variants
+  ``name[z_gates]`` (and the pair's and apply's ``[n_eps=1][z_gates]``)
+  on an interior slab of the 512^3 level over 8 slabs (64 planes; the
+  prolongation's coarse slab 32 planes), both gates off, their bound
+  counting the pad planes they read;
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -114,6 +136,8 @@ final line.  Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -191,6 +215,20 @@ BOXED_KERNELS = ("half_sweep_flat",)
 FMG_KERNELS = tuple(k for k in CONST_KERNELS if k != "residual_df32_dense")
 REFINED_KERNELS = tuple(k for k in CONST_KERNELS
                         if k != "residual_restrict_dense")
+#: the z-slab variants (z_gates) of the four kernels the slab solver
+#: launches (ShardedDenseMGSolver, ShardedRefinedPoisson), and the
+#: coefficient variants of the stencil two (its vhelmholtz path): the
+#: sources and TPU kernels of the entry points, called with z_gates
+SLAB_VARIANTS = ("pair_sweep_dense[z_gates]", "stencil_apply_dense[z_gates]",
+                 "prolong_correct_dense[z_gates]",
+                 "residual_df32_dense[z_gates]")
+SLAB_EPS_VARIANTS = ("pair_sweep_dense[n_eps=1][z_gates]",
+                     "stencil_apply_dense[n_eps=1][z_gates]")
+for _v in SLAB_VARIANTS + SLAB_EPS_VARIANTS:
+    SOURCES[_v] = SOURCES[_v.split("[")[0]]
+    REPLACES[_v] = REPLACES[_v.split("[")[0]]
+#: what the sharded FMG must launch (restrict_dense: slab to slab)
+SHARDED_KERNELS = SLAB_VARIANTS[:3] + ("restrict_dense",)
 
 
 def vcoeff_kernels(n_eps):
@@ -463,6 +501,156 @@ def seg_variants(dk, dims, dtype, seed, lam):
     return out
 
 
+def slab_field(dk, cfg, g, gates, coef=False):
+    """A z-slab's field on the card: random core (N(0,1), or 0.5 + U[0,1)
+    for a coefficient), random z pads on each side whose pads the slab
+    reads (a periodic z axis, or a gate off: the neighbour slab's
+    planes), NaN in every other pad but the y wraps of a periodic y
+    axis."""
+    PZ, PY, Z = dk.PZ, dk.PY, cfg.Z
+    a = torch.full(cfg.pshape, float("nan"), dtype=cfg.dtype, device="cuda")
+    rows = [(PZ, PZ + Z)]
+    if cfg.periodic[2] or not gates[0]:
+        rows.append((0, PZ))
+    if cfg.periodic[2] or not gates[1]:
+        rows.append((PZ + Z, 2 * PZ + Z))
+    for z0, z1 in rows:
+        shape = (z1 - z0, cfg.Y, cfg.X)
+        v = (0.5 + torch.rand(shape, generator=g, dtype=cfg.dtype,
+                              device="cuda") if coef else
+             torch.randn(shape, generator=g, dtype=cfg.dtype, device="cuda"))
+        a[z0:z1, PY:PY + cfg.Y] = v
+    return dk.sync_pads(cfg, a, slab=True)
+
+
+def slab_case(dk, dims, per, bc_kind, dtype, seed, gates, n_eps=0,
+              equal_pow2=False):
+    """make_case for one z-slab with the given gates: its fields from
+    slab_field, its plane-valued faces random and finite everywhere (the
+    halo planes' rows are read)."""
+    cfg, _, planes = make_case(dk, dims, per, bc_kind, dtype, seed,
+                               equal_pow2=equal_pow2, n_eps=n_eps)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    planes = [torch.randn(cfg.plane_shape(nb), generator=g, dtype=dtype,
+                          device="cuda") if cfg.b_const[nb] is None else p
+              for nb, p in enumerate(planes)]
+    return cfg, lambda coef=False: slab_field(dk, cfg, g, gates, coef), planes
+
+
+def slab_variants(dk, cfg, field, planes, lam, gates):
+    """(name, kernel call, plain call) for the z-slab variants on a slab:
+    pairs (1 and 2), apply, residual and (constant coefficients) the
+    prolongation's add mode; with both gates on a non-periodic z axis
+    also the gated kernels against the ungated ones."""
+    phi, rhs = field(), field()
+    eps = tuple(field(coef=True) for _ in range(cfg.n_eps))
+    isl = dk._ISL
+    tag = f"[z_gates={int(gates[0])}{int(gates[1])}]"
+    if cfg.n_eps:
+        tag = f"[n_eps={cfg.n_eps}]" + tag
+    out = []
+    for k in (1, 2):
+        out.append((f"pairs{k}" + tag,
+                    lambda k=k: (dk.pair_sweep_dense(
+                        cfg, phi, rhs, lam, planes, 0, n_pairs=k, eps=eps,
+                        z_gates=gates)[isl],),
+                    lambda k=k: (dk._pairs_plain(
+                        cfg, phi, rhs, lam, planes, 0, k, eps, gates)[isl],)))
+    for res in (False, True):
+        out.append((("residual" if res else "apply") + tag,
+                    lambda res=res: (dk.stencil_apply_dense(
+                        cfg, phi, rhs, lam, planes, res, eps=eps,
+                        z_gates=gates)[isl],),
+                    lambda res=res: (dk._apply_plain(
+                        cfg, phi, rhs, lam, planes, res, eps,
+                        gates)[isl],)))
+    if cfg.n_eps:
+        return out
+    X, Y, Z = cfg.dims
+    phi_f = torch.randn(dk.padded_shape((2 * X, 2 * Y, 2 * Z)),
+                        dtype=cfg.dtype, device="cuda")
+    iold = field()
+    out.append(("prolong_correct" + tag,
+                lambda: (dk.prolong_correct_dense(
+                    cfg, phi, iold, phi_f.clone(), planes,
+                    z_gates=gates)[isl],),
+                lambda: (dk._prolong_correct_plain(
+                    cfg, phi, iold, phi_f.clone(), planes, "add",
+                    gates)[isl],)))
+    if gates == (True, True) and not cfg.periodic[2]:
+        out += [
+            ("pairs2[both gates on = ungated kernel]",
+             lambda: (dk.pair_sweep_dense(cfg, phi, rhs, lam, planes, 0,
+                                          n_pairs=2, z_gates=gates)[isl],),
+             lambda: (dk.pair_sweep_dense(cfg, phi, rhs, lam, planes, 0,
+                                          n_pairs=2)[isl],)),
+            ("residual[both gates on = ungated kernel]",
+             lambda: (dk.stencil_apply_dense(cfg, phi, rhs, lam, planes,
+                                             True, z_gates=gates)[isl],),
+             lambda: (dk.stencil_apply_dense(cfg, phi, rhs, lam, planes,
+                                             True)[isl],)),
+            ("prolong_correct[both gates on = ungated kernel]",
+             lambda: (dk.prolong_correct_dense(
+                 cfg, phi, iold, phi_f.clone(), planes, z_gates=gates)[isl],),
+             lambda: (dk.prolong_correct_dense(
+                 cfg, phi, iold, phi_f.clone(), planes)[isl],))]
+    return out
+
+
+def slab_checks(dk, df, quick):
+    """The z-slab variants against their plain versions (and, both gates
+    on, the ungated kernels): every gate pair, periodic and physical z,
+    float32 and float64, n_eps 0/1/3, slabs of 4, 8 and 72 planes (the
+    last two z chunks), pads of gated-off faces random, every other pad
+    NaN; then the double-float residual's slab variant (float32, equal
+    power-of-two spacing, constant faces).  Rows as phase_checks'."""
+    shapes = [((16, 8, 4), True), ((64, 24, 8), False),
+              ((64, 24, 8), True), ((48, 40, 72), False)]
+    if quick:
+        shapes = shapes[:2]
+    rows, seed = [], 500
+    for (dims, per_z), dtype, gates in itertools.product(
+            shapes, (torch.float32, torch.float64),
+            itertools.product((False, True), repeat=2)):
+        per = (per_z,) * 3
+        bc_kind = "planes" if dtype == torch.float64 else "neumann"
+        lam = 0.3
+        for n_eps in (0, 1, 3):
+            seed += 1
+            cfg, field, planes = slab_case(dk, dims, per, bc_kind, dtype,
+                                           seed, gates, n_eps=n_eps)
+            for name, kern, plain in slab_variants(dk, cfg, field, planes,
+                                                   lam, gates):
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                u = max(ulp_diff(a, b) if ulp_diff(a, b) >= 0 else 1 << 62
+                        for a, b in zip(got, want))
+                rows.append({"kernel": name, "dims": dims, "periodic": per,
+                             "dtype": str(dtype)[6:], "bc": bc_kind,
+                             "lam": lam, "max_ulp": u})
+    for (dims, per_z), bc_kind, gates in itertools.product(
+            shapes, ("dirichlet", "neumann", "continuous"),
+            itertools.product((False, True), repeat=2)):
+        seed += 1
+        cfg, field, _ = slab_case(dk, dims, (per_z,) * 3, bc_kind,
+                                  torch.float32, seed, gates,
+                                  equal_pow2=True)
+        xhi, rhi = field(), field()
+        xlo, rlo = field() * 2.0 ** -25, field() * 2.0 ** -25
+        kw = dict(cbs=df._cb_pairs(cfg), lam_pair=df.split_lam(0.37),
+                  z_gates=gates)
+        got = df.residual_df32_dense(cfg, xhi, xlo, rhi, rlo, **kw)
+        want = df.residual_df32(cfg, xhi, xlo, rhi, rlo, **kw)
+        torch.cuda.synchronize()
+        u = ulp_diff(got[dk._ISL], want[dk._ISL])
+        rows.append({"kernel": f"residual_df32[z_gates={int(gates[0])}"
+                               f"{int(gates[1])}]", "dims": dims,
+                     "periodic": (per_z,) * 3, "dtype": "float32",
+                     "bc": bc_kind, "lam": 0.37,
+                     "max_ulp": u if u >= 0 else 1 << 62})
+    return rows
+
+
 def phase_checks(dk, df, quick):
     rows, worst = [], 0
     shapes = [((256, 128, 128), (False, False, False)),
@@ -541,16 +729,23 @@ def phase_checks(dk, df, quick):
     flat = flat_cases()
     worst = max([worst] + [r["max_ulp"] for r in flat])
     rows += flat
+    slab = slab_checks(dk, df, quick)
+    worst = max([worst] + [r["max_ulp"] for r in slab])
+    rows += slab
     bad = [r for r in rows if r["max_ulp"] != 0]
-    n_eps_cases = sum("n_eps" in r["kernel"] for r in rows)
+    n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
+                      for r in rows)
     forest = [r for r in rows if "segs" in r["kernel"]
               or r["kernel"] in ("half_sweep0", "half_sweep1")
-              or "[" in r["kernel"] and "prolong" in r["kernel"]]
+              or "[" in r["kernel"] and "prolong" in r["kernel"]
+              and "gates" not in r["kernel"]]
     emit({"checks": {"cases": len(rows), "eps_cases": n_eps_cases,
                      "forest_cases": len(forest),
                      "forest_max_ulp": max(r["max_ulp"] for r in forest),
                      "flat_cases": len(flat),
                      "flat_max_ulp": max(r["max_ulp"] for r in flat),
+                     "slab_cases": len(slab),
+                     "slab_max_ulp": max(r["max_ulp"] for r in slab),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -914,7 +1109,11 @@ def phase_fmg_stages(ps):
     """Device time (CUDA events) and host time of each stage of one
     have-guess FMG, by level: where host time exceeds device time the
     stage is bound by launches, not by the card."""
-    sv, state = ps.solver, ps.state
+    emit({"fmg_stages": fmg_stage_marks(ps.solver, ps.state)})
+
+
+def fmg_stage_marks(sv, state):
+    """phase_fmg_stages' marks for any dense solver and state."""
     lam = sv._lam(0.0)
     min_lvl, top = sv.levels[0], sv.levels[-1]
     marks = []
@@ -945,7 +1144,7 @@ def phase_fmg_stages(ps):
 
         for lvl in range(min_lvl, top + 1):
             run("vcycle_to", lvl, lambda: stage(lvl))
-    emit({"fmg_stages": marks})
+    return marks
 
 
 # ---------------------------------------------------------------------------
@@ -2128,6 +2327,7 @@ def phase_cpu_agreement(pkg, df):
                     "residuals_cpu": out["cpu"][1].tolist()}
     rows.update(forest_cpu_agreement(pkg))
     rows["boxed"] = boxed_cpu_agreement(pkg)
+    rows["sharded"] = sharded_cpu_agreement(pkg)
     emit({"cpu_agreement": {
         "dims": [n] * 3, "dtype": "float64", "fmgs": 3,
         "bound": bound, "residual_bound": bound_res,
@@ -2141,6 +2341,378 @@ def phase_cpu_agreement(pkg, df):
             fail(f"card and CPU disagree ({op}): phi "
                  f"{r['phi_max_rel_diff']}, residuals "
                  f"{r['residual_max_rel_diff']}")
+
+
+# ---------------------------------------------------------------------------
+# the z-slab solver (ShardedDenseMGSolver, ShardedRefinedPoisson)
+# ---------------------------------------------------------------------------
+
+def dense_pair(pkg, n, k, periodic=False, dtype=torch.float32,
+               operator="laplacian", device="cuda"):
+    """(DenseMGSolver, ShardedDenseMGSolver over k slabs) of the
+    PoissonSolver tree of n^3 cells (box 16, or 8 below 64^3), Dirichlet 0
+    or fully periodic."""
+    dsz = np.full(3, n)
+    tree = pkg.build_rectangle(3, dsz, 16 if n >= 64 else 8, 1.0 / dsz,
+                               np.zeros(3), [periodic] * 3)
+    mk = dict(operator=operator, dtype=dtype, device=device)
+    return (pkg.DenseMGSolver(tree, pkg.MGConfig(**mk)),
+            pkg.ShardedDenseMGSolver(tree, pkg.MGConfig(**mk), n_shards=k))
+
+
+def seeded_state(sv, rhs, eps=()):
+    """A state with rhs (and the coefficients eps) on the top level."""
+    st = sv.allocate()
+    for d, e in enumerate(eps):
+        sv.set_coefficient(st, e, d)
+    if eps:
+        sv.prepare_coefficient(st)
+    sv.set_interior(st, sv.levels[-1], "rhs", rhs)
+    return st
+
+
+def run_fmgs(sv, st, n, lam=0.0):
+    """One zero-guess and n - 1 have-guess FMGs; the residual history."""
+    hist = []
+    for i in range(n):
+        st, r = sv.fas_fmg(st, lam=lam, have_guess=i > 0)
+        hist.append(float(r))
+    return hist
+
+
+def timed_fmgs(sv, st, n, lam=0.0):
+    """ms per have-guess FMG (need_res False) over n in a row, one sync
+    at the end, after a warm one; the launches per FMG."""
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return 1e3 * dt / n, {k: v / n for k, v in dk.launch_counts().items()
+                          if v}
+
+
+def sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s, what):
+    """The slab solver against the single-device one on the same card:
+    the largest difference of the top level's phi (with its place, z y
+    x) and of the residual histories; phi must agree to 1e-5 of
+    max|phi| (the bound of __graft_entry__.dryrun_multichip)."""
+    top = sd.levels[-1]
+    a, b = sd.interior(st_d, top, "phi"), ss.interior(st_s, top, "phi")
+    if not bool(torch.isfinite(b).all()):
+        fail(f"{what}: non-finite phi")
+    d = (a - b).abs()
+    diff, scale = float(d.max()), float(a.abs().max())
+    place = np.unravel_index(int(d.argmax()), tuple(a.shape))
+    out = {"phi_max_abs_diff": diff, "phi_max_abs": scale,
+           "phi_diff_bound": 1e-5 * scale,
+           "phi_diff_place_zyx": [int(v) for v in place] if diff else None,
+           "residual_max_abs_diff": max(abs(x - y)
+                                        for x, y in zip(hist_d, hist_s)),
+           "residual_max_rel_diff": max(abs(x - y) / abs(x)
+                                        for x, y in zip(hist_d, hist_s)),
+           "bitwise": bool(torch.equal(a, b)) and hist_d == hist_s,
+           "residuals_single": hist_d, "residuals_sharded": hist_s}
+    if not diff <= 1e-5 * scale:
+        fail(f"{what}: sharded and single-device phi differ by {diff} at "
+             f"{out['phi_diff_place_zyx']} (bound {1e-5 * scale})")
+    return out
+
+
+def phase_sharded_path(pkg, dk):
+    """The main path's problem (512^3, box 16, Dirichlet 0, laplacian,
+    float32, the seeded rhs of main_path) through ShardedDenseMGSolver
+    over 8 slabs (levels 512..32 sharded, Zl 64..4; 16 replicated; 8 the
+    direct coarse level): one zero-guess and eight have-guess FMGs
+    against the single-device solver's, then eight timed have-guess
+    FMGs of each, the stage breakdown of one FMG of each, and two FMGs
+    with overlap_halo off, which must be bitwise those with it on."""
+    n, K, n_have, n_timed = 512, 8, 8, 8
+    torch.cuda.empty_cache()
+    sd, ss = dense_pair(pkg, n, K)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rhs = torch.randn((n,) * 3, generator=g, dtype=torch.float32,
+                      device="cuda")
+    st_d = seeded_state(sd, rhs)
+    hist_d = run_fmgs(sd, st_d, 1 + n_have)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    st_s = seeded_state(ss, rhs)
+    dk.reset_launch_counts()
+    hist_s = run_fmgs(ss, st_s, 1 + n_have)
+    launches = dk.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    check_fmg_history(hist_s, "sharded path")
+    missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"sharded path launched no kernel for {missing}")
+    cmp = sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s,
+                            "sharded path")
+    ms_single, per_single = timed_fmgs(sd, st_d, n_timed)
+    ms, per_fmg = timed_fmgs(ss, st_s, n_timed)
+    stages = {"sharded": fmg_stage_marks(ss, st_s),
+              "single": fmg_stage_marks(sd, st_d)}
+    del st_d, sd
+    torch.cuda.empty_cache()
+    # overlap_halo off against on, from one rhs, two FMGs each
+    off = pkg.ShardedDenseMGSolver(
+        ss.tree, dataclasses.replace(ss.cfg, overlap_halo=False), n_shards=K)
+    st_on, st_off = seeded_state(ss, rhs), seeded_state(off, rhs)
+    h_on, h_off = run_fmgs(ss, st_on, 2), run_fmgs(off, st_off, 2)
+    same = h_on == h_off and all(
+        torch.equal(ss.interior(st_on, l, "phi"),
+                    off.interior(st_off, l, "phi")) for l in ss.levels)
+    if not same:
+        fail(f"sharded path: overlap_halo on and off differ ({h_on} vs "
+             f"{h_off})")
+    unknowns = float(sum(int(np.prod(ss.dims[l])) for l in ss.levels))
+    emit({"sharded_path": {
+        "model": "ShardedDenseMGSolver(build_rectangle(3, (512,)*3, 16), "
+                 "float32, n_shards=8), Dirichlet 0, main_path's rhs",
+        "levels": [list(ss.dims[l]) for l in ss.levels],
+        "sharded": {str(l): ss.sharded[l] for l in ss.levels},
+        "slab_planes": {str(l): ss._zl(l) for l in ss.levels
+                        if ss.sharded[l]},
+        "residuals": hist_s, "cycles": len(hist_s),
+        "ms_per_fmg": ms, "unknowns_per_s": unknowns / (1e-3 * ms),
+        "single_device_ms_per_fmg": ms_single,
+        "launches_in_solve": launches, "launches_per_fmg": per_fmg,
+        "single_device_launches_per_fmg": per_single,
+        "stages": stages, "vs_single_device": cmp,
+        "overlap_halo_off_bitwise": same,
+        "peak_memory_bytes": peak}})
+    del st_s, st_on, st_off, off
+    torch.cuda.empty_cache()
+    return launches, per_fmg
+
+
+def phase_sharded_periodic(pkg, dk):
+    """Fully periodic 128^3 over 8 slabs (the wrap exchange and the
+    periodic-z pad reads), three FMGs, sharded against single."""
+    n, K = 128, 8
+    sd, ss = dense_pair(pkg, n, K, periodic=True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rhs = torch.randn((n,) * 3, generator=g, dtype=torch.float32,
+                      device="cuda")
+    st_d, st_s = seeded_state(sd, rhs), seeded_state(ss, rhs)
+    hist_d = run_fmgs(sd, st_d, 3)
+    dk.reset_launch_counts()
+    hist_s = run_fmgs(ss, st_s, 3)
+    launches = dk.launch_counts()
+    missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"sharded periodic launched no kernel for {missing}")
+    emit({"sharded_periodic": {
+        "model": "ShardedDenseMGSolver(build_rectangle(3, (128,)*3, 16, "
+                 "periodic), float32, n_shards=8)",
+        "vs_single_device": sharded_vs_single(sd, st_d, hist_d, ss, st_s,
+                                              hist_s, "sharded periodic"),
+        "launches": {k: v for k, v in launches.items() if v}}})
+
+
+def phase_sharded_refined(pkg, dk, df):
+    """ShardedRefinedPoisson at 512^3 over 8 slabs, n_outer=10, the
+    refined path's float64 rhs: norms against the single-device
+    RefinedPoisson's (each within 1e-5 relative), ms per outer of a timed
+    solve after a warm one."""
+    n, K, n_outer = 512, 8, 10
+    torch.cuda.empty_cache()
+    sd, ss = dense_pair(pkg, n, K)
+    rh, rl = df.split_f64(seeded_rhs64(n, 1))
+    rp_d = pkg.RefinedPoisson(sd)
+    _, _, norms_d, _ = rp_d.solve(sd.allocate(), rh, rl, n_outer=n_outer)
+    del rp_d
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rp = pkg.ShardedRefinedPoisson(ss)
+    st = ss.allocate()
+    dk.reset_launch_counts()
+    _, _, norms, _ = rp.solve(st, rh, rl, n_outer=n_outer)
+    launches = dk.launch_counts()
+    check_refined_history(norms, "sharded refined")
+    want = (n_outer + 1) * K
+    if launches["residual_df32_dense[z_gates]"] != want:
+        fail(f"sharded refined: the slab residual kernel ran "
+             f"{launches['residual_df32_dense[z_gates]']} times, expected "
+             f"{want}")
+    rel = [abs(a - b) / b for a, b in zip(norms, norms_d)]
+    if not max(rel) <= 1e-5:
+        fail(f"sharded refined: norms {norms} against single {norms_d}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, norms_t, _ = rp.solve(st, rh, rl, n_outer=n_outer)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    emit({"sharded_refined": {
+        "model": "ShardedRefinedPoisson(ShardedDenseMGSolver(512^3, box 16, "
+                 "float32, n_shards=8)).solve(float64 rhs, n_outer=10)",
+        "norms": norms, "norms_single_device": norms_d,
+        "norm_max_rel_diff": max(rel), "norms_timed_run": norms_t,
+        "ms_per_outer": 1e3 * dt / n_outer,
+        "launches_in_solve": {k: v for k, v in launches.items() if v},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}})
+    del rp, st, ss, sd
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sharded_vcoeff(pkg, dk):
+    """vhelmholtz (lam 1.5, the coefficients of vcoeff_path) at 128^3 over
+    8 slabs, three FMGs, sharded against single."""
+    n, K, lam = 128, 8, 1.5
+    sd, ss = dense_pair(pkg, n, K, operator="vhelmholtz")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rhs = torch.randn((n,) * 3, generator=g, dtype=torch.float32,
+                      device="cuda")
+    eps = (smooth_eps(sd, 0, torch.float32),)
+    st_d = seeded_state(sd, rhs, eps)
+    hist_d = run_fmgs(sd, st_d, 3, lam)
+    dk.reset_launch_counts()
+    st_s = seeded_state(ss, rhs, eps)
+    hist_s = run_fmgs(ss, st_s, 3, lam)
+    launches = dk.launch_counts()
+    missing = [k for k in SLAB_EPS_VARIANTS + SLAB_VARIANTS[2:3]
+               if launches[k] == 0]
+    if missing:
+        fail(f"sharded vcoeff launched no kernel for {missing}")
+    cmp = sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s,
+                            "sharded vcoeff")
+    ms, per_fmg = timed_fmgs(ss, st_s, 4, lam)
+    emit({"sharded_vcoeff": {
+        "model": "ShardedDenseMGSolver(128^3, box 16, vhelmholtz, float32, "
+                 "n_shards=8), lam 1.5, eps 1 + 0.5 cos(2 pi (x + 0.1 d))",
+        "vs_single_device": cmp,
+        "ms_per_fmg": ms,
+        "launches": {k: v for k, v in launches.items() if v}}})
+    return launches, per_fmg
+
+
+def sharded_cpu_agreement(pkg, n=32, k=8):
+    """32^3 over 8 slabs, float64, three FMGs on the card and on the CPU
+    (plain versions)."""
+    rhs = torch.from_numpy(np.random.default_rng(23).normal(size=(n,) * 3))
+    res, phis = {}, {}
+    for dev in ("cuda", "cpu"):
+        _, ss = dense_pair(pkg, n, k, dtype=torch.float64, device=dev)
+        st = seeded_state(ss, rhs)
+        res[dev] = np.array(run_fmgs(ss, st, 3))
+        phis[dev] = ss.interior(st, ss.levels[-1], "phi").cpu().numpy()
+    return {
+        "phi_max_rel_diff": float(np.abs(phis["cuda"] - phis["cpu"]).max()
+                                  / np.abs(phis["cpu"]).max()),
+        "residual_max_rel_diff": float(np.max(
+            np.abs(res["cuda"] - res["cpu"]) / np.abs(res["cpu"]))),
+        "residuals_cuda": res["cuda"].tolist(),
+        "residuals_cpu": res["cpu"].tolist()}
+
+
+def slab_work_model(name, zl, xy, item, halo, n_eps=0):
+    """(bytes, flops) of a slab kernel call on a slab of zl planes of xy
+    cells: every input read once, its halo planes (the pad planes the
+    kernel reads, ``halo`` each side) included, every output written
+    once; the operations of the core cells only (the redundant halo
+    sweeps are not needed work).  The prolongation: zl, xy the coarse
+    slab's."""
+    n = zl * xy
+    if name.startswith("prolong_correct_dense"):
+        # phi_c, iold_c with their ring planes; the fine slab read and
+        # written
+        return ((2 * (zl + 2 * halo) * xy + 2 * 8 * n) * item, 40 * n)
+    if name.startswith("residual_df32_dense"):
+        return ((2 * (zl + 2 * halo) + 3 * zl) * xy * item, 87 * n)
+    wide = (zl + 2 * halo) * xy * item
+    if name.startswith("pair_sweep_dense"):
+        nbytes, flops = 2 * wide + n * item, (100 if n_eps else 22) * n
+    else:
+        nbytes, flops = wide + 2 * n * item, (50 if n_eps else 15) * n
+    return nbytes + n_eps * wide, flops
+
+
+def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
+    """The slab variants at the shape of an interior slab of the 512^3
+    sharded level (8 slabs: 64 planes; the prolongation's coarse slab 32
+    planes of 256^2), both gates off, float32, Dirichlet 0: each against
+    its plain version (0 required), kernel and plain ms, bound.  path:
+    (launches in the sharded solve, per have-guess FMG); refined:
+    launches of the sharded refined solve; vcoeff: (launches of the
+    vhelmholtz slab path, per FMG)."""
+    n, K, dtype = 512, 8, torch.float32
+    zl, gates, isl = n // K, (False, False), dk._ISL
+    rows = []
+
+    def case(dims, n_eps=0, equal_pow2=False, seed=70):
+        cfg, field, planes = slab_case(dk, dims, (False,) * 3, "dirichlet",
+                                       dtype, seed, gates, n_eps=n_eps,
+                                       equal_pow2=equal_pow2)
+        cfg.b_const = [0.0] * 6          # the sharded path's faces
+        return cfg, field, planes
+
+    launches, per_fmg = path
+    for n_eps in (0, 1):
+        cfg, field, planes = case((n, n, zl), n_eps, seed=70 + n_eps)
+        phi, rhs = field(), field()
+        eps = tuple(field(coef=True) for _ in range(n_eps))
+        src = (launches, per_fmg) if not n_eps else vcoeff
+        for base, halo in (("pair_sweep_dense", 4),
+                           ("stencil_apply_dense", 1)):
+            name = dk.slab_name(base, n_eps)
+            if base == "pair_sweep_dense":
+                kern = lambda: (dk.pair_sweep_dense(
+                    cfg, phi, rhs, 0.0, planes, 0, n_pairs=2, eps=eps,
+                    z_gates=gates)[isl],)
+                plain = lambda: (dk._pairs_plain(
+                    cfg, phi, rhs, 0.0, planes, 0, 2, eps, gates)[isl],)
+            else:
+                kern = lambda: (dk.stencil_apply_dense(
+                    cfg, phi, rhs, 0.0, planes, True, eps=eps,
+                    z_gates=gates)[isl],)
+                plain = lambda: (dk._apply_plain(
+                    cfg, phi, rhs, 0.0, planes, True, eps, gates)[isl],)
+            nbytes, flops = slab_work_model(name, zl, n * n, 4, halo, n_eps)
+            rows.append(timed_row(name, kern, plain, src[0][name],
+                                  src[1].get(name, 0.0), (n, n, zl),
+                                  nbytes, flops))
+        del phi, rhs, eps
+        torch.cuda.empty_cache()
+    # the prolongation: coarse slab of the 256^3 level into the 512^3 one
+    cfg_c, field_c, planes_c = case((n // 2, n // 2, zl // 2), seed=72)
+    phi_c, iold_c = field_c(), field_c()
+    phi_f = torch.randn(dk.padded_shape((n, n, zl)), dtype=dtype,
+                        device="cuda")
+    name = dk.slab_name("prolong_correct_dense")
+    nbytes, flops = slab_work_model(name, zl // 2, (n // 2) ** 2, 4, 1)
+    rows.append(timed_row(
+        name,
+        lambda: (dk.prolong_correct_dense(cfg_c, phi_c, iold_c, phi_f,
+                                          planes_c, z_gates=gates)[isl],),
+        lambda: (dk._prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f,
+                                           planes_c, "add", gates)[isl],),
+        launches[name], per_fmg.get(name, 0.0), (n, n, zl), nbytes, flops,
+        inplace=phi_f))
+    del phi_c, iold_c, phi_f
+    # the double-float residual of the refined outer
+    cfg, field, _ = case((n, n, zl), equal_pow2=True, seed=73)
+    xhi, rhi = field(), field()
+    xlo, rlo = field() * 2.0 ** -25, field() * 2.0 ** -25
+    r_out = torch.empty_like(xhi)
+    kw = dict(cbs=df._cb_pairs(cfg), z_gates=gates)
+    name = dk.slab_name("residual_df32_dense")
+    nbytes, flops = slab_work_model(name, zl, n * n, 4, 1)
+    rows.append(timed_row(
+        name,
+        lambda: (df.residual_df32_dense(cfg, xhi, xlo, rhi, rlo, out=r_out,
+                                        **kw)[isl],),
+        lambda: (df.residual_df32(cfg, xhi, xlo, rhi, rlo, **kw)[isl],),
+        refined[name], None, (n, n, zl), nbytes, flops,
+        extra={"launches_per_outer": refined[name] / 11.0}))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv) -> int:
@@ -2194,6 +2766,14 @@ def main(argv) -> int:
              if vcoeff[int(k.split("=")[1][:-1])][0][k] == 0]
     if never:
         fail(f"the variable-coefficient paths never launched {never}")
+    sharded_launches, sharded_per_fmg = phase_sharded_path(pkg, dk)
+    phase_sharded_periodic(pkg, dk)
+    launches_sharded_refined = phase_sharded_refined(pkg, dk, df)
+    sharded_vcoeff = phase_sharded_vcoeff(pkg, dk)
+    slab_rows = phase_slab_kernel_times(
+        dk, df, (sharded_launches, sharded_per_fmg),
+        launches_sharded_refined, sharded_vcoeff)
+    torch.cuda.empty_cache()
     forest_rows, launches_forest = phase_forest_path(pkg, dk)
     periodic_rows, launches_periodic = phase_forest_periodic(pkg, dk)
     forest_rows += periodic_rows
@@ -2204,7 +2784,7 @@ def main(argv) -> int:
     emit({"measured_copy_bytes_per_s": copy_bps,
           "seconds_after_build": time.perf_counter() - t0,
           "seconds_total": time.perf_counter() - t_start})
-    emit({"kernels": rows + forest_rows + boxed_rows})
+    emit({"kernels": rows + forest_rows + boxed_rows + slab_rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

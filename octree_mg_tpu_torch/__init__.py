@@ -14,7 +14,9 @@ kernels written by hand (``csrc/``), each beside a plain PyTorch version
 that serves CPU tensors; and the boxed solver ``MGSolver`` (ghost-padded
 boxes in 1D, 2D and 3D, all five operators, the 2D cylindrical
 laplacian, GSRB or Jacobi), which serves what no dense path takes, with
-its flat-box half-sweep as a CUDA kernel.
+its flat-box half-sweep as a CUDA kernel; and the z-slab dense solver
+``ShardedDenseMGSolver`` with its refined mode ``ShardedRefinedPoisson``
+(K slabs on one device, the kernels' z_gates variants).
 
 It imports ``torch`` and ``numpy`` only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
@@ -26,8 +28,10 @@ from .core.tree import Tree, build_rectangle, box_r_min
 from .solve.multigrid import MGConfig, MGExperimental, MGSolver
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
 from .solve.dense_forest import DenseForestMGSolver, dense_forest_supported
+from .solve.dense_shard import ShardedDenseMGSolver
 from .models.poisson import PoissonSolver
-from .solve.refine import RefinedPoisson, solve_refined
+from .solve.refine import (RefinedPoisson, ShardedRefinedPoisson,
+                           solve_refined)
 from .ops.df32 import df32_ok, df32_vcoeff_ok, split_f64
 from .convert import (state_from_numpy, state_to_numpy, direct_from_numpy,
                       df_pair_from_numpy, df_pair_to_numpy)
@@ -37,8 +41,9 @@ __all__ = [
     "IPHI", "IRHS", "IOLD", "IRES", "NUM_VARS",
     "Tree", "build_rectangle", "box_r_min",
     "MGConfig", "MGExperimental", "MGSolver", "DenseMGSolver", "dense_supported", "make_solver",
-    "DenseForestMGSolver", "dense_forest_supported",
-    "PoissonSolver", "RefinedPoisson", "solve_refined", "df32_ok",
+    "DenseForestMGSolver", "dense_forest_supported", "ShardedDenseMGSolver",
+    "PoissonSolver", "RefinedPoisson", "ShardedRefinedPoisson",
+    "solve_refined", "df32_ok",
     "df32_vcoeff_ok", "split_f64", "state_from_numpy", "state_to_numpy",
     "direct_from_numpy", "df_pair_from_numpy", "df_pair_to_numpy",
 ]

@@ -7,6 +7,11 @@ plain numpy arrays:
      "eps0" .. "eps{n_eps-1}": {...}   (variable-coefficient operators),
      "bc": {lvl: [6 boundary-value planes]}}
 
+The z-slab solver (``ShardedDenseMGSolver``) has the JAX package's
+sharded layout: a sharded level's fields are ``[K, Zl+16, Y+16, X]`` and
+its non-periodic x/y-face planes stacked per slab (``[K, Zl+16, ...]``);
+replicated levels and z-face planes are as above.
+
 ``state_from_numpy`` puts such a state on a solver's device in its
 dtype, checking every shape level by level (the fields it carries are
 the solver's: the coefficient fields of its operator included; a dense
@@ -89,12 +94,12 @@ def state_from_numpy(solver, np_state: Dict) -> Dict:
     state: Dict = {k: {} for k in keys}
     state["bc"] = {}
     for lvl in solver.levels:
-        cfg = solver._kcfgs[lvl]
+        want = solver._field_shape(lvl)
         for k in keys:
             a = np.asarray(np_state[k][lvl])
-            if tuple(a.shape) != tuple(cfg.pshape):
+            if tuple(a.shape) != want:
                 raise ValueError(f"{k}[{lvl}]: shape {a.shape}, this solver "
-                                 f"has {cfg.pshape}")
+                                 f"has {want}")
             state[k][lvl] = _to_tensor(solver, a)
         planes = list(np_state["bc"][lvl])
         if len(planes) != 6:

@@ -23,17 +23,24 @@
 //   f0 = 0.25*corr; for d = x, y, z: a + 0.25*lo[d] | a + 0.25*hi[d]
 // gives the eight child values, which are added into phi_fine in place as
 // four 2-wide vector read-modify-writes.
+//
+// SLAB = 1 (omg_prolong_slab, MODE 0 only) replaces the entry point
+// called with z_gates on one coarse slab of the z-slab solver: a z
+// neighbour beyond a face the slab does not own is read from the coarse
+// z pads (the halo exchange's copies of phi_c and iold_c), so the ring's
+// z plane there is phi_c - iold_c of the neighbour slab instead of the
+// synthesized pair.  Bound and design: as MODE 0.
 #include "stencil_common.cuh"
 
 template <typename T> struct Vec2;
 template <> struct Vec2<float> { using type = float2; };
 template <> struct Vec2<double> { using type = double2; };
 
-template <typename T, int MODE>
+template <typename T, int MODE, int SLAB>
 __global__ void prolong_correct_kernel(LevelParams P,
                                        const T* __restrict__ phic,
                                        const T* __restrict__ ioldc,
-                                       T* __restrict__ phif) {
+                                       T* __restrict__ phif, SlabParams Zs) {
   using V = typename Vec2<T>::type;
   int gx = blockIdx.x * blockDim.x + threadIdx.x;
   int gy = blockIdx.y * blockDim.y + threadIdx.y;
@@ -44,23 +51,41 @@ __global__ void prolong_correct_kernel(LevelParams P,
   const long long o = field_off(P, gx, gy, gz);
   const T pc = phic[o];
   const T ic = MODE == 0 ? ioldc[o] : (T)0;
+  // SLAB: the z faces this slab synthesizes (else it reads their pads)
+  const bool zsyn_lo = SLAB != 0 && slab_syn(P, Zs, 0);
+  const bool zsyn_hi = SLAB != 0 && slab_syn(P, Zs, 1);
 
   T lo[3], hi[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     // raw neighbours; a neighbour that does not exist is never used
     int c[3] = {gx, gy, gz};
-    c[d] = src_idx(g[d] - 1, n[d], P.per[d]);
-    long long ol = c[d] >= 0 ? field_off(P, c[0], c[1], c[2]) : o;
-    c[d] = src_idx(g[d] + 1, n[d], P.per[d]);
-    long long oh = c[d] >= 0 ? field_off(P, c[0], c[1], c[2]) : o;
+    long long ol, oh;
+    if (SLAB != 0 && d == 2) {
+      // the pad plane beyond a face that does not synthesize
+      ol = gz > 0 || !zsyn_lo ? field_off(P, gx, gy, gz - 1) : o;
+      oh = gz < P.Z - 1 || !zsyn_hi ? field_off(P, gx, gy, gz + 1) : o;
+    } else {
+      c[d] = src_idx(g[d] - 1, n[d], P.per[d]);
+      ol = c[d] >= 0 ? field_off(P, c[0], c[1], c[2]) : o;
+      c[d] = src_idx(g[d] + 1, n[d], P.per[d]);
+      oh = c[d] >= 0 ? field_off(P, c[0], c[1], c[2]) : o;
+    }
     T lop, hip;
-    neighbor_pair<T>(P, d, g[d], n[d], pc, phic[ol], phic[oh], gx, gy, gz, lop,
-                     hip);
+    if (SLAB != 0 && d == 2)
+      slab_z_pair<T>(P, zsyn_lo, zsyn_hi, gz, pc, phic[ol], phic[oh], gx, gy,
+                     gz, lop, hip);
+    else
+      neighbor_pair<T>(P, d, g[d], n[d], pc, phic[ol], phic[oh], gx, gy, gz,
+                       lop, hip);
     if constexpr (MODE == 0) {
       T loi, hii;
-      neighbor_pair<T>(P, d, g[d], n[d], ic, ioldc[ol], ioldc[oh], gx, gy, gz,
-                       loi, hii);
+      if (SLAB != 0 && d == 2)
+        slab_z_pair<T>(P, zsyn_lo, zsyn_hi, gz, ic, ioldc[ol], ioldc[oh], gx,
+                       gy, gz, loi, hii);
+      else
+        neighbor_pair<T>(P, d, g[d], n[d], ic, ioldc[ol], ioldc[oh], gx, gy,
+                         gz, loi, hii);
       lo[d] = (T)0.25 * (lop - loi);
       hi[d] = (T)0.25 * (hip - hii);
     } else {
@@ -95,13 +120,14 @@ __global__ void prolong_correct_kernel(LevelParams P,
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, int SLAB = 0>
 static int launch(const LevelParams& P, const void* phic, const void* ioldc,
-                  void* phif, cudaStream_t stream) {
+                  void* phif, cudaStream_t stream,
+                  const SlabParams& Zs = SlabParams{}) {
   dim3 block(32, 4, 2);
   dim3 grid(cdiv(P.X, 32), cdiv(P.Y, 4), cdiv(P.Z, 2));
-  prolong_correct_kernel<T, MODE><<<grid, block, 0, stream>>>(
-      P, (const T*)phic, (const T*)ioldc, (T*)phif);
+  prolong_correct_kernel<T, MODE, SLAB><<<grid, block, 0, stream>>>(
+      P, (const T*)phic, (const T*)ioldc, (T*)phif, Zs);
   return (int)cudaGetLastError();
 }
 
@@ -125,4 +151,15 @@ extern "C" int omg_prolong_correct(int dtype, int mode, const LevelParams* P,
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? launch_mode<float>(mode, *P, phic, ioldc, phif, s)
                     : launch_mode<double>(mode, *P, phic, ioldc, phif, s);
+}
+
+// The z-slab variant of mode 0 (add): P describes the coarse SLAB, Zs its
+// (lo, hi) z-face gates; phic and ioldc carry the exchanged z pads.
+// Returns the cudaError_t of the launch.
+extern "C" int omg_prolong_slab(int dtype, const LevelParams* P,
+                                const SlabParams* Zs, const void* phic,
+                                const void* ioldc, void* phif, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 0 ? launch<float, 0, 1>(*P, phic, ioldc, phif, s, *Zs)
+                    : launch<double, 0, 1>(*P, phic, ioldc, phif, s, *Zs);
 }

@@ -25,6 +25,12 @@
 // neighbours' reuse (13 of the 16 loads) is served by L1/L2.  Periodic
 // axes read wrapped indices and physical faces synthesize their ghosts
 // inline, so no pad is ever read: pads of the inputs may hold NaN.
+//
+// SLAB = 1 (omg_residual_df32_slab) replaces the entry point called with
+// z_gates, on one slab of the z-slab solver's refined outer: a z
+// neighbour of x_hi and x_lo beyond a face the slab does not own is read
+// from the z pads (the halo exchange's copies), and only a face the slab
+// owns synthesizes its ghost pair.  Same arithmetic, same bound.
 #include "stencil_common.cuh"
 
 // Threads of a block along x, y, z.  experiments/probe_torch_kernels.py
@@ -89,13 +95,14 @@ __device__ __forceinline__ float ghost_lo(float c1, float c2, float x1,
   return c1 * x1 + (c2 != 0.0f ? c2 * x2 : 0.0f);
 }
 
+template <int SLAB>
 __global__ void __launch_bounds__(OMG_DF32_BX * OMG_DF32_BY * OMG_DF32_BZ)
 residual_df32_kernel(LevelParams P, Df32Params Q,
                      const float* __restrict__ xhi,
                      const float* __restrict__ xlo,
                      const float* __restrict__ rhshi,
                      const float* __restrict__ rhslo,
-                     float* __restrict__ out) {
+                     float* __restrict__ out, SlabParams Zs) {
   int gx = blockIdx.x * blockDim.x + threadIdx.x;
   int gy = blockIdx.y * blockDim.y + threadIdx.y;
   int gz = blockIdx.z * blockDim.z + threadIdx.z;
@@ -106,6 +113,9 @@ residual_df32_kernel(LevelParams P, Df32Params Q,
   const long long o = field_off(P, gx, gy, gz);
   const float idr2 = (float)P.idr2[0];
   const float xh = xhi[o], xl = xlo[o];
+  // SLAB: the z faces this slab synthesizes (else it reads their pads)
+  const bool zsyn[2] = {SLAB != 0 && slab_syn(P, Zs, 0),
+                        SLAB != 0 && slab_syn(P, Zs, 1)};
 
   float comp = 0.0f;     // first-order compensation channel
   float s = rhshi[o];    // exact-sum accumulator
@@ -116,20 +126,30 @@ residual_df32_kernel(LevelParams P, Df32Params Q,
     // raw neighbours, wrapped on a periodic axis; one that does not exist
     // (offset o) is never used
     const long long wrap = P.per[d] ? (long long)(n[d] - 1) * stride[d] : 0;
-    const long long ol = g[d] > 0 ? o - stride[d] : o + wrap;
-    const long long oh = g[d] < n[d] - 1 ? o + stride[d] : o - wrap;
+    long long ol, oh;
+    if (SLAB != 0 && d == 2) {
+      // the pad plane beyond a face that does not synthesize
+      ol = g[d] > 0 || !zsyn[0] ? o - stride[d] : o;
+      oh = g[d] < n[d] - 1 || !zsyn[1] ? o + stride[d] : o;
+    } else {
+      ol = g[d] > 0 ? o - stride[d] : o + wrap;
+      oh = g[d] < n[d] - 1 ? o + stride[d] : o - wrap;
+    }
+    // SLAB: on z, the low / high ghost only where the slab owns the face
+    const bool syn_lo = SLAB != 0 && d == 2 ? zsyn[0] : true;
+    const bool syn_hi = SLAB != 0 && d == 2 ? zsyn[1] : true;
     const float rlo_h = xhi[ol], rhi_h = xhi[oh];
     const float rlo_l = xlo[ol], rhi_l = xlo[oh];
     float vlo_h = rlo_h, vhi_h = rhi_h, vlo_l = rlo_l, vhi_l = rhi_l;
     if (!P.per[d]) {
       float e_lo = 0.0f, e_hi = 0.0f;
-      if (g[d] == 0) {
+      if (syn_lo && g[d] == 0) {
         const int f = 2 * d;
         const float c1 = (float)P.c1[f], c2 = (float)P.c2[f];
         ghost_hi(c1, c2, Q.cb_hi[f], Q.cb_lo[f], xh, rhi_h, vlo_h, e_lo);
         vlo_l = ghost_lo(c1, c2, xl, rhi_l);
       }
-      if (g[d] == n[d] - 1) {
+      if (syn_hi && g[d] == n[d] - 1) {
         const int f = 2 * d + 1;
         const float c1 = (float)P.c1[f], c2 = (float)P.c2[f];
         ghost_hi(c1, c2, Q.cb_hi[f], Q.cb_lo[f], xh, rlo_h, vhi_h, e_hi);
@@ -178,8 +198,26 @@ extern "C" int omg_residual_df32(const LevelParams* P, const Df32Params* Q,
   dim3 block(OMG_DF32_BX, OMG_DF32_BY, OMG_DF32_BZ);
   dim3 grid(cdiv(P->X, OMG_DF32_BX), cdiv(P->Y, OMG_DF32_BY),
             cdiv(P->Z, OMG_DF32_BZ));
-  residual_df32_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  residual_df32_kernel<0><<<grid, block, 0, (cudaStream_t)stream>>>(
       *P, *Q, (const float*)xhi, (const float*)xlo, (const float*)rhshi,
-      (const float*)rhslo, (float*)out);
+      (const float*)rhslo, (float*)out, SlabParams{});
+  return (int)cudaGetLastError();
+}
+
+// The z-slab variant: as omg_residual_df32, on one slab whose z pads of
+// x_hi and x_lo hold the neighbour slabs' planes; Zs: the slab's (lo, hi)
+// z-face gates.  Returns the cudaError_t of the launch.
+extern "C" int omg_residual_df32_slab(const LevelParams* P,
+                                      const Df32Params* Q,
+                                      const SlabParams* Zs, const void* xhi,
+                                      const void* xlo, const void* rhshi,
+                                      const void* rhslo, void* out,
+                                      void* stream) {
+  dim3 block(OMG_DF32_BX, OMG_DF32_BY, OMG_DF32_BZ);
+  dim3 grid(cdiv(P->X, OMG_DF32_BX), cdiv(P->Y, OMG_DF32_BY),
+            cdiv(P->Z, OMG_DF32_BZ));
+  residual_df32_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(
+      *P, *Q, (const float*)xhi, (const float*)xlo, (const float*)rhshi,
+      (const float*)rhslo, (float*)out, *Zs);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@
 // let a pad value reach a core cell.  Physical-boundary ghosts are
 // synthesized inline (ghost = c0*b + c1*x1 + c2*x2) at the cells that
 // read them, and periodic axes are read with wrapped indices, so no
-// kernel here reads a pad at all.
+// kernel here reads a pad at all, except the z-slab variants (SlabParams
+// below), whose z pads hold the neighbour slabs' planes.
 //
 // Arithmetic order is that of the plain PyTorch versions in
 // ops/dense_kernels.py (and of the JAX package's _halfsweep/_apply_expr),
@@ -70,6 +71,29 @@ struct SegParams {
   const void* plane[MAX_SEGS];    // [4, T1, T2] per descriptor
 };
 
+// The z-slab variants of the stencil, prolongation and double-float
+// residual kernels (template flag SLAB = 1; the z_gates argument of the
+// JAX package's kernels), mirrored by ops/dense_kernels.py:_SlabParams.
+// The level is one of K z-slabs of a larger domain, and the caller's
+// halo exchange has written the neighbour slabs' boundary planes into
+// its z pads (up to PZ deep).  A slab synthesizes the physical BC ghost
+// of a z face only where it owns that face (gate 1: the first slab's low
+// face, the last one's high face) and the z axis is not periodic; every
+// other z neighbour outside [0, Z), on a periodic axis too, is read from
+// the pad plane itself, not wrapped inside the slab.  A kernel argument
+// of its own, passed last, so that the parameter layout of every other
+// kernel stays what it was.
+struct SlabParams {
+  int gate[2];        // (lo, hi): 1 where this slab owns the physical z face
+};
+
+// Whether the low / high z face of a slab synthesizes its BC ghost
+// (else its neighbours beyond the face are pad planes).
+__device__ __forceinline__ bool slab_syn(const LevelParams& P,
+                                         const SlabParams& Zs, int side) {
+  return !P.per[2] && Zs.gate[side] != 0;
+}
+
 __device__ __forceinline__ int wrap_idx(int g, int n) {
   g %= n;
   return g < 0 ? g + n : g;
@@ -128,6 +152,23 @@ __device__ __forceinline__ void neighbor_pair(const LevelParams& P, int d,
                       lo_raw);
 }
 
+// (lo, hi) z neighbour values of a slab cell at local z = g from its raw
+// neighbours (pad planes beyond the slab), with the BC ghost selected in
+// only at the faces the slab owns (syn_lo / syn_hi): neighbor_pair's
+// arithmetic.
+template <typename T>
+__device__ __forceinline__ void slab_z_pair(const LevelParams& P, bool syn_lo,
+                                            bool syn_hi, int g, T p, T lo_raw,
+                                            T hi_raw, int sx, int sy, int sz,
+                                            T& lo, T& hi) {
+  lo = lo_raw;
+  hi = hi_raw;
+  if (syn_lo && g == 0)
+    lo = ghost_val<T>(P, 4, face_c0b<T>(P, 4, sx, sy, sz), p, hi_raw);
+  if (syn_hi && g == P.Z - 1)
+    hi = ghost_val<T>(P, 5, face_c0b<T>(P, 5, sx, sy, sz), p, lo_raw);
+}
+
 // A(phi) at one cell whose (lo, hi) pairs are already there:
 // out = -lam*p; out += idr2[d]*(lo + hi - 2p) for d = x, y, z.
 template <typename T>
@@ -163,11 +204,15 @@ __device__ __forceinline__ int eps_hi_idx(int s, int n, int per) {
 // coordinates (sx, sy, sz): c[2d] low side, c[2d+1] high side of dim d,
 // each ((2*e0)*e_nb)/(e0 + e_nb)*idr2[d] rounded once per operation as
 // in the plain version (IEEE division: no fast-math flag).  Dim d reads
-// field 0 (NE = 1) or field d (NE = 3).
-template <typename T, int NE>
+// field 0 (NE = 1) or field d (NE = 3).  SLAB: sz is the raw local z (a
+// halo cell's is outside [0, Z)), and a z neighbour beyond a face that
+// does not synthesize (syn_lo / syn_hi 0) is the pad plane's value.
+template <typename T, int NE, int SLAB = 0>
 __device__ __forceinline__ void face_coeffs(const LevelParams& P,
                                             const EpsParams& E, int sx,
-                                            int sy, int sz, T c[6]) {
+                                            int sy, int sz, T c[6],
+                                            bool syn_lo = false,
+                                            bool syn_hi = false) {
   const long long plane = (long long)(P.Y + 2 * PY) * P.X;
   const long long zo = (long long)(sz + PZ) * plane;
   const long long yo = (long long)(sy + PY) * P.X;
@@ -175,11 +220,15 @@ __device__ __forceinline__ void face_coeffs(const LevelParams& P,
   const long long lo[3] = {
       zo + yo + eps_lo_idx(sx, P.X, P.per[0]),
       zo + (long long)(eps_lo_idx(sy, P.Y, P.per[1]) + PY) * P.X + sx,
-      (long long)(eps_lo_idx(sz, P.Z, P.per[2]) + PZ) * plane + yo + sx};
+      (long long)((SLAB != 0 ? (sz > 0 || !syn_lo ? sz - 1 : sz)
+                             : eps_lo_idx(sz, P.Z, P.per[2])) + PZ) * plane +
+          yo + sx};
   const long long hi[3] = {
       zo + yo + eps_hi_idx(sx, P.X, P.per[0]),
       zo + (long long)(eps_hi_idx(sy, P.Y, P.per[1]) + PY) * P.X + sx,
-      (long long)(eps_hi_idx(sz, P.Z, P.per[2]) + PZ) * plane + yo + sx};
+      (long long)((SLAB != 0 ? (sz < P.Z - 1 || !syn_hi ? sz + 1 : sz)
+                             : eps_hi_idx(sz, P.Z, P.per[2])) + PZ) * plane +
+          yo + sx};
   T e0 = (T)0;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {

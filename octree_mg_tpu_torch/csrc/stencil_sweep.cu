@@ -34,6 +34,18 @@
 // six neighbours read from device memory (L1/L2 serve the reuse), so
 // shared memory stays what the NE = 0 kernel needs.  Bound: bytes, one
 // more field read per coefficient field.
+//
+// The z-slab variants (omg_stencil_slab, SLAB = 1) replace the same
+// Pallas entry points called with z_gates, on one slab of the z-slab
+// solver (the JAX package's solve/dense_shard.py): pairs (n_pairs 1 or
+// 2) and A(phi) / rhs - A(phi), for every NE.  The planes beyond a face
+// the slab does not own come from its z pads (the halo exchange's
+// copies of the neighbour slabs' planes), 2*n_pairs deep for a pair, 1
+// for the apply; the wavefront sweeps them redundantly, as the Pallas
+// kernel's hz = 2*n_pairs window does, and writes core planes only.
+// Bound: bytes, as the unsharded kernel, plus the halo planes read.
+// half_sweep_dense with z_gates has no caller in the JAX package and is
+// not instantiated.
 #include "stream_kernel.cuh"
 
 template <typename T, int NE>
@@ -80,4 +92,40 @@ extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
   const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
   return dtype == 0 ? dispatch_eps<float>(mode, *P, e, phi, rhs, out, s)
                     : dispatch_eps<double>(mode, *P, e, phi, rhs, out, s);
+}
+
+template <typename T, int NE>
+static int dispatch_slab(int mode, const LevelParams& P, const EpsParams& E,
+                         const SlabParams& Zs, const void* phi,
+                         const void* rhs, void* out, cudaStream_t s) {
+  if (mode == M_APPLY)
+    return launch_stream<T, 0, M_APPLY, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+  if (mode == M_RESIDUAL)
+    return launch_stream<T, 0, M_RESIDUAL, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+  if (mode != M_PAIRS) return (int)cudaErrorInvalidValue;
+  if (P.n_sweeps == 2)
+    return launch_stream<T, 2, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+  if (P.n_sweeps == 4)
+    return launch_stream<T, 4, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The z-slab variants: as omg_stencil_sweep, on one slab whose z pads
+// hold the neighbour slabs' planes; Zs: the slab's (lo, hi) z-face gates.
+// mode 0 takes n_sweeps 2 or 4 (one or two pairs).
+extern "C" int omg_stencil_slab(int dtype, int mode, const LevelParams* P,
+                                const EpsParams* E, const SlabParams* Zs,
+                                const void* phi, const void* rhs, void* out,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
+  if (e.n != 0 && e.n != 1 && e.n != 3) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (e.n == 0) return dispatch_slab<float, 0>(mode, *P, e, *Zs, phi, rhs, out, s);
+    if (e.n == 1) return dispatch_slab<float, 1>(mode, *P, e, *Zs, phi, rhs, out, s);
+    return dispatch_slab<float, 3>(mode, *P, e, *Zs, phi, rhs, out, s);
+  }
+  if (e.n == 0) return dispatch_slab<double, 0>(mode, *P, e, *Zs, phi, rhs, out, s);
+  if (e.n == 1) return dispatch_slab<double, 1>(mode, *P, e, *Zs, phi, rhs, out, s);
+  return dispatch_slab<double, 3>(mode, *P, e, *Zs, phi, rhs, out, s);
 }

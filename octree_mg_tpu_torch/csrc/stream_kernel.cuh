@@ -38,6 +38,15 @@
 // reads 0, and a reader next to one of the canvas's ghost layers
 // substitutes that layer's ghost (seg_pair, stencil_common.cuh).  The
 // SEG = 0 code paths are untouched.
+//
+// SLAB = 1 is the z-slab variant (any NE, SEG = 0; SlabParams,
+// stencil_common.cuh): the planes beyond a z face that does not
+// synthesize its ghost are loaded from the z pads, H deep, and swept
+// redundantly like the halo planes between two chunks, each half-sweep
+// one plane shallower (a double pair sweeps 3 pad planes and reads 4);
+// only core planes are written.  A halo plane's cells keep their local
+// z (negative below the slab): parity, BC-plane rows and coefficient
+// reads follow from it.  The SLAB = 0 code paths are untouched.
 #pragma once
 #include "stencil_common.cuh"
 
@@ -83,14 +92,16 @@ struct Geo {
   }
 };
 
-template <typename T, int NS, int MODE, int NE, int SEG>
+template <typename T, int NS, int MODE, int NE, int SEG, int SLAB>
 __global__ void __launch_bounds__(Geo<NS, MODE>::NT)
 stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
               const T* __restrict__ rhs, T* __restrict__ out,
               T* __restrict__ phic_out, T* __restrict__ iresc_out,
-              EpsParams E, SegParams S) {
+              EpsParams E, SegParams S, SlabParams Zs) {
   static_assert(SEG == 0 || NE == 0, "segment synthesis: constant "
                 "coefficients only");
+  static_assert(SLAB == 0 || (SEG == 0 && MODE != M_DOWN),
+                "slab variants: no segments, no down-leg");
   using G = Geo<NS, MODE>;
   constexpr int H = G::H, WX = G::WX, PL = G::PL, NB = G::NB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -140,6 +151,9 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
         jx[c][1] = __ldg(S.lut + 2 * sxs[c] + 1);
       }
   }
+  // SLAB: the z faces this slab synthesizes (else it reads their pads)
+  const bool zsyn_lo = SLAB != 0 && slab_syn(P, Zs, 0);
+  const bool zsyn_hi = SLAB != 0 && slab_syn(P, Zs, 1);
   const int pb = (gx + gy) & 1;                     // parity of cell a at z = 0
   const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
   const T inv_den = (T)P.inv_den;
@@ -160,15 +174,23 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
     const T xl = s_phi[sc + i - 1], xh = s_phi[sc + i + 1];
     const T yl = s_phi[sc + i - WX], yh = s_phi[sc + i + WX];
     const T zl = s_phi[sm + i], zh = s_phi[sp + i];
-    const bool zface = !P.per[2] && (p == 0 || p == P.Z - 1);
+    bool zface;
+    if constexpr (SLAB != 0)
+      zface = (zsyn_lo && p == 0) || (zsyn_hi && p == P.Z - 1);
+    else
+      zface = !P.per[2] && (p == 0 || p == P.Z - 1);
     if (!(xyface || zface)) {
       lo[0] = xl; hi[0] = xh; lo[1] = yl; hi[1] = yh; lo[2] = zl; hi[2] = zh;
       return;
     }
-    const int sz = src_idx(p, P.Z, P.per[2]);
+    const int sz = SLAB != 0 ? p : src_idx(p, P.Z, P.per[2]);
     neighbor_pair<T>(P, 0, g, P.X, v, xl, xh, sx, sy, sz, lo[0], hi[0]);
     neighbor_pair<T>(P, 1, gy, P.Y, v, yl, yh, sx, sy, sz, lo[1], hi[1]);
-    neighbor_pair<T>(P, 2, p, P.Z, v, zl, zh, sx, sy, sz, lo[2], hi[2]);
+    if constexpr (SLAB != 0)
+      slab_z_pair<T>(P, zsyn_lo, zsyn_hi, p, v, zl, zh, sx, sy, sz, lo[2],
+                     hi[2]);
+    else
+      neighbor_pair<T>(P, 2, p, P.Z, v, zl, zh, sx, sy, sz, lo[2], hi[2]);
   };
 
   // SEG: (lo, hi) of cell c of plane p = t+1-k (0 <= p < Z): raw loads,
@@ -196,8 +218,17 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
     const bool loading = pin <= ze - 1 + H;
     T va[2] = {(T)0, (T)0}, qa[2] = {(T)0, (T)0};
     if (loading) {
-      const int sz = src_idx(pin, P.Z, P.per[2]);
-      if (sz >= 0) {
+      // SLAB: a plane beyond a face that does not synthesize is its pad
+      int sz;
+      bool have;
+      if constexpr (SLAB != 0) {
+        sz = pin;
+        have = !((zsyn_lo && pin < 0) || (zsyn_hi && pin >= P.Z));
+      } else {
+        sz = src_idx(pin, P.Z, P.per[2]);
+        have = sz >= 0;
+      }
+      if (have) {
         const long long zo = (long long)(sz + PZ) * gplane;
 #pragma unroll
         for (int c = 0; c < 2; ++c)
@@ -214,7 +245,11 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
       const int p = t - 1 - 2 * s;
       // z range in which half-sweep s is still valid, and the plane exists
       if (p < zb - (H - 1 - s) || p > ze - 1 + (H - 1 - s)) continue;
-      if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      if constexpr (SLAB != 0) {
+        if ((zsyn_lo && p < 0) || (zsyn_hi && p >= P.Z)) continue;
+      } else {
+        if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      }
       const int want = (s & 1) ? (P.red_parity ^ 1) : P.red_parity;
       const int c = ((pb + p) & 1) == want ? 0 : 1;   // cell of that colour
       // selects, not indexing: c is only known at run time
@@ -230,7 +265,10 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
                   hi);
       if constexpr (NE > 0) {
         T cf[6];
-        face_coeffs<T, NE>(P, E, sxc, sy, src_idx(p, P.Z, P.per[2]), cf);
+        if constexpr (SLAB != 0)
+          face_coeffs<T, NE, 1>(P, E, sxc, sy, p, cf, zsyn_lo, zsyn_hi);
+        else
+          face_coeffs<T, NE>(P, E, sxc, sy, src_idx(p, P.Z, P.per[2]), cf);
         s_phi[sc + i] = eps_update<T>(P, s_rhs[sc + i], cf, lo, hi);
         continue;
       }
@@ -265,7 +303,10 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
         T a;
         if constexpr (NE > 0) {
           T cf[6];
-          face_coeffs<T, NE>(P, E, sxs[c], sy, r, cf);
+          if constexpr (SLAB != 0)
+            face_coeffs<T, NE, 1>(P, E, sxs[c], sy, r, cf, zsyn_lo, zsyn_hi);
+          else
+            face_coeffs<T, NE>(P, E, sxs[c], sy, r, cf);
           a = eps_apply<T>(P, v, cf, lo, hi);
         } else {
           a = apply_from<T>(P, v, lo, hi);
@@ -323,13 +364,14 @@ stream_kernel(LevelParams P, int cz, int fine_out, const T* __restrict__ phi,
   }
 }
 
-template <typename T, int NS, int MODE, int NE, int SEG = 0>
+template <typename T, int NS, int MODE, int NE, int SEG = 0, int SLAB = 0>
 static int launch_stream(const LevelParams& P, const EpsParams& E,
                          int fine_out, const void* phi, const void* rhs,
                          void* out, void* phic_out, void* iresc_out,
-                         cudaStream_t stream, const SegParams* S = nullptr) {
+                         cudaStream_t stream, const SegParams* S = nullptr,
+                         const SlabParams* Zs = nullptr) {
   using G = Geo<NS, MODE>;
-  auto kernel = stream_kernel<T, NS, MODE, NE, SEG>;
+  auto kernel = stream_kernel<T, NS, MODE, NE, SEG, SLAB>;
   const size_t smem = G::smem_bytes(sizeof(T));
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -352,6 +394,7 @@ static int launch_stream(const LevelParams& P, const EpsParams& E,
   kernel<<<grid, G::NT, smem, stream>>>(P, cz, fine_out, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
                                         (T*)iresc_out, E,
-                                        S ? *S : SegParams{});
+                                        S ? *S : SegParams{},
+                                        Zs ? *Zs : SlabParams{});
   return (int)cudaGetLastError();
 }

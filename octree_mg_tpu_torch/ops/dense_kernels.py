@@ -49,6 +49,21 @@ physical faces.  Their launches are counted under ``name[n_eps=k]``.
   the forest's correction) or ``phi_f = prolong(phi_c)`` (``add=False``),
   counted under ``prolong_correct_dense[corr_ready]`` / ``[set]``.
 
+The z-slab solver (solve/dense_shard.py) passes ``z_gates`` to
+``pair_sweep_dense``, ``stencil_apply_dense`` and ``prolong_correct_dense``
+(and ops/df32's ``residual_df32_dense``): a ``(lo, hi)`` pair of bools
+saying which z faces of the level, one slab of a larger domain, are
+physical faces it owns.  Only those synthesize their BC ghost; every
+other z neighbour beyond the slab, on a periodic z axis too, is read from
+the z pads, which the caller's halo exchange filled with the neighbour
+slabs' planes (the JAX package's ``_face_masks`` with ``zgates``).  On
+the card these calls launch the slab variants of the kernels
+(``SlabParams``, csrc/stencil_common.cuh), counted under
+``name[z_gates]`` (``name[n_eps=k][z_gates]`` for the coefficient
+variants).  ``half_sweep_dense``, ``downsweep_dense`` and
+``residual_restrict_dense`` take no gates: the JAX package never calls
+them with any.
+
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
 coefficients, ``lam``) are Python floats rounded to the working dtype at
@@ -91,9 +106,24 @@ def variant_name(name: str, n_eps: int) -> str:
     return name if not n_eps else f"{name}[n_eps={n_eps}]"
 
 
+#: the entry points with z-slab variants (z_gates)
+SLAB_ENTRIES = ("pair_sweep_dense", "stencil_apply_dense",
+                "prolong_correct_dense", "residual_df32_dense")
+
+
+def slab_name(name: str, n_eps: int = 0) -> str:
+    """Launch-counter name of an entry point's z-slab variant."""
+    return variant_name(name, n_eps) + "[z_gates]"
+
+
 for _n in (1, 3):
     for _e in EPS_ENTRIES:
         _LAUNCHES[variant_name(_e, _n)] = 0
+for _e in SLAB_ENTRIES:
+    _LAUNCHES[slab_name(_e)] = 0
+for _n in (1, 3):
+    for _e in SLAB_ENTRIES[:2]:
+        _LAUNCHES[slab_name(_e, _n)] = 0
 
 
 def launch_counts() -> dict:
@@ -192,19 +222,21 @@ class DenseStencilConfig:
 
 
 def sync_pads(cfg: DenseStencilConfig, arr: torch.Tensor,
-              depth: int = PZ) -> torch.Tensor:
+              depth: int = PZ, slab: bool = False) -> torch.Tensor:
     """Periodic wrap maintenance of the z/y pad planes, IN PLACE (x wraps
     are rolls / wrapped indices and need none).  No-op on non-periodic
-    axes.  Depth is clamped to the extent."""
+    axes.  Depth is clamped to the extent.  slab: arr is a z-slab, or a
+    stack of them [K, ...], whose z pads are the halo the caller
+    exchanges: the y pads only."""
     X, Y, Z = cfg.dims
-    if cfg.periodic[2]:
+    if cfg.periodic[2] and not slab:
         d = min(depth, Z)
         arr[PZ - d:PZ] = arr[Z + PZ - d:Z + PZ]
         arr[Z + PZ:Z + PZ + d] = arr[PZ:PZ + d]
     if cfg.periodic[1]:
         d = min(depth, Y)
-        arr[:, PY - d:PY] = arr[:, Y + PY - d:Y + PY]
-        arr[:, Y + PY:Y + PY + d] = arr[:, PY:PY + d]
+        arr[..., PY - d:PY, :] = arr[..., Y + PY - d:Y + PY, :]
+        arr[..., Y + PY:Y + PY + d, :] = arr[..., PY:PY + d, :]
     return arr
 
 
@@ -222,15 +254,21 @@ def _full_iotas(cfg, device):
     return gx, gy, gz
 
 
-def _face_masks(cfg, gcoords):
-    """Boundary masks per non-periodic dim, shared by all sweeps."""
+def _face_masks(cfg, gcoords, z_gates=None):
+    """Boundary masks per non-periodic dim, shared by all sweeps.
+    z_gates: a z-slab's (lo, hi) bools, ANDed into the z-face masks: a
+    face it does not own reads its pad planes (the halo)."""
     masks = {}
     for d in range(3):
         if cfg.periodic[d]:
             masks[d] = None
             continue
         g = gcoords[d]
-        masks[d] = (g == 0, g == cfg.dims[d] - 1)
+        m_lo, m_hi = g == 0, g == cfg.dims[d] - 1
+        if d == 2 and z_gates is not None:
+            m_lo = m_lo & bool(z_gates[0])
+            m_hi = m_hi & bool(z_gates[1])
+        masks[d] = (m_lo, m_hi)
     return masks
 
 
@@ -389,29 +427,36 @@ def _apply_expr(cfg, p, lam, masks, bpw, eps=(), segd=None):
     return out
 
 
-def _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps=()):
+def _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps=(),
+                z_gates=None):
     g = _full_iotas(cfg, phi.device)
-    masks = _face_masks(cfg, g)
+    masks = _face_masks(cfg, g, z_gates)
     upd = _parity_mask(g, red_parity)
     bpw = _bpw_full(cfg, bplanes)
     p1 = _halfsweep(cfg, phi, rhs, lam, masks, upd, True, bpw, eps)
     return _halfsweep(cfg, p1, rhs, lam, masks, upd, False, bpw, eps)
 
 
-def _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=()):
+def _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=(),
+                 z_gates=None):
     """n_pairs single pairs with the periodic pads re-synced between
     (what a fused multi-pair kernel computes in one pass).  CPU callers
-    keep the periodic pads of the eps fields current."""
+    keep the periodic pads of the eps fields current.  On a z-slab
+    (z_gates) only the y pads are re-synced: the z pads are the halo,
+    swept redundantly like the rest of the array, as the kernel's halo
+    planes are."""
     for k in range(n_pairs):
         if k:
-            sync_pads(cfg, phi)
-        phi = _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps)
+            sync_pads(cfg, phi, slab=z_gates is not None)
+        phi = _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps,
+                          z_gates)
     return phi
 
 
-def _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps=()):
+def _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps=(),
+                 z_gates=None):
     g = _full_iotas(cfg, phi.device)
-    masks = _face_masks(cfg, g)
+    masks = _face_masks(cfg, g, z_gates)
     out = _apply_expr(cfg, phi, lam, masks, _bpw_full(cfg, bplanes), eps)
     return rhs - out if residual else out
 
@@ -492,12 +537,13 @@ def _down_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=()):
 
 
 def _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c,
-                           mode="add"):
+                           mode="add", z_gates=None):
     """mode "add": phi_f += prolong(phi_c - iold_c); "corr_ready":
     phi_f += prolong(phi_c); "set": phi_f = prolong(phi_c) on the
-    interior.  In place on phi_f; iold_c is read in mode "add" only."""
+    interior.  In place on phi_f; iold_c is read in mode "add" only.
+    z_gates: a coarse z-slab's gates (its z pads are the halo)."""
     g = _full_iotas(cfg_c, phi_c.device)
-    masks = _face_masks(cfg_c, g)
+    masks = _face_masks(cfg_c, g, z_gates)
     bpw = _bpw_full(cfg_c, bplanes_c)
     corr = phi_c - iold_c if mode == "add" else phi_c
     # neighbor values of corr with ghost semantics: synth(phi) -
@@ -560,6 +606,49 @@ class _SegParams(ctypes.Structure):
     """Mirror of ``SegParams`` in csrc/stencil_common.cuh."""
     _fields_ = [("n", ctypes.c_int), ("lut", ctypes.c_void_p),
                 ("plane", ctypes.c_void_p * MAX_SEGS)]
+
+
+class _SlabParams(ctypes.Structure):
+    """Mirror of ``SlabParams`` in csrc/stencil_common.cuh."""
+    _fields_ = [("gate", ctypes.c_int * 2)]
+
+
+def _slab_params(z_gates) -> _SlabParams:
+    Zs = _SlabParams()
+    Zs.gate[0], Zs.gate[1] = (int(bool(g)) for g in z_gates)
+    return Zs
+
+
+def _check_gates(z_gates, what):
+    """A z-slab's gates: a (lo, hi) pair of Python bools, or None."""
+    if z_gates is None:
+        return None
+    z_gates = tuple(z_gates)
+    if len(z_gates) != 2 or any(isinstance(g, torch.Tensor)
+                                for g in z_gates):
+        raise ValueError(f"{what}: z_gates must be a (lo, hi) pair of bools")
+    return tuple(bool(g) for g in z_gates)
+
+
+def _out_field(cfg, out, like, inputs, what):
+    """The field a launch writes its core cells into: ``out`` (checked:
+    a padded field of the config that is none of the inputs), or a new
+    one with uninitialized pads."""
+    if out is None:
+        return torch.empty_like(like)
+    _check_field(cfg, out, "out")
+    if any(t is not None and out.data_ptr() == t.data_ptr() for t in inputs):
+        raise ValueError(f"{what}: out aliases an input")
+    return out
+
+
+def _plain_out(out, r):
+    """A plain version's result r written into ``out``'s core cells (the
+    cells a kernel writes), or r itself."""
+    if out is None:
+        return r
+    out[_ISL] = r[_ISL]
+    return out
 
 
 def _check_field(cfg, t, name, shape=None):
@@ -663,6 +752,12 @@ _ARGTYPES = {
     "omg_seg_sweep": [ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(_LevelParams),
                       ctypes.POINTER(_SegParams), _VP, _VP, _VP, _VP],
+    "omg_stencil_slab": [ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(_LevelParams),
+                         ctypes.POINTER(_EpsParams),
+                         ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP],
+    "omg_prolong_slab": [ctypes.c_int, ctypes.POINTER(_LevelParams),
+                         ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP],
 }
 _fns = {}
 
@@ -774,9 +869,24 @@ def _coarse_empty(cfg, like):
 # public entry points
 # ---------------------------------------------------------------------------
 
+def _slab_launch(name, cfg, mode, phi, rhs, lam, bplanes, red_parity,
+                 n_sweeps, eps, z_gates, out):
+    """One launch of a stencil kernel's z-slab variant."""
+    _check_field(cfg, phi, "phi")
+    _check_field(cfg, rhs, "rhs")
+    P = _params(cfg, lam, bplanes, red_parity, n_sweeps)
+    E = _eps_params(cfg, eps)
+    Zs = _slab_params(z_gates)
+    err = _fn("stencil_sweep", "omg_stencil_slab")(
+        _dt(cfg), mode, ctypes.byref(P), ctypes.byref(E), ctypes.byref(Zs),
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+    record_launch(err, name, slab_name(name, cfg.n_eps))
+    return out
+
+
 def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
                      red_parity: int, n_pairs: int = 1, eps=(), segs=None,
-                     seg_planes=None):
+                     seg_planes=None, z_gates=None, out=None):
     """Fused [red half-sweep, ghost refresh, black half-sweep] x n_pairs.
 
     phi/rhs: padded_shape(dims); lam: host scalar; bplanes: 6 padded
@@ -795,11 +905,22 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     one [4, T1, T2] plane each, see ``csrc/stencil_common.cuh``);
     then bplanes and cfg's BC fields are not read, x wraps and y/z reads
     outside the canvas are zero, and the ghosts are synthesized at read
-    time, so the pairs need no refresh between them."""
+    time, so the pairs need no refresh between them.
+
+    z_gates: the level is a z-slab (see the module docstring) whose z
+    pads hold the neighbour slabs' planes at least 2*n_pairs deep (eps
+    fields' too); between two pairs only the y pads are re-synced.  The
+    local z of the slab must have the parity of the global z.
+    out: a padded field, none of the inputs (a z-window of a larger one
+    will do), that receives the core cells; its pads are not written."""
     eps = _check_eps(cfg, eps, "pair_sweep_dense")
+    z_gates = _check_gates(z_gates, "pair_sweep_dense")
     if n_pairs not in (1, 2):
         raise ValueError("pair_sweep_dense: n_pairs must be 1 or 2")
     if segs is not None:
+        if z_gates is not None or out is not None:
+            raise ValueError("pair_sweep_dense: segment launches take no "
+                             "z_gates and no out")
         segs, seg_planes = _check_segs(cfg, segs, seg_planes, eps,
                                        phi.device)
         if cfg.X % 2:
@@ -814,13 +935,18 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
         raise ValueError(f"pair_sweep_dense: a double pair needs even extents "
                          f"on periodic axes, got {cfg.dims}; run single pairs")
     if not phi.is_cuda:
-        return _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
-                            eps)
+        return _plain_out(out, _pairs_plain(cfg, phi, rhs, lam, bplanes,
+                                            red_parity, n_pairs, eps,
+                                            z_gates))
+    out = _out_field(cfg, out, phi, (phi, rhs) + eps, "pair_sweep_dense")
+    if z_gates is not None:
+        return _slab_launch("pair_sweep_dense", cfg, _MODE_PAIRS, phi, rhs,
+                            lam, bplanes, red_parity, 2 * n_pairs, eps,
+                            z_gates, out)
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes, red_parity, 2 * n_pairs)
     E = _eps_params(cfg, eps)
-    out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
         phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
@@ -859,13 +985,19 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
 
 
 def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                        residual: bool, eps=(), segs=None, seg_planes=None):
+                        residual: bool, eps=(), segs=None, seg_planes=None,
+                        z_gates=None, out=None):
     """A(phi) (or rhs - A(phi)) in one pass (box_lpl/box_helmh +
     residual_box, m_multigrid.f90:426-436; with eps box_vlpl/box_vhelmh/
     box_ahelmh).  Returns a new field.  segs/seg_planes: a forest
-    canvas's ghost layers, as in :func:`pair_sweep_dense`."""
+    canvas's ghost layers, as in :func:`pair_sweep_dense`; z_gates and
+    out as there (the z pads 1 deep)."""
     eps = _check_eps(cfg, eps, "stencil_apply_dense")
+    z_gates = _check_gates(z_gates, "stencil_apply_dense")
     if segs is not None:
+        if z_gates is not None or out is not None:
+            raise ValueError("stencil_apply_dense: segment launches take no "
+                             "z_gates and no out")
         segs, seg_planes = _check_segs(cfg, segs, seg_planes, eps,
                                        phi.device)
         if not phi.is_cuda:
@@ -875,16 +1007,20 @@ def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
                            _MODE_RESIDUAL if residual else _MODE_APPLY, phi,
                            rhs, lam, 0, 0, segs, seg_planes)
     if not phi.is_cuda:
-        return _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps)
+        return _plain_out(out, _apply_plain(cfg, phi, rhs, lam, bplanes,
+                                            residual, eps, z_gates))
+    out = _out_field(cfg, out, phi, (phi, rhs) + eps, "stencil_apply_dense")
+    mode = _MODE_RESIDUAL if residual else _MODE_APPLY
+    if z_gates is not None:
+        return _slab_launch("stencil_apply_dense", cfg, mode, phi, rhs, lam,
+                            bplanes, 0, 0, eps, z_gates, out)
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes)
     E = _eps_params(cfg, eps)
-    out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
-        _dt(cfg), _MODE_RESIDUAL if residual else _MODE_APPLY,
-        ctypes.byref(P), ctypes.byref(E), phi.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-        cuda_stream(phi))
+        _dt(cfg), mode, ctypes.byref(P), ctypes.byref(E), phi.data_ptr(),
+        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
     record_launch(err, "stencil_apply_dense",
                   variant_name("stencil_apply_dense", cfg.n_eps))
     return out
@@ -941,15 +1077,21 @@ def residual_restrict_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     return phi_c, ires_c
 
 
-def restrict_dense(cfg_f: DenseStencilConfig, fine):
+def restrict_dense(cfg_f: DenseStencilConfig, fine, out=None):
     """Full-weighting restriction (m_restrict.f90:183-194): fine padded
-    -> new coarse padded (garbage pads).  Requires even extents."""
+    -> new coarse padded (garbage pads), or into ``out``'s core cells (a
+    coarse padded field).  Requires even extents."""
     if not cfg_f.even_dims:
         raise ValueError(f"restrict_dense: odd extent in {cfg_f.dims}")
     if not fine.is_cuda:
-        return _restrict_plain(cfg_f, fine)
+        return _plain_out(out, _restrict_plain(cfg_f, fine))
     _check_field(cfg_f, fine, "fine")
-    coarse = _coarse_empty(cfg_f, fine)
+    if out is None:
+        coarse = _coarse_empty(cfg_f, fine)
+    else:
+        _check_field(cfg_f, out, "out", padded_shape(
+            (cfg_f.X // 2, cfg_f.Y // 2, cfg_f.Z // 2)))
+        coarse = out
     err = _fn("restrict", "omg_restrict")(
         _dt(cfg_f), cfg_f.X // 2, cfg_f.Y // 2, cfg_f.Z // 2,
         fine.data_ptr(), coarse.data_ptr(), cuda_stream(fine))
@@ -959,7 +1101,7 @@ def restrict_dense(cfg_f: DenseStencilConfig, fine):
 
 def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
                           bplanes_c, add: bool = True,
-                          corr_ready: bool = False):
+                          corr_ready: bool = False, z_gates=None):
     """Fused correct_children (m_multigrid.f90:387-402): corr = phi_c -
     iold_c with ghost-ring semantics (BC synthesis / periodic wraps),
     mg_prolong_sparse D-linear weights (m_prolong.f90:159-240), added
@@ -972,8 +1114,17 @@ def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
     added — the dense forest's correction, whose window ring rides the
     plane-valued faces.  CPU tensors need the periodic pads of phi_c (and
     iold_c) current.  A write on the card bumps phi_f's version counter,
-    as an in-place PyTorch operation would."""
+    as an in-place PyTorch operation would.
+
+    z_gates: phi_c and iold_c are a coarse z-slab (see the module
+    docstring; add mode only) whose z pads hold the neighbour slabs'
+    planes 1 deep, and phi_f the fine slab above it."""
     mode = "set" if not add else "corr_ready" if corr_ready else "add"
+    z_gates = _check_gates(z_gates, "prolong_correct_dense")
+    if z_gates is not None and mode != "add":
+        raise NotImplementedError(
+            f"prolong_correct_dense: z_gates with the {mode} mode has no "
+            f"caller in either package")
     X, Y, Z = cfg_c.dims
     shape_f = padded_shape((2 * X, 2 * Y, 2 * Z))
     if tuple(phi_f.shape) != shape_f:
@@ -981,18 +1132,26 @@ def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
                          f"{shape_f}")
     if not phi_c.is_cuda:
         return _prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f, bplanes_c,
-                                      mode)
+                                      mode, z_gates)
     _check_field(cfg_c, phi_c, "phi_c")
     if mode == "add":
         _check_field(cfg_c, iold_c, "iold_c")
     _check_field(cfg_c, phi_f, "phi_f", shape_f)
     P = _params(cfg_c, 0.0, bplanes_c)
-    err = _fn("prolong_correct", "omg_prolong_correct")(
-        _dt(cfg_c), ("add", "set", "corr_ready").index(mode), ctypes.byref(P),
-        phi_c.data_ptr(), iold_c.data_ptr() if mode == "add" else None,
-        phi_f.data_ptr(), cuda_stream(phi_c))
-    record_launch(err, "prolong_correct_dense",
-                  "prolong_correct_dense" if mode == "add"
-                  else f"prolong_correct_dense[{mode}]")
+    if z_gates is not None:
+        Zs = _slab_params(z_gates)
+        err = _fn("prolong_correct", "omg_prolong_slab")(
+            _dt(cfg_c), ctypes.byref(P), ctypes.byref(Zs), phi_c.data_ptr(),
+            iold_c.data_ptr(), phi_f.data_ptr(), cuda_stream(phi_c))
+        counter = slab_name("prolong_correct_dense")
+    else:
+        err = _fn("prolong_correct", "omg_prolong_correct")(
+            _dt(cfg_c), ("add", "set", "corr_ready").index(mode),
+            ctypes.byref(P), phi_c.data_ptr(),
+            iold_c.data_ptr() if mode == "add" else None,
+            phi_f.data_ptr(), cuda_stream(phi_c))
+        counter = ("prolong_correct_dense" if mode == "add"
+                   else f"prolong_correct_dense[{mode}]")
+    record_launch(err, "prolong_correct_dense", counter)
     torch.autograd.graph.increment_version(phi_f)
     return phi_f

@@ -55,8 +55,15 @@ leaves it to XLA.  Each operation is an eager kernel of its own, so no
 multiply-add contraction can eat an error term; it must not go through
 ``torch.compile``, which fuses and may contract.
 
+``residual_df32`` and ``residual_df32_dense`` take ``z_gates`` for one
+slab of the z-slab solver's refined outer
+(``ShardedRefinedPoisson``): the z neighbours beyond a face the slab does
+not own are read from the z pads of x_hi and x_lo, which the caller's
+halo exchange filled (ops/dense_kernels module docstring); on the card
+the kernel's slab variant, counted under ``residual_df32_dense[z_gates]``.
+
 Still to come with their callers: ``interp_rb_strip_df`` (forests), the
-2D forms, and the ``z_gates``-chunked evaluation.
+2D forms, and the ``nch``-chunked evaluation.
 """
 from __future__ import annotations
 
@@ -315,20 +322,21 @@ def _check_gate(cfg, what):
 
 
 def residual_df32(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
-                  cbs=None, lam_pair=None):
+                  cbs=None, lam_pair=None, z_gates=None):
     """r_hi ~= (rhshi + rhslo) - A(xhi + xlo), exact to the double-float
     representation (see module docstring).  Inputs are padded arrays in
     the dense layout; pads follow the usual garbage-by-contract rules
     (periodic z/y pads of xhi and xlo kept current by the caller,
     non-periodic ghosts synthesized inline).  Plain PyTorch over the
     whole array; ``residual_df32_dense`` launches the kernel on CUDA
-    tensors."""
+    tensors.  z_gates: a z-slab's (lo, hi) gates, as in
+    ``dense_kernels.stencil_apply_dense``."""
     _check_gate(cfg, "residual_df32")
     for t in (xhi, xlo, rhshi, rhslo):
         if t.dtype != torch.float32:
             raise TypeError(f"residual_df32: float32 only, got {t.dtype}")
     g = dk._full_iotas(cfg, xhi.device)
-    masks = dk._face_masks(cfg, g)
+    masks = dk._face_masks(cfg, g, dk._check_gates(z_gates, "residual_df32"))
     return _df32_expr(cfg, xhi, xlo, rhshi, rhslo, masks,
                       cbs if cbs is not None else _cb_pairs(cfg),
                       lam_pair=lam_pair)
@@ -344,10 +352,14 @@ class _Df32Params(ctypes.Structure):
 dk._ARGTYPES["omg_residual_df32"] = [
     ctypes.POINTER(dk._LevelParams), ctypes.POINTER(_Df32Params),
     dk._VP, dk._VP, dk._VP, dk._VP, dk._VP, dk._VP]
+dk._ARGTYPES["omg_residual_df32_slab"] = [
+    ctypes.POINTER(dk._LevelParams), ctypes.POINTER(_Df32Params),
+    ctypes.POINTER(dk._SlabParams), dk._VP, dk._VP, dk._VP, dk._VP, dk._VP,
+    dk._VP]
 
 
 def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
-                        cbs=None, lam_pair=None, out=None):
+                        cbs=None, lam_pair=None, out=None, z_gates=None):
     """:func:`residual_df32` in one pass over device memory.  A CPU
     tensor runs the plain version; a CUDA tensor launches
     ``csrc/residual_df32.cu`` or raises.  Bitwise the plain version.
@@ -355,12 +367,16 @@ def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
     Returns a padded field with garbage pads: ``out`` when given (a
     padded float32 field that is none of the inputs), else a new one.
     The kernel reads wrapped indices on periodic axes and never a pad,
-    so CUDA inputs need no pad sync and their pads may hold anything."""
+    so CUDA inputs need no pad sync and their pads may hold anything --
+    except with z_gates (a z-slab, see :func:`residual_df32`), whose z
+    pads of xhi and xlo must hold the neighbour slabs' planes 1 deep."""
     _check_gate(cfg, "residual_df32_dense")
+    z_gates = dk._check_gates(z_gates, "residual_df32_dense")
     if cbs is None:
         cbs = _cb_pairs(cfg)
     if not xhi.is_cuda:
-        r = residual_df32(cfg, xhi, xlo, rhshi, rhslo, cbs, lam_pair)
+        r = residual_df32(cfg, xhi, xlo, rhshi, rhslo, cbs, lam_pair,
+                          z_gates)
         if out is None:
             return r
         out.copy_(r)
@@ -381,10 +397,17 @@ def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
         Q.cb_hi[nb], Q.cb_lo[nb] = cbs[nb]
     Q.has_lam = int(lam_pair is not None)
     Q.lam_hi, Q.lam_lo = lam_pair if lam_pair is not None else (0.0, 0.0)
+    ptrs = (xhi.data_ptr(), xlo.data_ptr(), rhshi.data_ptr(),
+            rhslo.data_ptr(), out.data_ptr(), dk.cuda_stream(xhi))
+    if z_gates is not None:
+        Zs = dk._slab_params(z_gates)
+        err = dk._fn("residual_df32", "omg_residual_df32_slab")(
+            ctypes.byref(P), ctypes.byref(Q), ctypes.byref(Zs), *ptrs)
+        dk.record_launch(err, "residual_df32_dense",
+                         dk.slab_name("residual_df32_dense"))
+        return out
     err = dk._fn("residual_df32", "omg_residual_df32")(
-        ctypes.byref(P), ctypes.byref(Q), xhi.data_ptr(), xlo.data_ptr(),
-        rhshi.data_ptr(), rhslo.data_ptr(), out.data_ptr(),
-        dk.cuda_stream(xhi))
+        ctypes.byref(P), ctypes.byref(Q), *ptrs)
     dk.record_launch(err, "residual_df32_dense")
     return out
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..core.constants import IPHI, IRHS, IVEPS
@@ -66,18 +67,27 @@ def helmholtz_apply(phi: torch.Tensor, ndim: int, nc: int,
 
 def helmholtz_smooth_half(phi: torch.Tensor, rhs: torch.Tensor, ndim: int,
                           nc: int, idr2: Sequence[float], lam,
-                          upd_mask: torch.Tensor) -> torch.Tensor:
+                          upd_mask: torch.Tensor,
+                          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One red-black half-sweep (m_laplacian.f90:52-114 / m_helmholtz.f90:48-108).
 
-    fac = 1 / (2*sum(idr2) + lam), evaluated in Python double and rounded
-    once at the multiply; phi_new = (sum idr2*(nbrs) - rhs) * fac."""
+    fac = 1 / (2*sum(idr2) + lam); phi_new = (sum idr2*(nbrs) - rhs) * fac.
+    With ``dtype`` (the helmholtz operator's lam, a traced array in the
+    working dtype in the JAX package) ``s + lam`` and the reciprocal round
+    in that dtype; without it (the laplacian's Python 0.0) fac is
+    evaluated in double and rounded once at the multiply."""
     acc = -_iv(rhs, ndim, nc)
     s = 0.0
     for d in range(ndim):
         acc = acc + idr2[d] * (_iv(phi, ndim, nc, d, -1)
                                + _iv(phi, ndim, nc, d, +1))
         s = s + 2.0 * idr2[d]
-    new = acc * (1.0 / (s + lam))
+    if dtype is None:
+        fac = 1.0 / (s + lam)
+    else:
+        t = np.float32 if dtype == torch.float32 else np.float64
+        fac = float(t(1.0) / (t(s) + t(lam)))
+    new = acc * fac
     cur = _iv(phi, ndim, nc)
     return _set_interior(phi, ndim, torch.where(upd_mask, new, cur))
 
@@ -256,7 +266,8 @@ def op_smooth_half(name: str, ctx: OpContext, cc_lvl: torch.Tensor, lam,
                                              upd_mask)
         return helmholtz_smooth_half(phi, rhs, D, nc, ctx.idr2, 0.0, upd_mask)
     if name == "helmholtz":
-        return helmholtz_smooth_half(phi, rhs, D, nc, ctx.idr2, lam, upd_mask)
+        return helmholtz_smooth_half(phi, rhs, D, nc, ctx.idr2, lam, upd_mask,
+                                     dtype=phi.dtype)
     if name == "vlaplacian":
         return vhelmholtz_smooth_half(phi, rhs, cc_lvl[IVEPS], D, nc,
                                       ctx.idr2, 0.0, upd_mask)

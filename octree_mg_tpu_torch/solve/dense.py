@@ -349,6 +349,10 @@ class DenseMGSolver:
         """Padded per-level array shape."""
         return dk.padded_shape(dims)
 
+    def _field_shape(self, lvl) -> Tuple[int, ...]:
+        """Shape of the state's per-level fields at lvl."""
+        return tuple(self._kcfgs[lvl].pshape)
+
     def _ishape(self, lvl) -> Tuple[int, ...]:
         """Interior array shape (spatial dims reversed, x fastest)."""
         return tuple(int(v) for v in self.dims[lvl][::-1])

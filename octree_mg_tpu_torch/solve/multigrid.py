@@ -124,6 +124,12 @@ class MGConfig:
     #: explicit exchange across a device mesh, waits for ROADMAP A13 and
     #: raises
     halo: str = "gspmd"
+    #: the z-slab dense solver's smoother (solve/dense_shard.py) sweeps
+    #: each slab from the data before the halo exchange, then recomputes
+    #: the two edge strips the halo reaches with the exchanged pads and
+    #: patches them in: bitwise the exchange-then-sweep order, which
+    #: False selects (the JAX package's field and default)
+    overlap_halo: bool = True
     #: research options (see MGExperimental)
     experimental: MGExperimental = dataclasses.field(
         default_factory=MGExperimental)

@@ -20,9 +20,15 @@ coefficient classes), or for the variable-coefficient operators
 ``ops.df32.df32_vcoeff_ok``: their residual is evaluated in double-float
 pair arithmetic (``residual_df32_vcoeff``, plain PyTorch ops, ~2^-47
 relative) from the float64 coefficient fields split into float32 pairs,
-and the hi parts are installed on the inner solver.  Forests, 2D and
-sharded solvers have refinement classes in the JAX package that are
-still to be ported; ``solve_refined`` raises for them.
+and the hi parts are installed on the inner solver.
+
+``ShardedRefinedPoisson`` refines over the z-slab solver
+(``ShardedDenseMGSolver``): the same outer loop on the slab layout, the
+halos of x_hi and x_lo exchanged before the double-float residual runs
+slab by slab with each slab's z gates, its norm a max over the slabs.
+Constant coefficients only, as in the JAX package.  Forests and 2D
+solvers have refinement classes in the JAX package that are still to be
+ported; ``solve_refined`` raises for them.
 """
 from __future__ import annotations
 
@@ -266,7 +272,73 @@ class RefinedPoisson:
                 break
         norms_dev.append(self._residual_norm(state))
         norms = [float(m) for m in torch.stack(norms_dev).cpu()]
-        return self.x_hi[_ISL], self.x_lo[_ISL], norms, state
+        x_hi, x_lo = self._interior(self.x_hi), self._interior(self.x_lo)
+        return x_hi, x_lo, norms, state
+
+    def _interior(self, a):
+        """The interior [Z, Y, X] of one of the instance's padded fields."""
+        return a[_ISL]
+
+
+class ShardedRefinedPoisson(RefinedPoisson):
+    """Iterative refinement over :class:`ShardedDenseMGSolver` (the JAX
+    package's ``ShardedRefinedPoisson``): the instance's fields take the
+    solver's top-level layout (slab-stacked when that level is sharded);
+    each outer accumulates, exchanges the z halos (and syncs the y pads
+    on the CPU) of x_hi and x_lo, runs the double-float residual slab by
+    slab with the slab's z gates, takes the max over the slabs and
+    writes the rhs; the inner FMG is the slab solver's own.  Constant
+    coefficients only: the variable-coefficient refined solve is outside
+    the sharded refined gate, in both packages."""
+
+    def __init__(self, solver, bc_values: Optional[List[float]] = None,
+                 lam: float = 0.0):
+        from .dense_shard import ShardedDenseMGSolver
+        if not isinstance(solver, ShardedDenseMGSolver):
+            raise TypeError("ShardedRefinedPoisson refines a "
+                            "ShardedDenseMGSolver")
+        if solver.n_eps:
+            raise ValueError(
+                "ShardedRefinedPoisson: constant coefficients only (the "
+                "variable-coefficient refined solve is outside the sharded "
+                "refined gate, as in the JAX package)")
+        super().__init__(solver, bc_values=bc_values, lam=lam)
+        self.sharded_top = solver.sharded[self.top]
+        self.pshape = solver._field_shape(self.top)
+
+    def pad(self, v, out=None):
+        if not self.sharded_top:
+            return super().pad(v, out)
+        if out is None:
+            out = torch.zeros(self.pshape, dtype=torch.float32,
+                              device=self.solver.device)
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(np.asarray(v))
+        Z, Y, X = self.shape
+        K = self.solver.K
+        out[(slice(None),) + _ISL] = v.to(out.device, torch.float32).reshape(
+            K, Z // K, Y, X)
+        return out
+
+    def _interior(self, a):
+        if not self.sharded_top:
+            return a[_ISL]
+        return a[(slice(None),) + _ISL].reshape(self.shape)
+
+    def _residual_norm(self, state):
+        if not self.sharded_top:
+            return super()._residual_norm(state)
+        solver, top = self.solver, self.top
+        solver._sync_pads(self.x_hi, top)
+        solver._sync_pads(self.x_lo, top)
+        r = state["rhs"][top]
+        for i, s in enumerate(solver.comm.shards):
+            residual_df32_dense(self.cfg, self.x_hi[i], self.x_lo[i],
+                                self.rhs_hi[i], self.rhs_lo[i], cbs=self.cbs,
+                                lam_pair=self.lam_pair, out=r[i],
+                                z_gates=solver._gates(top, s))
+        per_slab = r[(slice(None),) + _ISL].abs().amax(dim=(1, 2, 3))
+        return solver.comm.max(per_slab)
 
 
 def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
@@ -274,18 +346,26 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
                   bc_values: Optional[List[float]] = None,
                   lam: float = 0.0, eps=None):
     """One-shot convenience wrapper.  The JAX package picks the forest,
-    sharded, 2D or plain refinement class by solver type; here only the
-    uniform 3D dense solver exists so far and anything else raises.
-    lam != 0 = f64-class Helmholtz (a helmholtz-family inner solver);
-    eps = the float64 coefficient fields of a variable-coefficient
-    solver (see RefinedPoisson)."""
+    sharded, 2D or plain refinement class by solver type; here the
+    z-slab solver takes :class:`ShardedRefinedPoisson` (bc_values and lam
+    only, as there) and the uniform 3D dense solver
+    :class:`RefinedPoisson`; anything else raises.  lam != 0 = f64-class
+    Helmholtz (a helmholtz-family inner solver); eps = the float64
+    coefficient fields of a variable-coefficient solver (see
+    RefinedPoisson)."""
     from .dense_forest import DenseForestMGSolver
+    from .dense_shard import ShardedDenseMGSolver
+    if isinstance(solver, ShardedDenseMGSolver):
+        return ShardedRefinedPoisson(solver, bc_values=bc_values,
+                                     lam=lam).solve(state, rhs_hi, rhs_lo,
+                                                    n_outer=n_outer,
+                                                    rtol=rtol)
     if not isinstance(solver, DenseMGSolver) \
             or isinstance(solver, DenseForestMGSolver):
         raise NotImplementedError(
             f"solve_refined: no refinement class for "
             f"{type(solver).__name__} yet: forests wait for ROADMAP A9, 2D "
-            f"for A10, sharded solvers for A13")
+            f"for A10")
     return RefinedPoisson(solver, nch=nch, bc_values=bc_values, lam=lam,
                           eps=eps).solve(state, rhs_hi, rhs_lo,
                                          n_outer=n_outer, rtol=rtol)

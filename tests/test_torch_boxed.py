@@ -280,6 +280,37 @@ def test_operator_apply_and_half_sweep(op, lam):
             near(got, want, what=f"{op} half-sweep {parity} lvl {lvl}")
 
 
+#: (lam, 1/dx) of the float32 fac check: the first four round the
+#: denominator differently in double and in float32, the rest alike
+FAC_PAIRS = [(0.31, 16), (0.31, 40), (0.001, 16), (123.4, 40)] + [
+    (lam, inv_dx) for lam in (0.7, 1.5, 2.9) for inv_dx in (100, 256)]
+
+
+@pytest.mark.parametrize("lam,inv_dx", FAC_PAIRS)
+def test_helmholtz_half_sweep_float32_fac_is_the_references(lam, inv_dx):
+    """The boxed helmholtz half-sweep in float32, every cell updated, is
+    bitwise the JAX function's with lam shaped as the solver's _lam_arr
+    shapes it: s + lam and its reciprocal round in float32 there."""
+    import types
+    rng = np.random.default_rng(int(1000 * lam) + inv_dx)
+    ndim, nc, n = 3, 8, 64
+    phi = rng.normal(size=(n,) + (nc + 2,) * ndim).astype(np.float32)
+    rhs = rng.normal(size=phi.shape).astype(np.float32)
+    idr2 = (float(inv_dx) ** 2,) * ndim
+    mask = np.ones((1,) + (nc,) * ndim, bool)
+    want = rkernels.helmholtz_smooth_half(
+        jnp.asarray(phi), jnp.asarray(rhs), ndim, nc, idr2,
+        jnp.asarray(lam, jnp.float32).reshape((1,) * (ndim + 1)),
+        jnp.asarray(mask))
+    ctx = types.SimpleNamespace(ndim=ndim, nc=nc, idr2=idr2,
+                                geometry="cartesian")
+    cc = torch.zeros((IRHS + 1,) + phi.shape, dtype=torch.float32)
+    cc[IPHI], cc[IRHS] = torch.from_numpy(phi), torch.from_numpy(rhs)
+    got = pkernels.op_smooth_half("helmholtz", ctx, cc, lam,
+                                  torch.from_numpy(mask))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("what", ["apply", "half_sweep"])
 def test_cylindrical_laplacian(what):
     rs, ps, np_state = make_pair("cyl2", bcs=False, geometry="cylindrical")

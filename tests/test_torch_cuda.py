@@ -264,3 +264,50 @@ def test_boxed_solver_on_card_matches_cpu():
     assert dk.launch_counts()["half_sweep_flat"] > 0
     assert r["phi_max_rel_diff"] < 1e-11, r
     assert r["residual_max_rel_diff"] < 1e-8, r
+
+
+@pytest.mark.cuda
+def test_slab_kernels_equal_plain_versions_bitwise():
+    """The z_gates variants of the pair, apply, residual, prolongation
+    and double-float residual kernels against their plain versions
+    (chip_smoke.py's slab check matrix, small shapes): 0 ulp, pads of
+    gated-off faces as data and every other pad NaN."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    from octree_mg_tpu_torch.ops import df32 as df
+    rows = chip_smoke.slab_checks(dk, df, quick=True)
+    assert rows and all(r["max_ulp"] == 0 for r in rows), [
+        r for r in rows if r["max_ulp"]][:5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+def test_sharded_solver_on_card_matches_single_device(periodic):
+    """32^3 over 8 slabs on the card: float32, two FMGs, bitwise the
+    single-device solver's (Dirichlet; the periodic mean is summed slab
+    by slab, 1e-5 of max|phi|); float64, the card against the CPU to
+    1e-11 of max|phi|."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    rhs = torch.from_numpy(np.random.default_rng(3).normal(size=(32,) * 3))
+    sd, ss = chip_smoke.dense_pair(port, 32, 8, periodic=periodic)
+    st_d = chip_smoke.seeded_state(sd, rhs)
+    st_s = chip_smoke.seeded_state(ss, rhs)
+    hist_d = chip_smoke.run_fmgs(sd, st_d, 2)
+    hist_s = chip_smoke.run_fmgs(ss, st_s, 2)
+    cmp = chip_smoke.sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s,
+                                       "sharded 32^3")
+    assert cmp["bitwise"] or periodic
+    phis = {}
+    for dev in ("cuda", "cpu"):
+        _, sv = chip_smoke.dense_pair(port, 32, 8, periodic=periodic,
+                                      dtype=torch.float64, device=dev)
+        st = chip_smoke.seeded_state(sv, rhs)
+        chip_smoke.run_fmgs(sv, st, 2)
+        phis[dev] = sv.interior(st, sv.levels[-1], "phi").cpu().numpy()
+    np.testing.assert_allclose(phis["cuda"], phis["cpu"], rtol=0,
+                               atol=1e-11 * np.abs(phis["cpu"]).max())
