@@ -21,7 +21,13 @@ object per line:
   prolongation (add) for n_eps 0/1/3 on slabs of 4, 8 and 72 planes,
   every gate pair, periodic and physical z, the pads of a gated-off face
   random and every other pad NaN, with both gates on also against the
-  ungated kernels, and the double-float residual's slab variant; the double-float residual on the
+  ungated kernels, and the double-float residual's slab variant; the
+  double pair and the down-leg (n_pairs 1 and 2, the wide design of
+  csrc/stream_wide.cuh) on levels at that design's edges (ragged big
+  tiles and coarse tiles, Y below the tile, extents below the halo,
+  periodic double pairs, 16^3 and 8^3), and the float32 down-leg on a
+  520x520x264 level on faces, fully periodic and mixed, where it must
+  run the wide design; the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
@@ -117,7 +123,11 @@ object per line:
   for the double-float residual, the vcoeff solve for the variants),
   max_abs_err against the plain version, ms (median, CUDA events),
   plain_ms, bound_ms (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
-  whichever is larger), library_ms; then the forest's kernels at the
+  whichever is larger), library_ms (the double pair's and the
+  down-leg's rows name the wide design they run at 512^3 in ``design``;
+  the apply's row carries ``conv3d_core_ms``, a cuDNN 7-point
+  convolution of the zero-padded core as a yardstick: not the same
+  function at the faces); then the forest's kernels at the
   shapes the forest paths give them (the segment pair and residual on
   level 2's 512^3 canvas with its ghost layers, the corr_ready
   correction 256^3 -> 512^3, the half-sweep on the periodic forest's
@@ -732,6 +742,13 @@ def phase_checks(dk, df, quick):
     slab = slab_checks(dk, df, quick)
     worst = max([worst] + [r["max_ulp"] for r in slab])
     rows += slab
+    big = wide_checks(dk, WIDE_DOWN_SHAPES, (torch.float32,), ("downsweep",))
+    if not all(r["wide"] for r in big):
+        fail("the float32 down-leg did not take the wide design on "
+             f"{[r['dims'] for r in big if not r['wide']][:1]}")
+    wide = wide_checks(dk) + big
+    worst = max([worst] + [r["max_ulp"] for r in wide])
+    rows += wide
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
                       for r in rows)
@@ -746,10 +763,97 @@ def phase_checks(dk, df, quick):
                      "flat_max_ulp": max(r["max_ulp"] for r in flat),
                      "slab_cases": len(slab),
                      "slab_max_ulp": max(r["max_ulp"] for r in slab),
+                     "wide_cases": len(wide),
+                     "wide_cases_on_the_wide_design": sum(
+                         r["wide"] for r in wide),
+                     "wide_max_ulp": max(r["max_ulp"] for r in wide),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
         fail(f"{len(bad)} kernel cases differ from their plain version")
+
+
+#: levels on the edges of the wide design of the double pair and the
+#: down-leg (csrc/stream_wide.cuh; big tile 64x32 float32, 64x16 float64,
+#: where it gives two blocks per SM on the 132 SMs of an H100; smaller
+#: levels run stream_kernel.cuh): (dims, periodic)
+WIDE_EDGE_SHAPES = [
+    # big tile; X and Y not multiples of it; coarse extents odd, so the
+    # down-leg's coarse tiles are ragged too
+    ((212, 74, 170), (False, False, False)),
+    # big tile; a double pair on even periodic extents
+    ((136, 72, 256), (True, True, True)),
+    # big tile; Y smaller than the tile, periodic
+    ((520, 14, 304), (False, True, False)),
+    # extents smaller than the halo: wrapped, and on faces
+    ((6, 4, 8), (True, True, True)),
+    ((4, 6, 2), (False, False, False)),
+    # the 16^3 and 8^3 levels
+    ((16, 16, 16), (False, False, False)),
+    ((8, 8, 8), (False, False, False)),
+]
+#: a level on which the float32 down-leg takes the wide design (four
+#: blocks per SM with 64-plane chunks on an H100): X, Y and the coarse
+#: tiles ragged; on faces, fully periodic (every window wraps) and mixed
+WIDE_DOWN_SHAPES = [((520, 520, 264), (False, False, False)),
+                    ((520, 520, 264), (True, True, True)),
+                    ((520, 520, 264), (True, False, True))]
+#: the entry points whose constant-coefficient kernels are the wide design
+#: on large levels, and the counters of those launches (the main path's
+#: 512^3 level runs both)
+WIDE_KERNELS = ("pair_sweep_dense", "downsweep_dense")
+WIDE_COUNTERS = tuple(k + "[wide]" for k in WIDE_KERNELS)
+
+
+def wide_checks(dk, shapes=WIDE_EDGE_SHAPES,
+                dtypes=(torch.float32, torch.float64),
+                kernels=("pairs", "downsweep")):
+    """The double pair and the down-leg (n_pairs 1 and 2; ``kernels``)
+    against their plain versions on ``shapes``: each dtype, the four BC
+    kinds, NaN pads."""
+    rows, seed = [], 500
+    for dims, per in shapes:
+        for dtype in dtypes:
+            for bc_kind in ("dirichlet", "neumann", "continuous", "planes"):
+                lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+                seed += 1
+                cfg, field, planes = make_case(dk, dims, per, bc_kind, dtype,
+                                               seed)
+                phi, rhs = field(cfg), field(cfg)
+                cases = []
+                for k in (1, 2) if cfg.periodic_even else (1,):
+                    if "pairs" in kernels:
+                        cases.append((
+                            f"pairs{k}[wide]",
+                            lambda k=k: (dk.pair_sweep_dense(
+                                cfg, phi, rhs, lam, planes, 0, n_pairs=k),),
+                            lambda k=k: (dk._pairs_plain(
+                                cfg, phi, rhs, lam, planes, 0, k),)))
+                    if cfg.even_dims and "downsweep" in kernels:
+                        cases.append((
+                            f"downsweep{k}[wide]",
+                            lambda k=k: dk.downsweep_dense(
+                                cfg, phi, rhs, lam, planes, 0, n_pairs=k),
+                            lambda k=k: dk._down_plain(
+                                cfg, phi, rhs, lam, planes, 0, k)))
+                for name, kern, plain in cases:
+                    before = dk.launch_counts()
+                    got = kern()
+                    after = dk.launch_counts()
+                    want = plain()
+                    torch.cuda.synchronize()
+                    us = [ulp_diff(a[dk._ISL], b[dk._ISL])
+                          for a, b in zip(got, want)]
+                    u = max(us) if min(us) >= 0 else 1 << 62
+                    wide = any(after[k] > before[k] for k in after
+                               if k.endswith("[wide]"))
+                    rows.append({"kernel": name, "dims": dims,
+                                 "periodic": per, "dtype": str(dtype)[6:],
+                                 "bc": bc_kind, "lam": lam, "max_ulp": u,
+                                 "wide": wide})
+                del phi, rhs, cases
+    torch.cuda.empty_cache()
+    return rows
 
 
 def flat_cases():
@@ -990,6 +1094,23 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
                  ce, phi, rhs, lam, planes, eps=eps),
              lambda ce=ce, eps=eps: dk._down_plain(
                  ce, phi, rhs, lam, planes, 0, 0, eps)[1:], None)]
+    # a yardstick beside the apply kernel: the 7-point stencil as one
+    # cuDNN convolution of the level's core, zero-padded (full float32:
+    # no TF32).  Not the same function: it sums in another order and
+    # reads zeros where the kernel synthesizes the BC ghosts.
+    wt = torch.zeros((1, 1, 3, 3, 3), dtype=dtype, device="cuda")
+    i2 = [cfg.rnd(v) for v in cfg.idr2]
+    wt[0, 0, 1, 1, 1] = -lam - 2.0 * sum(i2)
+    for (a, b, c), v in (((1, 1, 0), i2[0]), ((1, 1, 2), i2[0]),
+                         ((1, 0, 1), i2[1]), ((1, 2, 1), i2[1]),
+                         ((0, 1, 1), i2[2]), ((2, 1, 1), i2[2])):
+        wt[0, 0, a, b, c] = v
+    core = phi[isl].contiguous()[None, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    conv3d_ms = time_ms(lambda: F.conv3d(core, wt, padding=1), 10)
+    torch.backends.cudnn.allow_tf32 = tf32
+    del core
     rows = []
     for name, kern, plain, lib in cases:
         if name == "prolong_correct_dense":
@@ -1034,6 +1155,11 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
             "bound_by": "bytes" if t_b >= t_f else "operations",
             "library_ms": lib_ms, "shape": [n, n, n], "dtype": "float32",
             "bound_ms_at_measured_copy_rate": 1e3 * nbytes / copy_bps,
+            **({"design": "octree_mg_tpu_torch/csrc/stream_wide.cuh",
+                "launches_on_the_wide_design": path[name + "[wide]"]}
+               if name in WIDE_KERNELS else {}),
+            **({"conv3d_core_ms": conv3d_ms}
+               if name == "stencil_apply_dense" else {}),
         })
         if err != 0.0:
             fail(f"{name}: differs from its plain version at 512^3 "
@@ -1078,7 +1204,7 @@ def phase_main_path(pkg, dk):
     if tuple(phi.shape) != (n, n, n) or not bool(torch.isfinite(phi).all()):
         fail("main path: phi has a wrong shape or non-finite values")
     check_fmg_history(hist, "main path")
-    missing = [k for k in FMG_KERNELS if launches[k] == 0]
+    missing = [k for k in FMG_KERNELS + WIDE_COUNTERS if launches[k] == 0]
     if missing:
         fail(f"main path launched no kernel for {missing}")
 

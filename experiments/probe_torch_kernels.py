@@ -1,15 +1,35 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [sass] [tiles] [df32_blocks] [chunk]
 
-Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu`` with other build-time
-constants (``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``,
-``-DOMG_MIN_BLOCKS_PER_SM``) into ``build/probe`` and prints, one JSON
-object per line:
+Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
+with other build-time constants (``-DOMG_WIDE``, ``-DOMG_TILE_X/Y``,
+``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``) into ``build/probe`` and
+prints, one JSON object per line:
 
+* ``wide``   — the double pair and the down-leg (n_pairs 2) as shipped
+  (the wide design of csrc/stream_wide.cuh where it takes the level)
+  against the design before it (``-DOMG_WIDE=0``, stream_kernel.cuh
+  alone), at every level from 512^3 to 16^3 in float32 and at 512^3 and
+  256^3 in float64, in turns (old, new, new, old), median of 10 per
+  turn, CUDA events, beside the byte bound at 3.35 TB/s; then old
+  against new at 512^3, bitwise, for n_pairs 1 and 2 of both kernels in
+  both dtypes (``wide_bitwise``), and the resources ptxas reports for
+  both designs' instantiations (``wide_ptxas``);
+* ``wide_fmg`` — the main path's have-guess FMG (512^3 float32, zero
+  Dirichlet faces, seeded rhs) with both kernels of the old design
+  (``old``), the wide double pair and the old down-leg (``pair``), and
+  both wide (``new``), in turns (old, pair, new, new, pair, old), 10
+  FMGs a turn: the device time (CUDA events) of the whole FMG and of its
+  512^3 V-cycle stage, median per turn;
+* ``sass``   — static SASS instructions of the double pair's and the
+  down-leg's main loop (the longest backward branch), old and new, and
+  per cell a thread updates in one step of that loop (old: one per
+  half-sweep; new: R per half-sweep);
 * ``tiles``  — double pair and downsweep at 512^3 float32 for a list of
-  (tile x, tile y, chunk z) shapes, median of 8, CUDA events;
+  (tile x, tile y, chunk z) shapes of the old design, median of 8, CUDA
+  events;
 * ``df32_blocks`` — the double-float residual kernel
   (``residual_df32.cu``) at 512^3 for a list of thread-block shapes
   (``-DOMG_DF32_BX/BY/BZ``), median of 8, CUDA events, the shipped shape
@@ -23,6 +43,7 @@ Needs a CUDA device and nvcc; the shipped kernels are not changed.
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,19 +65,23 @@ SHAPES = [(32, 16, 64), (32, 8, 64), (32, 16, 128), (32, 16, 32), (64, 8, 64),
           (64, 16, 64), (32, 32, 64), (16, 16, 64), (32, 12, 64)]
 
 
-def build(tag, flags, syms=SYMS):
+def build(tag, flags, syms=SYMS, log=None):
     """The sources of ``syms`` with extra flags; returns {symbol: ctypes
-    function}."""
+    function}.  log: a list that receives the compilers' output."""
     os.makedirs(OUT, exist_ok=True)
     procs = []
     for name in syms:
         so = os.path.join(OUT, f"{name}_{tag}.so")
         procs.append(subprocess.Popen(
             [cb._nvcc(), *cb.NVCC_FLAGS, *flags, "-I", CSRC, "-o", so,
-             os.path.join(CSRC, name + ".cu")]))
+             os.path.join(CSRC, name + ".cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     for p in procs:
-        if p.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {tag}")
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{text}")
+        if log is not None:
+            log.append(text)
     fns = {}
     for name, sym in syms.items():
         f = getattr(ctypes.CDLL(os.path.join(OUT, f"{name}_{tag}.so")), sym)
@@ -94,21 +119,21 @@ def probe_tiles():
     P = dk._params(cfg, 0.0, [None] * 6, 0, 4)
     rows = []
     for tx, ty, cz in SHAPES:
-        fns = build(f"{tx}_{ty}_{cz}", [f"-DOMG_TILE_X={tx}",
+        fns = build(f"{tx}_{ty}_{cz}", ["-DOMG_WIDE=0", f"-DOMG_TILE_X={tx}",
                                         f"-DOMG_TILE_Y={ty}",
                                         f"-DOMG_CHUNK_Z={cz}"])
 
         def pair():
             e = fns["omg_stencil_sweep"](0, 0, ctypes.byref(P), None,
                                          phi.data_ptr(), rhs.data_ptr(),
-                                         out.data_ptr(), st)
+                                         out.data_ptr(), st, None)
             assert e == 0, e
 
         def down():
             e = fns["omg_downsweep"](0, 1, ctypes.byref(P), None,
                                      phi.data_ptr(),
                                      rhs.data_ptr(), out.data_ptr(),
-                                     pc.data_ptr(), rc.data_ptr(), st)
+                                     pc.data_ptr(), rc.data_ptr(), st, None)
             assert e == 0, e
 
         rows.append({"tile": [tx, ty, cz], "pair2_ms": time_ms(pair),
@@ -182,6 +207,302 @@ def probe_chunk():
     dk._fns.update(chosen)
     print(json.dumps({"chunk": rows}), flush=True)
 
+def build_many(variants, syms=SYMS):
+    """build() of several variants side by side: {tag: flags} ->
+    ({tag: {symbol: function}}, {tag: compiler output})."""
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for tag, flags in variants.items():
+        for name in syms:
+            so = os.path.join(OUT, f"{name}_{tag}.so")
+            procs[(tag, name)] = subprocess.Popen(
+                [cb._nvcc(), *cb.NVCC_FLAGS, *flags, "-I", CSRC, "-o", so,
+                 os.path.join(CSRC, name + ".cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+    logs = {tag: "" for tag in variants}
+    for (tag, name), p in procs.items():
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}/{name}:\n{text}")
+        logs[tag] += text
+    fns = {}
+    for tag in variants:
+        fns[tag] = {}
+        for name, sym in syms.items():
+            f = getattr(ctypes.CDLL(os.path.join(OUT, f"{name}_{tag}.so")),
+                        sym)
+            f.argtypes, f.restype = dk._ARGTYPES[sym], ctypes.c_int
+            fns[tag][sym] = f
+    return fns, logs
+
+
+#: the wide design as shipped against the design before it (OMG_WIDE=0)
+WIDE_VARIANTS = {"old": ["-DOMG_WIDE=0"], "new": []}
+#: rows a thread of the wide design owns (WIDE_ROWS of stream_wide.cuh)
+WIDE_ROWS = 2
+#: the builds of WIDE_VARIANTS, once made
+_WIDE_FNS = {}
+
+
+def wide_geo(ns, down, tx, ty, rows, item):
+    """Threads, window and ring bytes of a wide instantiation (the
+    constexpr geometry of csrc/stream_wide.cuh)."""
+    h = ns + (1 if down else 0)
+    hx = (h + 1) & ~1
+    while (tx // 2 + hx) % rows:
+        hx += 2
+    cx = tx // 2 + hx
+    ws = 2 * cx
+    while (rows * ws - cx) % 32:
+        ws += 1
+    wy = ty + 2 * ((h + 1) & ~1)
+    nb = 2 * ns + (4 if down else 2)
+    return {"tile": [tx, ty], "rows": rows, "threads": cx * (wy // rows),
+            "window": [2 * cx, wy],
+            "smem_bytes": item * (nb * ws * wy + 2 * (ws + 2))}
+
+
+def old_geo(ns, down, item):
+    """The same for stream_kernel.cuh's 32x16 tile."""
+    h = ns + (1 if down else 0)
+    wx, wy = 32 + 2 * h, 16 + 2 * h
+    nb = 2 * ns + (4 if down else 2)
+    return {"tile": [32, 16], "threads": wx // 2 * wy, "window": [wx, wy],
+            "smem_bytes": item * (2 * nb * wx * wy +
+                                  (2 * 32 * 16 if down else 0))}
+
+
+def level_fields(n, dtype):
+    cfg = dk.DenseStencilConfig((n,) * 3, (float(n * n),) * 3,
+                                [(2.0, -1.0, 0.0)] * 6, (False,) * 3,
+                                dtype, b_const=[0.0] * 6)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    f = {k: torch.randn(cfg.pshape, generator=g, dtype=dtype, device="cuda")
+         for k in ("phi", "rhs")}
+    f["out"] = torch.empty_like(f["phi"])
+    f["pc"] = torch.empty(dk.padded_shape((n // 2,) * 3), dtype=dtype,
+                          device="cuda")
+    f["rc"] = torch.empty_like(f["pc"])
+    return cfg, f
+
+
+def wide_calls(fns, cfg, f, n_pairs):
+    """(pair, down) launches of one build on the fields f."""
+    st = torch.cuda.current_stream().cuda_stream
+    P = dk._params(cfg, 0.0, [None] * 6, 0, 2 * n_pairs)
+    dt = dk._dt(cfg)
+
+    def pair():
+        e = fns["omg_stencil_sweep"](dt, 0, ctypes.byref(P), None,
+                                     f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                                     f["out"].data_ptr(), st, None)
+        assert e == 0, e
+
+    def down():
+        e = fns["omg_downsweep"](dt, 1, ctypes.byref(P), None,
+                                 f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                                 f["out"].data_ptr(), f["pc"].data_ptr(),
+                                 f["rc"].data_ptr(), st, None)
+        assert e == 0, e
+
+    return pair, down
+
+
+def ptxas_resources(log, pick):
+    """{demangled kernel: registers, stack, spills} of the kernels whose
+    demangled name ``pick`` accepts, from ``-Xptxas -v`` output."""
+    rows, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            rows[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rows[name].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[name]["registers"] = int(m.group(1))
+    names = list(rows)
+    dem = subprocess.run([os.path.join(os.path.dirname(cb._nvcc()),
+                                       "cu++filt")],
+                         input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return {d: rows[k] for k, d in zip(names, dem) if pick(d)}
+
+
+def probe_wide():
+    fns, logs = build_many({k: v + ["-Xptxas", "-v"]
+                            for k, v in WIDE_VARIANTS.items()})
+    _WIDE_FNS.update(fns)
+    names = list(WIDE_VARIANTS)
+    rows = []
+    for dtype, levels, tags in (
+            (torch.float32, (512, 256, 128, 64, 32, 16), names),
+            (torch.float64, (512, 256), names)):
+        item = 4 if dtype == torch.float32 else 8
+        for n in levels:
+            cfg, f = level_fields(n, dtype)
+            calls = {t: wide_calls(fns[t], cfg, f, 2) for t in tags}
+            nb = {"pair": 3 * n ** 3 * item,
+                  "down": (3 * n ** 3 + 2 * (n // 2) ** 3) * item}
+            for k, kern in enumerate(("pair", "down")):
+                ms = {t: [] for t in tags}
+                for t in tags + tags[::-1]:
+                    ms[t].append(time_ms(calls[t][k], reps=10))
+                rows.append({"n": n, "dtype": str(dtype)[6:], "kernel": kern,
+                             "n_pairs": 2, "ms": ms,
+                             "bound_ms": 1e3 * nb[kern] / 3.35e12})
+                print(json.dumps({"wide": rows[-1]}), flush=True)
+            del f
+            torch.cuda.empty_cache()
+    # old against new, bitwise, at 512^3
+    checks = []
+    for dtype in (torch.float32, torch.float64):
+        cfg, f = level_fields(512, dtype)
+        for n_pairs in (1, 2):
+            for k, kern in enumerate(("pair", "down")):
+                got = {}
+                for t in ("old", "new"):
+                    for key in ("out", "pc", "rc"):
+                        f[key].fill_(float("nan"))
+                    wide_calls(fns[t], cfg, f, n_pairs)[k]()
+                    keys = ("out",) if kern == "pair" else ("out", "pc", "rc")
+                    got[t] = [f[key][dk._ISL].clone() for key in keys]
+                torch.cuda.synchronize()
+                checks.append({"dtype": str(dtype)[6:], "kernel": kern,
+                               "n_pairs": n_pairs, "bitwise": all(
+                                   torch.equal(a, b) for a, b in
+                                   zip(got["old"], got["new"]))})
+                del got
+        del f
+        torch.cuda.empty_cache()
+    print(json.dumps({"wide_bitwise": checks}), flush=True)
+    old = ptxas_resources(logs["old"], lambda d: re.match(
+        r"void stream_kernel<(float|double), (\(int\))?[24], (\(int\))?[03], "
+        r"(\(int\))?0, (\(int\))?0, (\(int\))?0>", d))
+    new = ptxas_resources(logs["new"], lambda d: "wide_kernel" in d)
+    geo = {}
+    for ns in (2, 4):
+        for down in (False, True):
+            for item, ty in ((4, 32), (8, 16)):
+                key = f"ns{ns}_{'down' if down else 'pair'}_{item * 8}"
+                geo[key] = {"old": old_geo(ns, down, item),
+                            "new": wide_geo(ns, down, 64, ty, WIDE_ROWS,
+                                            item)}
+    print(json.dumps({"wide_ptxas": {"old": old, "new": new,
+                                     "geometry": geo}}), flush=True)
+
+
+def probe_wide_fmg():
+    import chip_smoke
+    if not _WIDE_FNS:
+        _WIDE_FNS.update(build_many(WIDE_VARIANTS)[0])
+    fns = _WIDE_FNS
+    designs = {"old": (fns["old"], fns["old"]),
+               "pair": (fns["new"], fns["old"]),
+               "new": (fns["new"], fns["new"])}
+    n = 512
+    ps = pkg.PoissonSolver(3, (n,) * 3, 16, dtype=torch.float32)
+    ps.set_dirichlet(0.0)
+    sv = ps.solver
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ps.set_rhs(arrays={sv.levels[-1]: torch.randn((n,) * 3, generator=g,
+                                                  device="cuda")})
+    ps.solve(rtol=0.0, atol=0.0, max_cycles=3)
+    chosen = {s: dk._fns[s] for s in SYMS.values()}
+
+    def fmg():
+        sv.fas_fmg(ps.state, have_guess=True, need_res=False)
+
+    rows = {d: {"fmg_ms": [], "vcycle_512_ms": []} for d in designs}
+    for d in ("old", "pair", "new", "new", "pair", "old"):
+        pair_fns, down_fns = designs[d]
+        dk._fns["omg_stencil_sweep"] = pair_fns["omg_stencil_sweep"]
+        dk._fns["omg_downsweep"] = down_fns["omg_downsweep"]
+        fmg()
+        rows[d]["fmg_ms"].append(statistics.median(
+            chip_smoke.event_ms(fmg) for _ in range(10)))
+        rows[d]["vcycle_512_ms"].append(statistics.median(
+            [m["device_ms"] for m in chip_smoke.fmg_stage_marks(sv, ps.state)
+             if m["stage"] == "vcycle_to" and m["dims"] == [n] * 3][0]
+            for _ in range(10)))
+    dk._fns.update(chosen)
+    print(json.dumps({"wide_fmg": rows}), flush=True)
+
+
+_BRA = re.compile(r"\bBRA\b[^;]*?0x([0-9a-f]+)")
+
+
+def sass_loops(flags):
+    """{demangled kernel: (instructions, main-loop instructions)} of
+    stencil_sweep.cu and downsweep.cu built with flags."""
+    out = {}
+    work = os.path.join(OUT, "sass")
+    os.makedirs(work, exist_ok=True)
+    tool = os.path.dirname(cb._nvcc())
+    for name in SYMS:
+        cubin = os.path.join(work, f"{name}{'_'.join(flags)}.cubin")
+        subprocess.run([cb._nvcc(), *[f for f in cb.NVCC_FLAGS if f not in (
+            "-shared", "-Xcompiler", "-fPIC")], *flags, "-cubin", "-I", CSRC,
+            "-o", cubin, os.path.join(CSRC, name + ".cu")], check=True)
+        sass = subprocess.run([os.path.join(tool, "cuobjdump"), "-sass",
+                               cubin], capture_output=True, text=True,
+                              check=True).stdout
+        fn, ins = None, {}
+        for line in sass.splitlines():
+            t = line.strip()
+            if t.startswith("Function :"):
+                fn = t.split(":", 1)[1].strip()
+                ins[fn] = []
+                continue
+            m = re.match(r"/\*([0-9a-f]{4,})\*/\s+(.*)", t)
+            if fn and m:
+                ins[fn].append((int(m.group(1), 16), m.group(2)))
+        dem = subprocess.run([os.path.join(tool, "cu++filt")],
+                             input="\n".join(ins), capture_output=True,
+                             text=True).stdout.splitlines()
+        for k, d in zip(ins, dem):
+            best = (0, 0)
+            for addr, text in ins[k]:
+                m = _BRA.search(text)
+                if m and int(m.group(1), 16) < addr:
+                    best = max(best, (addr - int(m.group(1), 16), addr))
+            span, end = best
+            n_loop = sum(1 for a, _ in ins[k] if end - span <= a <= end)
+            out[d] = (len(ins[k]), n_loop)
+    return out
+
+
+def probe_sass():
+    old = sass_loops(["-DOMG_WIDE=0"])
+    new = sass_loops([])
+    rows = []
+    for d, (n_all, n_loop) in sorted(old.items()):
+        m = re.match(r"void stream_kernel<float, (?:\(int\))?([24]), "
+                     r"(?:\(int\))?([03]), (?:\(int\))?0, (?:\(int\))?0, "
+                     r"(?:\(int\))?0>", d)
+        if m:
+            ns = int(m.group(1))
+            rows.append({"kernel": d, "design": "old", "instructions": n_all,
+                         "loop": n_loop, "updates_per_thread_step": ns,
+                         "loop_per_update": n_loop / ns})
+    for d, (n_all, n_loop) in sorted(new.items()):
+        m = re.match(r"void wide_kernel<float, (?:\(int\))?([24]), "
+                     r"(?:\(int\))?([03])>", d)
+        if m:
+            ns, r = int(m.group(1)), WIDE_ROWS
+            rows.append({"kernel": d, "design": "new", "instructions": n_all,
+                         "loop": n_loop, "updates_per_thread_step": ns * r,
+                         "loop_per_update": n_loop / (ns * r)})
+    print(json.dumps({"sass": rows}), flush=True)
+
 
 if __name__ == "__main__":
     if not torch.cuda.is_available():
@@ -191,7 +512,9 @@ if __name__ == "__main__":
                          text=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)
     only = sys.argv[1:]
-    for name, probe in (("tiles", probe_tiles),
+    for name, probe in (("wide", probe_wide), ("wide_fmg", probe_wide_fmg),
+                        ("sass", probe_sass),
+                        ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),
                         ("chunk", probe_chunk)):
         if not only or name in only:

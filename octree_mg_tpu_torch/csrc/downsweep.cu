@@ -22,16 +22,42 @@
 // per field, and neither the float64 NE = 1 nor the float32 NE = 3 ring
 // would fit a block's 227 KB.  The residual stage uses the apply form
 // out + c*(nbr - p) per side.
-#include "stream_kernel.cuh"
+//
+// On float32 levels of 512^3 the constant-coefficient down-leg runs the
+// wide design of stream_wide.cuh instead (a phi-only ring with the plane
+// copied in by cp.async, the restriction from registers): 3.12 against
+// 3.43 ms on an H100 (PERF.md); at 256^3 and in float64 it was no
+// faster, and this kernel stays.
+#include "stream_wide.cuh"
+
+// n_sweeps = 2 or 4 half-sweeps, then the residual and the restrictions:
+// constant coefficients in float32 with the fine output on the wide
+// design (stream_wide.cuh, *wide = 1) where it takes the level, the rest
+// on stream_kernel.cuh
+template <typename T, int NS, int NE>
+static int launch_down(const LevelParams& P, const EpsParams& E,
+                       int fine_out, const void* phi, const void* rhs,
+                       void* phi_out, void* phic_out, void* iresc_out,
+                       cudaStream_t s, int* wide) {
+#if OMG_WIDE
+  if constexpr (NE == 0 && sizeof(T) == 4)
+    if (fine_out && wide_takes<T, M_DOWN>(P)) {
+      *wide = 1;
+      return launch_wide<T, NS, M_DOWN>(P, phi, rhs, phi_out, phic_out, iresc_out, s);
+    }
+#endif
+  return launch_stream<T, NS, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+}
 
 template <typename T, int NE>
 static int dispatch(const LevelParams& P, const EpsParams& E, int fine_out,
                     const void* phi, const void* rhs, void* phi_out,
-                    void* phic_out, void* iresc_out, cudaStream_t s) {
+                    void* phic_out, void* iresc_out, cudaStream_t s,
+                    int* wide) {
   switch (P.n_sweeps) {
     case 0: return launch_stream<T, 0, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 2: return launch_stream<T, 2, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 4: return launch_stream<T, 4, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 2: return launch_down<T, 2, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
+    case 4: return launch_down<T, 4, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -40,26 +66,31 @@ template <typename T>
 static int dispatch_eps(const LevelParams& P, const EpsParams& E,
                         int fine_out, const void* phi, const void* rhs,
                         void* phi_out, void* phic_out, void* iresc_out,
-                        cudaStream_t s) {
+                        cudaStream_t s, int* wide) {
   switch (E.n) {
-    case 0: return dispatch<T, 0>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 1: return dispatch<T, 1>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 3: return dispatch<T, 3>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+    case 0: return dispatch<T, 0>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
+    case 1: return dispatch<T, 1>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
+    case 3: return dispatch<T, 3>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = float64.  P->n_sweeps = 2*n_pairs (0, 2 or 4);
 // E: E->n coefficient fields (0, 1 or 3) in E->f, or null for none.  All
-// of X, Y, Z must be even.  Returns the cudaError_t of the launch.
+// of X, Y, Z must be even.  wide, unless null, receives 1 where the
+// launch ran the wide design (stream_wide.cuh), else 0.  Returns the
+// cudaError_t of the launch.
 extern "C" int omg_downsweep(int dtype, int fine_out, const LevelParams* P,
                              const EpsParams* E, const void* phi,
                              const void* rhs, void* phi_out, void* phic_out,
-                             void* iresc_out, void* stream) {
+                             void* iresc_out, void* stream, int* wide) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((P->X | P->Y | P->Z) & 1) return (int)cudaErrorInvalidValue;
   const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
-  return dtype == 0
-      ? dispatch_eps<float>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s)
-      : dispatch_eps<double>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
+  int w = 0;
+  const int err = dtype == 0
+      ? dispatch_eps<float>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, &w)
+      : dispatch_eps<double>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, &w);
+  if (wide) *wide = w;
+  return err;
 }

@@ -18,7 +18,11 @@
 // 290 instructions per thread and step only 80 are the four updates
 // (seven shared-memory reads, eleven flops, one write each); the rest is
 // index, slot and predicate arithmetic that more cells per thread would
-// share.
+// share.  So on levels of 256^3 and up the constant-coefficient double
+// pair runs the wide design of stream_wide.cuh instead (two rows of a
+// pair per thread, a phi-only ring, a 64x32 tile): 1.75 against 2.24 ms
+// at 512^3 float32 on an H100 (PERF.md, experiments/probe_torch_kernels.py
+// wide); smaller levels keep this kernel, which is faster there.
 //
 // half_sweep_dense (n_sweeps 1, constant coefficients) replaces the Pallas
 // entry point of that name: ONE half-sweep updating the cells of parity
@@ -46,12 +50,29 @@
 // Bound: bytes, as the unsharded kernel, plus the halo planes read.
 // half_sweep_dense with z_gates has no caller in the JAX package and is
 // not instantiated.
-#include "stream_kernel.cuh"
+#include "stream_wide.cuh"
+
+// n_sweeps half-sweeps of one or two pairs: constant coefficients on the
+// wide design (stream_wide.cuh, *wide = 1) where it takes the level, the
+// rest on stream_kernel.cuh
+template <typename T, int NS, int NE>
+static int launch_pairs(const LevelParams& P, const EpsParams& E,
+                        const void* phi, const void* rhs, void* out,
+                        cudaStream_t s, int* wide) {
+#if OMG_WIDE
+  if constexpr (NE == 0)
+    if (wide_takes<T, M_PAIRS>(P)) {
+      *wide = 1;
+      return launch_wide<T, NS, M_PAIRS>(P, phi, rhs, out, nullptr, nullptr, s);
+    }
+#endif
+  return launch_stream<T, NS, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+}
 
 template <typename T, int NE>
 static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
                     const void* phi, const void* rhs, void* out,
-                    cudaStream_t s) {
+                    cudaStream_t s, int* wide) {
   if (mode == M_APPLY)
     return launch_stream<T, 0, M_APPLY, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (mode == M_RESIDUAL)
@@ -63,35 +84,40 @@ static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
       return launch_stream<T, 1, M_PAIRS, 0>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (P.n_sweeps == 2)
-    return launch_stream<T, 2, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
-  if (P.n_sweeps == 4)
-    return launch_stream<T, 4, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+  if (P.n_sweeps == 2) return launch_pairs<T, 2, NE>(P, E, phi, rhs, out, s, wide);
+  if (P.n_sweeps == 4) return launch_pairs<T, 4, NE>(P, E, phi, rhs, out, s, wide);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 static int dispatch_eps(int mode, const LevelParams& P, const EpsParams& E,
                         const void* phi, const void* rhs, void* out,
-                        cudaStream_t s) {
+                        cudaStream_t s, int* wide) {
   switch (E.n) {
-    case 0: return dispatch<T, 0>(mode, P, E, phi, rhs, out, s);
-    case 1: return dispatch<T, 1>(mode, P, E, phi, rhs, out, s);
-    case 3: return dispatch<T, 3>(mode, P, E, phi, rhs, out, s);
+    case 0: return dispatch<T, 0>(mode, P, E, phi, rhs, out, s, wide);
+    case 1: return dispatch<T, 1>(mode, P, E, phi, rhs, out, s, wide);
+    case 3: return dispatch<T, 3>(mode, P, E, phi, rhs, out, s, wide);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = float64; mode: 0 = n_sweeps half-sweeps (1, 2
 // or 4; 1 only with E->n 0), 1 = A(phi), 2 = rhs - A(phi); E: E->n coefficient fields (0, 1 or
-// 3) in E->f, or null for none.  Returns the cudaError_t of the launch.
+// 3) in E->f, or null for none.  wide, unless null, receives 1 where the
+// launch ran the wide design (stream_wide.cuh), else 0.  Returns the
+// cudaError_t of the launch.
 extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
                                  const EpsParams* E, const void* phi,
-                                 const void* rhs, void* out, void* stream) {
+                                 const void* rhs, void* out, void* stream,
+                                 int* wide) {
   cudaStream_t s = (cudaStream_t)stream;
   const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
-  return dtype == 0 ? dispatch_eps<float>(mode, *P, e, phi, rhs, out, s)
-                    : dispatch_eps<double>(mode, *P, e, phi, rhs, out, s);
+  int w = 0;
+  const int err = dtype == 0
+      ? dispatch_eps<float>(mode, *P, e, phi, rhs, out, s, &w)
+      : dispatch_eps<double>(mode, *P, e, phi, rhs, out, s, &w);
+  if (wide) *wide = w;
+  return err;
 }
 
 template <typename T, int NE>

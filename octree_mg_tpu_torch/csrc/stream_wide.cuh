@@ -1,0 +1,537 @@
+// The wide z-streaming kernel: the double pair (pair_sweep_dense, n_pairs
+// 1 or 2) of K1 (stencil_sweep.cu) and the fused down-leg
+// (downsweep_dense) of K2 (downsweep.cu), constant coefficients, no
+// segments, no slabs, on large levels (wide_takes, at the end).  Every
+// other launch of the two sources runs stream_kernel.cuh.
+//
+// Replaces, with stream_kernel.cuh, the Pallas entry points
+// pair_sweep_dense and downsweep_dense of the JAX package's
+// ops/dense_kernels.py.  Bound: bytes (12 and 13 B per cell in float32).
+//
+// The march is stream_kernel.cuh's: a block owns a tile of (x, y) with a
+// halo and walks a chunk of z planes through a ring in shared memory; in
+// step t it loads plane t+1 and applies half-sweep s to plane t-1-2s for
+// every s at once, with one barrier per step.  What differs is the
+// movement of data and the assignment of work:
+//
+// * One thread owns a column of R rows of one x pair (2R cells; R = 2),
+//   so the per-half-sweep set-up is shared by R updates, and the y
+//   neighbours of a row's updated cell are the other colour's cells of
+//   the rows above and below, loaded once for the column.
+// * The colour of a half-sweep is a template argument of the step (it
+//   alternates with t; every column starts on an even x and y), so every
+//   ring offset and face test folds to a constant.
+// * The ring holds phi only, so the tile is 64x32 (float32; 64x16 in
+//   float64) where stream_kernel.cuh's is 32x16: the block loads 1.41
+//   (double pair) and 1.63 (down-leg) cells per tile cell, not 1.88 and
+//   2.13.  rhs is read at the thread's own cells from device memory, one
+//   step ahead into registers (the double pair), or after stage C into
+//   the registers stage B has done with (the down-leg, whose registers
+//   are scarce).
+// * Planes are stored colour-split: a row holds its even-x cells, then
+//   its odd-x cells, with a row stride chosen so that the 32 threads of a
+//   warp hit 32 banks in every access (R * WS == CX mod 32).
+// * A cell sums its neighbours from the ring as they are; only a cell on
+//   a non-periodic face (known per thread for x and y, per plane for z)
+//   then runs stream_kernel.cuh's BC synthesis, behind one branch per
+//   half-sweep that a column with no face cell skips.
+// * Plane t+1 is fetched as one 8- or 16-byte load per row pair where
+//   the window lies inside the level (the double pair), or copied into
+//   its slot with cp.async (the down-leg).
+// * The down-leg restricts the plane pair (r-1, r) from its own cells'
+//   phi and residual, held in registers: no residual buffer in shared
+//   memory and no second barrier.
+//
+// Arithmetic per cell is that of the plain PyTorch versions, operation by
+// operation; a sum of two neighbours may be formed in the other order
+// (IEEE addition commutes), so the kernels stay bitwise.
+#pragma once
+#include <cstdint>
+#include <type_traits>
+#include "stream_kernel.cuh"
+
+// OMG_WIDE 0 builds the double pair and the down-leg from stream_kernel.cuh
+// alone (the design before this one), for experiments/probe_torch_kernels.py
+// wide to time the two against each other.
+#ifndef OMG_WIDE
+#define OMG_WIDE 1
+#endif
+
+// The tile (x; y 32, or 16 for the float64 double pair, whose ring is
+// twice as wide), the rows per thread and the longest z chunk: the values
+// measured fastest (PERF.md keeps the trials of the others).
+constexpr int WIDE_TX = 64, WIDE_ROWS = 2, WIDE_CHUNK_Z = 64;
+template <typename T>
+constexpr int wide_ty() { return sizeof(T) == 8 ? 16 : 32; }
+
+constexpr int wide_even_up(int v) { return (v + 1) & ~1; }
+
+// x halo: at least h, even, and such that the pair columns of a row are a
+// multiple of the rows per thread (needed for the bank-free stride)
+constexpr int wide_halo_x(int h, int tx, int rows) {
+  int hx = wide_even_up(h);
+  while ((tx / 2 + hx) % rows != 0) hx += 2;
+  return hx;
+}
+
+// row stride >= 2*cx with rows * stride == cx (mod 32): thread k of a
+// block then sits at bank k (mod 32) in every access
+constexpr int wide_stride(int cx, int rows) {
+  int w = 2 * cx;
+  while ((rows * w - cx) % 32 != 0) ++w;
+  return w;
+}
+
+template <typename T, int NS, int MODE>
+struct WideGeo {
+  static constexpr bool DOWN = MODE == M_DOWN;
+  static constexpr int H = NS + (DOWN ? 1 : 0);  // halo the sweeps need
+  static constexpr int R = WIDE_ROWS;            // rows per thread
+  static constexpr int TX = WIDE_TX, TY = wide_ty<T>();
+  static constexpr int HX = wide_halo_x(H, TX, R), HY = wide_even_up(H);
+  static constexpr int CX = TX / 2 + HX;         // pair columns of a row
+  static constexpr int WS = wide_stride(CX, R);  // row stride in the ring
+  static constexpr int WY = TY + 2 * HY;
+  static constexpr int NT = CX * (WY / R);       // threads
+  static constexpr int PL = WS * WY;             // a plane of the ring
+  static constexpr int NB = 2 * NS + (DOWN ? 4 : 2);
+  static constexpr int GUARD = WS + 2;           // before and after the ring
+  static_assert(MODE == M_PAIRS || MODE == M_DOWN, "pairs or down-leg");
+  static_assert(NS == 2 || NS == 4, "one or two pairs");
+  static_assert(!DOWN || sizeof(T) == 4, "the down-leg is wide in float32");
+  static_assert(R % 2 == 0 && 32 % R == 0, "rows per thread: 2, 4, 8 ...");
+  static_assert(TX % 8 == 0 && TY % R == 0 && WY % R == 0 && TY >= HY,
+                "tile shape");
+  static_assert(NT <= 1024, "threads per block");
+  static constexpr size_t smem_bytes() {
+    return sizeof(T) * ((size_t)NB * PL + 2 * GUARD);
+  }
+  static_assert(smem_bytes() <= 232448, "the ring must fit a block's "
+                "227 KB of shared memory");
+};
+
+template <typename T> struct WidePair;
+template <> struct WidePair<float> { using type = float2; };
+template <> struct WidePair<double> { using type = double2; };
+
+// cp.async of one cell into shared memory; zero-filled when !ok
+template <int B>
+__device__ __forceinline__ void wide_cp_async(void* dst, const void* src,
+                                              bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(B), "r"(ok ? B : 0)
+               : "memory");
+}
+
+template <typename T, int NS, int MODE>
+__global__ void __launch_bounds__(WideGeo<T, NS, MODE>::NT)
+wide_kernel(LevelParams P, int cz, int vec,
+            const T* __restrict__ phi, const T* __restrict__ rhs,
+            T* __restrict__ out, T* __restrict__ phic_out,
+            T* __restrict__ iresc_out) {
+  using G = WideGeo<T, NS, MODE>;
+  using V2 = typename WidePair<T>::type;
+  constexpr int H = G::H, HX = G::HX, HY = G::HY, CX = G::CX, WS = G::WS;
+  constexpr int PL = G::PL, NB = G::NB, R = G::R;
+  constexpr bool DOWN = G::DOWN;
+  constexpr int KR = DOWN ? 2 * NS + 2 : 2 * NS + 1;  // plane t+1-KR is done
+  // the double pair fetches plane t+1 into registers and the rhs of step
+  // t+1 before the half-sweeps of step t; the down-leg, whose registers
+  // are scarce, copies the plane into its slot by cp.async and fetches the
+  // rhs after stage C, into the registers stage B has done with
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const s = reinterpret_cast<T*>(smem_raw) + G::GUARD;
+
+  const int x0 = blockIdx.x * G::TX, y0 = blockIdx.y * G::TY;
+  const int zb = blockIdx.z * cz;                  // this block's z chunk
+  const int ze = zb + cz < P.Z ? zb + cz : P.Z;
+
+  // ---- this thread's column: everything that does not depend on z ----
+  // gx and gy0 are even (so are the tile, the halo and R): cell 0 of an
+  // even row has the parity of its plane
+  const int hx = threadIdx.x % CX, ly0 = (int)(threadIdx.x / CX) * R;
+  const int gx = x0 - HX + 2 * hx, gy0 = y0 - HY + ly0;  // cell (0, row 0)
+  const int i0 = ly0 * WS + hx;         // its ring index; cell 1 at +CX
+  // the window lies inside the level: no wrap, no face, aligned pairs
+  const bool inner = vec && x0 >= HX && x0 + G::TX + HX <= P.X &&
+                     y0 >= HY && y0 + G::TY + HY <= P.Y;
+  int sx[2];                            // source x of the two cells, or -1
+  bool fx[2];                           // the cell is on a non-periodic x face
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    sx[c] = src_idx(gx + c, P.X, P.per[0]);
+    fx[c] = !P.per[0] && (gx + c == 0 || gx + c == P.X - 1);
+  }
+  // the tile's cells inside the level: the pair (cell 1 only where
+  // gx + 1 < X) if xcore, rows [jlo, jhi) of the column
+  const bool xcore = 2 * hx >= HX && 2 * hx < HX + G::TX && gx < P.X;
+  const bool xin1 = xcore && gx + 1 < P.X;
+  const int jlo = HY - ly0 > 0 ? HY - ly0 : 0;
+  int jhi = HY + G::TY - ly0;
+  jhi = jhi < R ? jhi : R;
+  jhi = jhi < P.Y - gy0 ? jhi : P.Y - gy0;
+  const bool writes = xcore && jlo < jhi;
+  int roff[R];                          // offset of each row in a plane, or -1
+  bool fy[R];                           // the row is on a non-periodic y face
+  bool face = fx[0] || fx[1];           // some cell of the column is
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int gy = gy0 + j, sy = src_idx(gy, P.Y, P.per[1]);
+    roff[j] = sy < 0 ? -1 : (sy + PY) * P.X;
+    fy[j] = !P.per[1] && (gy == 0 || gy == P.Y - 1);
+    face = face || fy[j];
+  }
+  const long long gplane = (long long)(P.Y + 2 * PY) * P.X;
+  const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
+  const T inv_den = (T)P.inv_den;
+
+  // Ring slot (cell offset) of plane t+1-k in step t: the slot of the
+  // incoming plane t+1 advances by one per step, so no step divides.
+  int slot_in = 0;
+  auto slot = [&](int k) {
+    const int o = slot_in - k * PL;
+    return o < 0 ? o + NB * PL : o;
+  };
+
+  T vprev[R][2] = {}, rprev[R][2] = {};  // DOWN: phi, residual of plane r-1
+  // rhs of the cells half-sweep s updates in this step, and of the cells
+  // of the plane the residual stage takes (DOWN): fetched one step ahead
+  T q[NS][R] = {}, qr[R][2] = {};
+
+  // One step.  B: the x cell that half-sweep 0 updates in even rows,
+  // ((t-1) & 1) ^ red_parity; half-sweep s updates B ^ (s & 1) there and
+  // the other cell in odd rows.  A template argument, so that every
+  // offset and face test below folds to a constant.
+  auto step = [&](const int t, auto colour) {
+    constexpr int B = decltype(colour)::value;
+    // ---- A. plane t+1: fetched into registers, or copied into its slot ----
+    const int pin = t + 1;
+    const bool loading = pin <= ze - 1 + H;
+    const int szin = src_idx(pin, P.Z, P.per[2]);
+    const T* src = phi + (long long)((szin < 0 ? 0 : szin) + PZ) * gplane;
+    T va[R][2] = {};
+    if (DOWN && loading) {
+      T* d = s + slot_in + i0;
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool ok = szin >= 0 && roff[j] >= 0 && sx[c] >= 0;
+          wide_cp_async<sizeof(T)>(d + j * WS + c * CX,
+                                   ok ? src + roff[j] + sx[c] : src, ok);
+        }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    if (!DOWN && loading && szin >= 0) {
+      if (inner) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const V2 w = __ldcg(reinterpret_cast<const V2*>(src + roff[j] + gx));
+          va[j][0] = w.x;
+          va[j][1] = w.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (roff[j] >= 0 && sx[c] >= 0) va[j][c] = src[roff[j] + sx[c]];
+      }
+    }
+
+    // ---- A'. rhs for step t+1: half-sweep s on plane t-2s, residual on
+    // plane t+2-KR (clamped into the level where a plane does not exist:
+    // those values are not used); the double pair into a second buffer
+    // here, the down-leg into the one of this step once stage C is done
+    // with it ----
+    auto fetch_rhs = [&](T(&dq)[NS][R], T(&dqr)[R][2]) {
+#pragma unroll
+      for (int sw = 0; sw < NS; ++sw) {
+        const int c1 = B ^ 1 ^ (sw & 1);
+        const int sz1 = src_idx(t - 2 * sw, P.Z, P.per[2]);
+        const T* rz = rhs + (long long)((sz1 < 0 ? 0 : sz1) + PZ) * gplane;
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          dq[sw][j] = __ldg(rz + roff[j] + sx[(j & 1) ^ c1]);
+      }
+      if (DOWN) {
+        int r1 = t + 2 - KR;
+        r1 = r1 < 0 ? 0 : r1 < P.Z ? r1 : P.Z - 1;
+        const T* rz = rhs + (long long)(r1 + PZ) * gplane;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          dqr[j][0] = __ldg(rz + roff[j] + sx[0]);
+          dqr[j][1] = __ldg(rz + roff[j] + sx[1]);
+        }
+      }
+    };
+    T qn[NS][R] = {}, qrn[R][2] = {};
+    if (!DOWN) fetch_rhs(qn, qrn);
+
+    // ---- B. half-sweep s on plane t-1-2s, all s at once ----
+#pragma unroll
+    for (int sw = 0; sw < NS; ++sw) {
+      const int p = t - 1 - 2 * sw;
+      // z range in which half-sweep sw is still valid, and the plane exists
+      if (p < zb - (H - 1 - sw) || p > ze - 1 + (H - 1 - sw)) continue;
+      if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      const int c = B ^ (sw & 1);       // x cell updated in even rows
+      const int sc = slot(2 + 2 * sw), sm = slot(3 + 2 * sw),
+                sp = slot(1 + 2 * sw);
+      const bool zface = !P.per[2] && (p == 0 || p == P.Z - 1);
+      // ring offsets, relative to a row's cell 0: the updated cell, and
+      // its x neighbour outside the pair, in even and in odd rows; the
+      // pair partner of even rows is odd rows' updated cell and back
+      const int ue = c * CX, uo = CX - ue;
+      const int xe = c ? 1 : CX - 1, xo = c ? CX - 1 : 1;
+      const int bc = sc + i0, bm = sm + i0, bp = sp + i0;
+      // a[j + 1]: row j's cell that this half-sweep does not update, which
+      // is the y neighbour of rows j - 1 and j + 1; a[0], a[R + 1]: the
+      // rows above and below the column
+      T a[R + 2];
+      a[0] = s[bc - WS + ue];
+#pragma unroll
+      for (int j = 0; j < R; ++j) a[j + 1] = s[bc + j * WS + ((j & 1) ? ue : uo)];
+      a[R + 1] = s[bc + R * WS + uo];
+      // the neighbour sums lo + hi per dim and row (an order of the two
+      // that differs from the plain version's is the same sum)
+      T xn[R], zl[R], zh[R], xs[R], ys[R], zs[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int u = (j & 1) ? uo : ue;
+        xn[j] = s[bc + j * WS + ((j & 1) ? xo : xe)];
+        zl[j] = s[bm + j * WS + u];
+        zh[j] = s[bp + j * WS + u];
+        xs[j] = a[j + 1] + xn[j];
+        ys[j] = a[j] + a[j + 2];
+        zs[j] = zl[j] + zh[j];
+      }
+      if (face || zface) {
+        // a cell on a face: stream_kernel.cuh's BC synthesis
+        const int sz = src_idx(p, P.Z, P.per[2]);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int cu = (j & 1) ^ c;   // x cell of the updated one
+          if (!(fx[cu] || fy[j] || zface)) continue;
+          const int sy = src_idx(gy0 + j, P.Y, P.per[1]);
+          if (sx[cu] < 0 || sy < 0) continue;
+          const T v = s[bc + j * WS + ((j & 1) ? uo : ue)];
+          T lo, hi;
+          neighbor_pair<T>(P, 0, gx + cu, P.X, v, cu ? a[j + 1] : xn[j],
+                           cu ? xn[j] : a[j + 1], sx[cu], sy, sz, lo, hi);
+          xs[j] = lo + hi;
+          neighbor_pair<T>(P, 1, gy0 + j, P.Y, v, a[j], a[j + 2], sx[cu], sy,
+                           sz, lo, hi);
+          ys[j] = lo + hi;
+          neighbor_pair<T>(P, 2, p, P.Z, v, zl[j], zh[j], sx[cu], sy, sz, lo,
+                           hi);
+          zs[j] = lo + hi;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        T acc = -q[sw][j];
+        acc = acc + idx2 * xs[j];
+        acc = acc + idy2 * ys[j];
+        acc = acc + idz2 * zs[j];
+        s[bc + j * WS + ((j & 1) ? uo : ue)] = acc * inv_den;
+      }
+    }
+
+    // ---- C. the plane that is finished ----
+    const int r = t + 1 - KR;
+    if (r >= zb && r < ze && writes) {
+      const int sc = slot(KR);
+      T* o = out + (long long)(r + PZ) * gplane;
+      T vc[R][2];
+      if constexpr (!DOWN) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          vc[j][0] = s[sc + i0 + j * WS];
+          vc[j][1] = s[sc + i0 + j * WS + CX];
+        }
+      } else {
+        // residual of the tile's cells of plane r
+        const int sm = slot(KR + 1), sp = slot(KR - 1);
+        const bool zface = !P.per[2] && (r == 0 || r == P.Z - 1);
+        T y[R + 2][2];
+#pragma unroll
+        for (int j = -1; j <= R; ++j) {
+          y[j + 1][0] = s[sc + i0 + j * WS];
+          y[j + 1][1] = s[sc + i0 + j * WS + CX];
+        }
+        T rc[R][2];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int b = i0 + j * WS;
+          const T xl0 = s[sc + b + CX - 1], xh1 = s[sc + b + 1];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            T lo[3], hi[3];
+            lo[0] = c ? y[j + 1][0] : xl0;
+            hi[0] = c ? xh1 : y[j + 1][1];
+            lo[1] = y[j][c];
+            hi[1] = y[j + 2][c];
+            lo[2] = s[sm + b + c * CX];
+            hi[2] = s[sp + b + c * CX];
+            vc[j][c] = y[j + 1][c];
+            if ((face || zface) && (fx[c] || fy[j] || zface) && j >= jlo &&
+                j < jhi) {
+              // a tile cell on a face: BC synthesis (x, y and r in the level)
+              const int g = gx + c, gy = gy0 + j;
+              neighbor_pair<T>(P, 0, g, P.X, vc[j][c], lo[0], hi[0], g, gy,
+                               r, lo[0], hi[0]);
+              neighbor_pair<T>(P, 1, gy, P.Y, vc[j][c], lo[1], hi[1], g, gy,
+                               r, lo[1], hi[1]);
+              neighbor_pair<T>(P, 2, r, P.Z, vc[j][c], lo[2], hi[2], g, gy,
+                               r, lo[2], hi[2]);
+            }
+            rc[j][c] = qr[j][c] - apply_from<T>(P, vc[j][c], lo, hi);
+          }
+        }
+        // restrict the plane pair (r-1, r): (z0+z1), + y, + x, * 1/8
+        if (r & 1) {
+          const int Yc = P.Y / 2, Xc = P.X / 2;
+#pragma unroll
+          for (int j = 0; j < R; j += 2) {
+            if (j < jlo || j >= jhi) continue;
+            const long long oc = ((long long)(r / 2 + PZ) * (Yc + 2 * PY) +
+                                  ((gy0 + j) / 2 + PY)) * Xc + gx / 2;
+            {
+              T vp[2][2];               // phi of plane r-1 at rows j, j+1
+#pragma unroll
+              for (int k = 0; k < 2; ++k)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  vp[k][c] = vprev[j + k][c];
+              const T t00 = vp[0][0] + vc[j][0];
+              const T t10 = vp[1][0] + vc[j + 1][0];
+              const T t01 = vp[0][1] + vc[j][1];
+              const T t11 = vp[1][1] + vc[j + 1][1];
+              phic_out[oc] = ((t00 + t10) + (t01 + t11)) * (T)0.125;
+            }
+            {
+              const T t00 = rprev[j][0] + rc[j][0];
+              const T t10 = rprev[j + 1][0] + rc[j + 1][0];
+              const T t01 = rprev[j][1] + rc[j][1];
+              const T t11 = rprev[j + 1][1] + rc[j + 1][1];
+              iresc_out[oc] = ((t00 + t10) + (t01 + t11)) * (T)0.125;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < R; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              vprev[j][c] = vc[j][c];
+              rprev[j][c] = rc[j][c];
+            }
+        }
+      }
+      // the finished phi of the tile's cells
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (j < jlo || j >= jhi) continue;
+        if (inner) {
+          V2 w;
+          w.x = vc[j][0];
+          w.y = vc[j][1];
+          *reinterpret_cast<V2*>(o + roff[j] + gx) = w;
+        } else {
+          o[roff[j] + sx[0]] = vc[j][0];
+          if (xin1) o[roff[j] + sx[1]] = vc[j][1];
+        }
+      }
+    }
+
+    if (DOWN) {
+      fetch_rhs(q, qr);
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+#pragma unroll
+        for (int sw = 0; sw < NS; ++sw) q[sw][j] = qn[sw][j];
+        qr[j][0] = qrn[j][0];
+        qr[j][1] = qrn[j][1];
+      }
+    }
+
+    // ---- D. plane t+1 into its slot ----
+    if (DOWN) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else if (loading) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        s[slot_in + i0 + j * WS] = va[j][0];
+        s[slot_in + i0 + j * WS + CX] = va[j][1];
+      }
+    }
+    __syncthreads();
+  };
+
+  const int t_last = DOWN ? ze + 2 * NS : ze - 1 + 2 * NS;
+  for (int t = zb - H - 1; t <= t_last;
+       ++t, slot_in = slot_in + PL == NB * PL ? 0 : slot_in + PL) {
+    if (((t - 1) & 1) ^ P.red_parity)
+      step(t, std::integral_constant<int, 1>{});
+    else
+      step(t, std::integral_constant<int, 0>{});
+  }
+}
+
+// Streaming multiprocessors of the current device (0 if it cannot be
+// read: then every level takes the wide design).
+static int wide_sms() {
+  static int sms = -1;
+  if (sms < 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+    sms = n;
+  }
+  return sms;
+}
+
+// Whether the wide design takes a level (else stream_kernel.cuh does,
+// launched by the caller).  The double pair: where the tile gives
+// MIN_BLOCKS_PER_SM blocks per SM with the shortest chunk (on an H100
+// 256^3 and up).  The down-leg (float32 only): where the tile gives 4
+// blocks per SM with the longest chunk (512^3 on an H100); at 256^3 and
+// in float64 it was no faster than stream_kernel.cuh (PERF.md).
+template <typename T, int MODE>
+static bool wide_takes(const LevelParams& P) {
+  const unsigned tiles = cdiv(P.X, WIDE_TX) * cdiv(P.Y, wide_ty<T>());
+  if (MODE == M_DOWN)
+    return tiles * cdiv(P.Z, WIDE_CHUNK_Z) >= 4u * (unsigned)wide_sms();
+  return tiles * cdiv(P.Z, 8) >= MIN_BLOCKS_PER_SM * (unsigned)wide_sms();
+}
+
+// The double pair (MODE M_PAIRS) or the fused down-leg with its fine
+// output (M_DOWN) of NS half-sweeps on a level that wide_takes.
+template <typename T, int NS, int MODE>
+static int launch_wide(const LevelParams& P, const void* phi, const void* rhs,
+                       void* out, void* phic_out, void* iresc_out,
+                       cudaStream_t stream) {
+  using G = WideGeo<T, NS, MODE>;
+  auto kernel = wide_kernel<T, NS, MODE>;
+  const size_t smem = G::smem_bytes();
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const uintptr_t al = 2 * sizeof(T);
+  const int vec = P.X % 2 == 0 && (uintptr_t)phi % al == 0 &&
+                  (uintptr_t)out % al == 0;
+  // stream_kernel.cuh's rule: chunks shorten until the launch has
+  // MIN_BLOCKS_PER_SM blocks per SM
+  int cz = WIDE_CHUNK_Z;
+  while (cz > 8 && cdiv(P.X, G::TX) * cdiv(P.Y, G::TY) * cdiv(P.Z, cz) <
+                       MIN_BLOCKS_PER_SM * (unsigned)wide_sms())
+    cz /= 2;
+  dim3 grid(cdiv(P.X, G::TX), cdiv(P.Y, G::TY), cdiv(P.Z, cz));
+  kernel<<<grid, G::NT, smem, stream>>>(P, cz, vec, (const T*)phi,
+                                        (const T*)rhs, (T*)out, (T*)phic_out,
+                                        (T*)iresc_out);
+  return (int)cudaGetLastError();
+}

@@ -64,6 +64,12 @@ variants).  ``half_sweep_dense``, ``downsweep_dense`` and
 ``residual_restrict_dense`` take no gates: the JAX package never calls
 them with any.
 
+The constant-coefficient double pair and down-leg run one of two kernel
+designs, which the library picks by level size, dtype and SM count
+(csrc/stream_wide.cuh on large levels, csrc/stream_kernel.cuh below);
+the library reports which one a launch ran, and a launch of the wide one
+is counted under ``name[wide]`` as well.
+
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
 coefficients, ``lam``) are Python floats rounded to the working dtype at
@@ -95,7 +101,8 @@ _LAUNCHES = {"pair_sweep_dense": 0, "stencil_apply_dense": 0,
              "pair_sweep_dense[segs]": 0, "stencil_apply_dense[segs]": 0,
              "prolong_correct_dense[set]": 0,
              "prolong_correct_dense[corr_ready]": 0,
-             "half_sweep_flat": 0}
+             "half_sweep_flat": 0,
+             "pair_sweep_dense[wide]": 0, "downsweep_dense[wide]": 0}
 #: the entry points with coefficient variants, and their counter names
 EPS_ENTRIES = ("pair_sweep_dense", "stencil_apply_dense", "downsweep_dense",
                "residual_restrict_dense")
@@ -740,11 +747,12 @@ _VP = ctypes.c_void_p
 _ARGTYPES = {
     "omg_stencil_sweep": [ctypes.c_int, ctypes.c_int,
                           ctypes.POINTER(_LevelParams),
-                          ctypes.POINTER(_EpsParams), _VP, _VP, _VP, _VP],
+                          ctypes.POINTER(_EpsParams), _VP, _VP, _VP, _VP,
+                          ctypes.POINTER(ctypes.c_int)],
     "omg_downsweep": [ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(_LevelParams),
                       ctypes.POINTER(_EpsParams), _VP, _VP, _VP, _VP, _VP,
-                      _VP],
+                      _VP, ctypes.POINTER(ctypes.c_int)],
     "omg_restrict": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      _VP, _VP, _VP],
     "omg_prolong_correct": [ctypes.c_int, ctypes.c_int,
@@ -947,11 +955,15 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes, red_parity, 2 * n_pairs)
     E = _eps_params(cfg, eps)
+    wide = ctypes.c_int(0)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
-        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
+        ctypes.byref(wide))
     record_launch(err, "pair_sweep_dense",
                   variant_name("pair_sweep_dense", cfg.n_eps))
+    if wide.value:
+        _LAUNCHES["pair_sweep_dense[wide]"] += 1
     return out
 
 
@@ -979,7 +991,8 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     out = torch.empty_like(phi)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
-        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
+        None)
     record_launch(err, "half_sweep_dense")
     return out
 
@@ -1020,7 +1033,7 @@ def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     E = _eps_params(cfg, eps)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), mode, ctypes.byref(P), ctypes.byref(E), phi.data_ptr(),
-        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi), None)
     record_launch(err, "stencil_apply_dense",
                   variant_name("stencil_apply_dense", cfg.n_eps))
     return out
@@ -1040,12 +1053,16 @@ def _downsweep(name, cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
     E = _eps_params(cfg, eps)
     phi_out = torch.empty_like(phi) if fine_out else None
     phi_c, ires_c = _coarse_empty(cfg, phi), _coarse_empty(cfg, phi)
+    wide = ctypes.c_int(0)
     err = _fn("downsweep", "omg_downsweep")(
         _dt(cfg), int(fine_out), ctypes.byref(P), ctypes.byref(E),
         phi.data_ptr(),
         rhs.data_ptr(), phi_out.data_ptr() if fine_out else None,
-        phi_c.data_ptr(), ires_c.data_ptr(), cuda_stream(phi))
+        phi_c.data_ptr(), ires_c.data_ptr(), cuda_stream(phi),
+        ctypes.byref(wide))
     record_launch(err, name, variant_name(name, cfg.n_eps))
+    if wide.value:
+        _LAUNCHES[name + "[wide]"] += 1
     return phi_out, phi_c, ires_c
 
 

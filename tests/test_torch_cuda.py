@@ -34,6 +34,52 @@ def test_kernels_equal_plain_versions_bitwise():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", range(7))
+def test_wide_kernels_equal_plain_versions_bitwise_at_edges(shape, dtype):
+    """The double pair and the down-leg (n_pairs 1 and 2; the wide design
+    of csrc/stream_wide.cuh) against their plain versions on a level at
+    that design's edges (chip_smoke.WIDE_EDGE_SHAPES: ragged big and
+    coarse tiles, Y below the tile, extents below the halo, periodic
+    double pairs, 16^3, 8^3), the four BC kinds, NaN pads: 0 ulp, and
+    every launch counted under its entry point."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    dk.reset_launch_counts()
+    rows = chip_smoke.wide_checks(dk, [chip_smoke.WIDE_EDGE_SHAPES[shape]],
+                                  (getattr(torch, dtype),))
+    assert rows and all(r["max_ulp"] == 0 for r in rows), [
+        r for r in rows if r["max_ulp"]][:5]
+    counts = dk.launch_counts()
+    assert counts["pair_sweep_dense"] == sum(
+        r["kernel"].startswith("pairs") for r in rows)
+    assert counts["downsweep_dense"] == sum(
+        r["kernel"].startswith("downsweep") for r in rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(3))
+def test_wide_down_leg_equals_plain_version_bitwise_on_a_large_level(shape):
+    """The float32 down-leg takes the wide design only on large levels
+    (chip_smoke.WIDE_DOWN_SHAPES: 520x520x264, X, Y and the coarse tiles
+    ragged; on faces, fully periodic and mixed): n_pairs 1 and 2, the
+    four BC kinds, NaN pads, 0 ulp, every launch on the wide design."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    dk.reset_launch_counts()
+    rows = chip_smoke.wide_checks(dk, [chip_smoke.WIDE_DOWN_SHAPES[shape]],
+                                  (torch.float32,), ("downsweep",))
+    assert len(rows) == 8 and all(r["max_ulp"] == 0 for r in rows), [
+        r for r in rows if r["max_ulp"]][:5]
+    assert all(r["wide"] for r in rows)
+    assert dk.launch_counts()["downsweep_dense[wide]"] == 8
+
+
+@pytest.mark.cuda
 def test_solver_on_card_matches_cpu():
     """32^3 float64, two FMGs: the card (kernels) and the CPU (plain
     versions) agree to 1e-11 of max|phi|; they differ only by the
