@@ -27,7 +27,12 @@ object per line:
   tiles and coarse tiles, Y below the tile, extents below the halo,
   periodic double pairs, 16^3 and 8^3), and the float32 down-leg on a
   520x520x264 level on faces, fully periodic and mixed, where it must
-  run the wide design; the double-float residual on the
+  run the wide design; the coefficient double pair and down-leg
+  (n_eps 1 and 3, n_pairs 1 and 2, float32: the face-plane design of
+  csrc/stream_faces.cuh, which every case must run) on the same edge
+  levels and the 520x520x264 ones, the four BC kinds with coefficients
+  0.5 + U[0,1) and Dirichlet faces also with 10**(3 U[0,1)) (a 1e3
+  contrast); the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
@@ -73,7 +78,8 @@ object per line:
   and eight have-guess FMGs (must fall monotonically below 1e-3 of the
   first), the probe's setup time, ms per have-guess FMG, unknowns/s,
   launches (the coefficient kernels on every level, no
-  constant-coefficient stencil launch), peak memory;
+  constant-coefficient stencil launch, every double pair and down-leg
+  on the face-plane design), peak memory;
 * ``refined_vcoeff`` — ``solve_refined`` for ahelmholtz at 512^3 (lam
   0.31, three float64 coefficient fields, ten outers): norms to 1e-10 of
   the first, ms per outer, device time of ``residual_df32_vcoeff`` (plain
@@ -124,7 +130,8 @@ object per line:
   max_abs_err against the plain version, ms (median, CUDA events),
   plain_ms, bound_ms (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
   whichever is larger), library_ms (the double pair's and the
-  down-leg's rows name the wide design they run at 512^3 in ``design``;
+  down-leg's rows name the design they run at 512^3 in ``design``, the
+  wide one or, for ``n_eps`` 1 and 3, the face-plane one;
   the apply's row carries ``conv3d_core_ms``, a cuDNN 7-point
   convolution of the zero-padded core as a yardstick: not the same
   function at the faces); then the forest's kernels at the
@@ -340,17 +347,19 @@ def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
     return cfg, field, planes
 
 
-def eps_fields(dk, cfg, seed):
-    """cfg.n_eps coefficient fields 0.5 + U[0,1) from a seeded generator
-    on the card; NaN pads except where a periodic axis makes them
-    wrapped copies."""
+def eps_fields(dk, cfg, seed, rough=False):
+    """cfg.n_eps coefficient fields 0.5 + U[0,1) (rough: 10**(3 U[0,1)),
+    a 1e3 contrast from cell to cell) from a seeded generator on the
+    card; NaN pads except where a periodic axis makes them wrapped
+    copies."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for _ in range(cfg.n_eps):
         a = torch.full(cfg.pshape, float("nan"), dtype=cfg.dtype,
                        device="cuda")
-        a[dk._ISL] = 0.5 + torch.rand((cfg.Z, cfg.Y, cfg.X), generator=g,
-                                      dtype=cfg.dtype, device="cuda")
+        u = torch.rand((cfg.Z, cfg.Y, cfg.X), generator=g, dtype=cfg.dtype,
+                       device="cuda")
+        a[dk._ISL] = 10.0 ** (3.0 * u) if rough else 0.5 + u
         out.append(dk.sync_pads(cfg, a))
     return tuple(out)
 
@@ -749,9 +758,15 @@ def phase_checks(dk, df, quick):
     wide = wide_checks(dk) + big
     worst = max([worst] + [r["max_ulp"] for r in wide])
     rows += wide
+    faces = face_checks(dk) + face_checks(dk, WIDE_DOWN_SHAPES)
+    if not all(r["faces"] for r in faces):
+        fail("a float32 coefficient double pair or down-leg did not run the "
+             f"face-plane design: {[r for r in faces if not r['faces']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in faces])
+    rows += faces
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
-                      for r in rows)
+                      and "faces" not in r["kernel"] for r in rows)
     forest = [r for r in rows if "segs" in r["kernel"]
               or r["kernel"] in ("half_sweep0", "half_sweep1")
               or "[" in r["kernel"] and "prolong" in r["kernel"]
@@ -767,6 +782,10 @@ def phase_checks(dk, df, quick):
                      "wide_cases_on_the_wide_design": sum(
                          r["wide"] for r in wide),
                      "wide_max_ulp": max(r["max_ulp"] for r in wide),
+                     "face_cases": len(faces),
+                     "face_cases_on_the_face_design": sum(
+                         r["faces"] for r in faces),
+                     "face_max_ulp": max(r["max_ulp"] for r in faces),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -852,6 +871,63 @@ def wide_checks(dk, shapes=WIDE_EDGE_SHAPES,
                                  "bc": bc_kind, "lam": lam, "max_ulp": u,
                                  "wide": wide})
                 del phi, rhs, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def face_checks(dk, shapes=WIDE_EDGE_SHAPES):
+    """The coefficient double pair and down-leg (n_pairs 1 and 2, n_eps 1
+    and 3; the face-plane design of csrc/stream_faces.cuh, which takes
+    every float32 launch) against their plain versions on ``shapes``:
+    float32, the four BC kinds with smooth coefficients 0.5 + U[0,1),
+    Dirichlet faces also with rough ones 10**(3 U[0,1)), NaN pads.  A
+    case must be 0 ulp and counted under its ``[faces]`` counter."""
+    rows, seed = [], 700
+    for dims, per in shapes:
+        for n_eps in (1, 3):
+            for bc_kind, rough in (("dirichlet", False), ("neumann", False),
+                                   ("continuous", False), ("planes", False),
+                                   ("dirichlet", True)):
+                lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+                seed += 1
+                cfg, field, planes = make_case(dk, dims, per, bc_kind,
+                                               torch.float32, seed,
+                                               n_eps=n_eps)
+                eps = eps_fields(dk, cfg, seed, rough)
+                phi, rhs = field(cfg), field(cfg)
+                cases = []
+                for k in (1, 2) if cfg.periodic_even else (1,):
+                    cases.append((
+                        f"pairs{k}[n_eps={n_eps}][faces]", "pair_sweep_dense",
+                        lambda k=k: (dk.pair_sweep_dense(
+                            cfg, phi, rhs, lam, planes, 0, n_pairs=k,
+                            eps=eps),),
+                        lambda k=k: (dk._pairs_plain(
+                            cfg, phi, rhs, lam, planes, 0, k, eps),)))
+                    if cfg.even_dims:
+                        cases.append((
+                            f"downsweep{k}[n_eps={n_eps}][faces]",
+                            "downsweep_dense",
+                            lambda k=k: dk.downsweep_dense(
+                                cfg, phi, rhs, lam, planes, 0, n_pairs=k,
+                                eps=eps),
+                            lambda k=k: dk._down_plain(
+                                cfg, phi, rhs, lam, planes, 0, k, eps)))
+                for name, entry, kern, plain in cases:
+                    counter = dk.faces_name(entry, n_eps)
+                    before = dk.launch_counts()[counter]
+                    got = kern()
+                    faces = dk.launch_counts()[counter] == before + 1
+                    want = plain()
+                    torch.cuda.synchronize()
+                    us = [ulp_diff(a[dk._ISL], b[dk._ISL])
+                          for a, b in zip(got, want)]
+                    u = max(us) if min(us) >= 0 else 1 << 62
+                    rows.append({"kernel": name, "dims": dims,
+                                 "periodic": per, "dtype": "float32",
+                                 "bc": bc_kind, "rough_eps": rough,
+                                 "lam": lam, "max_ulp": u, "faces": faces})
+                del phi, rhs, eps, cases
     torch.cuda.empty_cache()
     return rows
 
@@ -1158,6 +1234,10 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
             **({"design": "octree_mg_tpu_torch/csrc/stream_wide.cuh",
                 "launches_on_the_wide_design": path[name + "[wide]"]}
                if name in WIDE_KERNELS else {}),
+            **({"design": "octree_mg_tpu_torch/csrc/stream_faces.cuh",
+                "launches_on_the_face_design": path[name + "[faces]"]}
+               if name.split("[")[0] in dk.FACE_ENTRIES
+               and name in EPS_VARIANTS else {}),
             **({"conv3d_core_ms": conv3d_ms}
                if name == "stencil_apply_dense" else {}),
         })
@@ -1598,6 +1678,14 @@ def phase_vcoeff_path(pkg, dk):
                  if launches[k]]
         if const:
             fail(f"vcoeff path {op} ran constant-coefficient kernels {const}")
+        # every float32 double pair and down-leg, the 512^3 ones included,
+        # runs the face-plane design
+        off = [k for k in dk.FACE_ENTRIES
+               if launches[dk.faces_name(k, n_eps)]
+               != launches[dk.variant_name(k, n_eps)]]
+        if off:
+            fail(f"vcoeff path {op}: {off} launched stream_kernel.cuh, not "
+                 f"the face-plane design")
 
         sv.fas_fmg(state, lam=lam, have_guess=True, need_res=False)
         torch.cuda.synchronize()

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
-with other build-time constants (``-DOMG_WIDE``, ``-DOMG_TILE_X/Y``,
-``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``) into ``build/probe`` and
-prints, one JSON object per line:
+with other build-time constants (``-DOMG_WIDE``, ``-DOMG_FACES``,
+``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``) into
+``build/probe`` and prints, one JSON object per line:
 
 * ``wide``   — the double pair and the down-leg (n_pairs 2) as shipped
   (the wide design of csrc/stream_wide.cuh where it takes the level)
@@ -23,10 +23,27 @@ prints, one JSON object per line:
   both wide (``new``), in turns (old, pair, new, new, pair, old), 10
   FMGs a turn: the device time (CUDA events) of the whole FMG and of its
   512^3 V-cycle stage, median per turn;
+* ``faces``  — the coefficient double pair and down-leg (n_eps 1 and 3,
+  n_pairs 2 and 1, coefficients 0.5 + U[0,1), lam 0.3, Dirichlet faces)
+  as shipped (the face-plane design of csrc/stream_faces.cuh on every
+  float32 launch) against the design before it (``-DOMG_FACES=0``,
+  stream_kernel.cuh alone), at every level from 512^3 to 16^3 in
+  float32, in turns (old, new, new, old), median of 10 per turn, CUDA
+  events, with the design each launch ran and the byte bound at 3.35
+  TB/s; then old against new at 512^3, bitwise, for n_pairs 1 and 2 of
+  both kernels and both n_eps (``faces_bitwise``), and the resources
+  ptxas reports for both designs' instantiations (``faces_ptxas``);
+* ``faces_fmg`` — chip_smoke.py's ``vcoeff_path`` solver (512^3 float32,
+  vhelmholtz and ahelmholtz, lam 1.5) after three FMGs: the device time
+  (CUDA events) of a have-guess FMG and of its 512^3 V-cycle stage with
+  the coefficient kernels of the old design and of the shipped one, in
+  turns (old, new, new, old), median of 10 per turn;
 * ``sass``   — static SASS instructions of the double pair's and the
   down-leg's main loop (the longest backward branch), old and new, and
   per cell a thread updates in one step of that loop (old: one per
-  half-sweep; new: R per half-sweep);
+  half-sweep; new: R per half-sweep); the same for the float32
+  coefficient kernels of both designs (``stream_kernel`` with n_eps 1
+  or 3, ``face_kernel``), from the shipped build;
 * ``tiles``  — double pair and downsweep at 512^3 float32 for a list of
   (tile x, tile y, chunk z) shapes of the old design, median of 8, CUDA
   events;
@@ -501,7 +518,173 @@ def probe_sass():
             rows.append({"kernel": d, "design": "new", "instructions": n_all,
                          "loop": n_loop, "updates_per_thread_step": ns * r,
                          "loop_per_update": n_loop / (ns * r)})
+        # the face-plane kernels and the coefficient kernels they replace
+        m = re.match(r"void (face_kernel<float, (?:\(int\))?([24]), "
+                     r"(?:\(int\))?[03], (?:\(int\))?[13]>|"
+                     r"stream_kernel<float, (?:\(int\))?([24]), "
+                     r"(?:\(int\))?[03], (?:\(int\))?[13], "
+                     r"(?:\(int\))?0, (?:\(int\))?0>)", d)
+        if m:
+            ns = int(m.group(2) or m.group(3))
+            rows.append({"kernel": d, "design": "faces" if m.group(2)
+                         else "stream (n_eps)", "instructions": n_all,
+                         "loop": n_loop, "updates_per_thread_step": ns,
+                         "loop_per_update": n_loop / ns})
     print(json.dumps({"sass": rows}), flush=True)
+
+
+#: the face-plane design as shipped against the design before it
+#: (OMG_FACES=0: the coefficient kernels of stream_kernel.cuh alone)
+FACES_VARIANTS = {"old": ["-DOMG_FACES=0"], "new": []}
+#: the builds of FACES_VARIANTS, once made
+_FACES_FNS = {}
+
+
+def eps_level(n, n_eps, dtype):
+    """A level of n^3 with n_eps coefficient fields 0.5 + U[0,1), Dirichlet
+    faces, and the fields of level_fields."""
+    cfg, f = level_fields(n, dtype)
+    cfg = dk.DenseStencilConfig(cfg.dims, cfg.idr2, cfg.bc, cfg.periodic,
+                                dtype, b_const=cfg.b_const, n_eps=n_eps)
+    g = torch.Generator(device="cuda").manual_seed(7 * n + n_eps)
+    f["eps"] = tuple(0.5 + torch.rand(cfg.pshape, generator=g, dtype=dtype,
+                                      device="cuda") for _ in range(n_eps))
+    return cfg, f
+
+
+def faces_calls(fns, cfg, f, n_pairs):
+    """(pair, down) launches of one build on the fields f with their
+    coefficient fields; each returns the design the library ran."""
+    st = torch.cuda.current_stream().cuda_stream
+    P = dk._params(cfg, 0.3, [None] * 6, 0, 2 * n_pairs)
+    E = dk._EpsParams()
+    E.n = len(f["eps"])
+    for i, e in enumerate(f["eps"]):
+        E.f[i] = e.data_ptr()
+    dt = dk._dt(cfg)
+    d = ctypes.c_int(0)
+
+    def pair():
+        e = fns["omg_stencil_sweep"](dt, 0, ctypes.byref(P), ctypes.byref(E),
+                                     f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                                     f["out"].data_ptr(), st, ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+
+    def down():
+        e = fns["omg_downsweep"](dt, 1, ctypes.byref(P), ctypes.byref(E),
+                                 f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                                 f["out"].data_ptr(), f["pc"].data_ptr(),
+                                 f["rc"].data_ptr(), st, ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+
+    return pair, down
+
+
+def probe_faces():
+    fns, logs = build_many({k: v + ["-Xptxas", "-v"]
+                            for k, v in FACES_VARIANTS.items()})
+    _FACES_FNS.update(fns)
+    names = list(FACES_VARIANTS)
+    item = 4
+    for n in (512, 256, 128, 64, 32, 16):
+        for n_eps in (1, 3):
+            cfg, f = eps_level(n, n_eps, torch.float32)
+            for n_pairs in (2, 1):
+                calls = {t: faces_calls(fns[t], cfg, f, n_pairs)
+                         for t in names}
+                nb = {"pair": (3 + n_eps) * n ** 3 * item,
+                      "down": ((3 + n_eps) * n ** 3 + 2 * (n // 2) ** 3) *
+                      item}
+                for k, kern in enumerate(("pair", "down")):
+                    design = {t: calls[t][k]() for t in names}
+                    ms = {t: [] for t in names}
+                    for t in names + names[::-1]:
+                        ms[t].append(time_ms(calls[t][k], reps=10))
+                    print(json.dumps({"faces": {
+                        "n": n, "dtype": "float32", "n_eps": n_eps,
+                        "kernel": kern, "n_pairs": n_pairs, "ms": ms,
+                        "design": design,
+                        "bound_ms": 1e3 * nb[kern] / 3.35e12}}), flush=True)
+            del f
+            torch.cuda.empty_cache()
+    # old against new, bitwise, at 512^3
+    checks = []
+    for n_eps in (1, 3):
+        cfg, f = eps_level(512, n_eps, torch.float32)
+        for n_pairs in (1, 2):
+            for k, kern in enumerate(("pair", "down")):
+                got = {}
+                for t in names:
+                    for key in ("out", "pc", "rc"):
+                        f[key].fill_(float("nan"))
+                    faces_calls(fns[t], cfg, f, n_pairs)[k]()
+                    keys = ("out",) if kern == "pair" else ("out", "pc", "rc")
+                    got[t] = [f[key][dk._ISL].clone() for key in keys]
+                torch.cuda.synchronize()
+                checks.append({"n_eps": n_eps, "kernel": kern,
+                               "n_pairs": n_pairs, "bitwise": all(
+                                   torch.equal(a, b) for a, b in
+                                   zip(got["old"], got["new"]))})
+                del got
+        del f
+        torch.cuda.empty_cache()
+    print(json.dumps({"faces_bitwise": checks}), flush=True)
+    old = ptxas_resources(logs["old"], lambda d: re.match(
+        r"void stream_kernel<float, (\(int\))?[24], (\(int\))?[03], "
+        r"(\(int\))?[13], (\(int\))?0, (\(int\))?0>", d))
+    new = ptxas_resources(logs["new"], lambda d: "face_kernel" in d)
+    print(json.dumps({"faces_ptxas": {"old": old, "new": new}}), flush=True)
+
+
+def vcoeff_solver(op, n=512):
+    """The vcoeff_path solver of chip_smoke.py (512^3 float32, lam 1.5,
+    Dirichlet 0, smooth coefficients, seeded rhs) after three FMGs."""
+    import chip_smoke
+    ps = pkg.PoissonSolver(3, (n,) * 3, 16, operator=op, dtype=torch.float32)
+    ps.set_dirichlet(0.0)
+    sv = ps.solver
+    state = ps._ensure_state()
+    for d in range(sv.n_eps):
+        sv.set_coefficient(state, chip_smoke.smooth_eps(sv, d, torch.float32),
+                           d)
+    sv.prepare_coefficient(state)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ps.set_rhs(arrays={sv.levels[-1]: torch.randn((n,) * 3, generator=g,
+                                                  device="cuda")})
+    ps.solve(lam=1.5, rtol=0.0, atol=0.0, max_cycles=3)
+    return ps, sv
+
+
+def probe_faces_fmg():
+    import chip_smoke
+    if not _FACES_FNS:
+        _FACES_FNS.update(build_many(FACES_VARIANTS)[0])
+    fns = _FACES_FNS
+    chosen = {s: dk._fn(name, s) for name, s in SYMS.items()}
+    n = 512
+    for op in ("vhelmholtz", "ahelmholtz"):
+        ps, sv = vcoeff_solver(op, n)
+
+        def fmg():
+            sv.fas_fmg(ps.state, lam=1.5, have_guess=True, need_res=False)
+
+        rows = {d: {"fmg_ms": [], "vcycle_512_ms": []} for d in fns}
+        for d in ("old", "new", "new", "old"):
+            dk._fns.update(fns[d])
+            fmg()
+            rows[d]["fmg_ms"].append(statistics.median(
+                chip_smoke.event_ms(fmg) for _ in range(10)))
+            rows[d]["vcycle_512_ms"].append(statistics.median(
+                [m["device_ms"] for m in chip_smoke.fmg_stage_marks(
+                    sv, ps.state) if m["stage"] == "vcycle_to"
+                 and m["dims"] == [n] * 3][0] for _ in range(10)))
+        dk._fns.update(chosen)
+        print(json.dumps({"faces_fmg": {"operator": op, **rows}}),
+              flush=True)
+        del ps, sv
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
@@ -513,6 +696,8 @@ if __name__ == "__main__":
     print(json.dumps({"card": smi}), flush=True)
     only = sys.argv[1:]
     for name, probe in (("wide", probe_wide), ("wide_fmg", probe_wide_fmg),
+                        ("faces", probe_faces),
+                        ("faces_fmg", probe_faces_fmg),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

@@ -17,33 +17,50 @@
 // / 8).  The ring holds 12 planes of a 42x26 window of phi and of rhs:
 // 109 KB in float32, 218 KB in float64 (large dynamic shared memory).
 // The variable-coefficient variants (E->n 1 or 3; eps windows of the
-// Pallas body) read their coefficients from device memory, not from a
-// ring: a coefficient ring would add 52 KB (float32) or 105 KB (float64)
-// per field, and neither the float64 NE = 1 nor the float32 NE = 3 ring
-// would fit a block's 227 KB.  The residual stage uses the apply form
-// out + c*(nbr - p) per side.
+// Pallas body) use the apply form out + c*(nbr - p) per side in the
+// residual stage.  In float32 the down-leg with its fine output runs the
+// face-plane design of stream_faces.cuh at every level: its harmonic
+// means are built once per plane into two face rings (low x and low y
+// faces, one value per cell whatever NE is) beside the phi and rhs rings,
+// 214 KB for two pairs, and it was faster than this kernel at every
+// level from 16^3 to 512^3 on an H100 (6.77 against 13.55 ms for n_eps 1
+// at 512^3, PERF.md, experiments/probe_torch_kernels.py faces).  In
+// float64 those rings would not fit a block's 227 KB, and without the
+// fine output (residual_restrict_dense) each face is built only once
+// per cell anyway: there this kernel reads the coefficients of each cell
+// and its six neighbours from device memory at every update, not from a
+// ring of raw coefficients, which would add 52 KB (float32) or 105 KB
+// (float64) per field.
 //
 // On float32 levels of 512^3 the constant-coefficient down-leg runs the
 // wide design of stream_wide.cuh instead (a phi-only ring with the plane
 // copied in by cp.async, the restriction from registers): 3.12 against
 // 3.43 ms on an H100 (PERF.md); at 256^3 and in float64 it was no
 // faster, and this kernel stays.
-#include "stream_wide.cuh"
+#include "stream_faces.cuh"
 
-// n_sweeps = 2 or 4 half-sweeps, then the residual and the restrictions:
-// constant coefficients in float32 with the fine output on the wide
-// design (stream_wide.cuh, *wide = 1) where it takes the level, the rest
-// on stream_kernel.cuh
+// n_sweeps = 2 or 4 half-sweeps, then the residual and the restrictions,
+// with the fine output in float32: constant coefficients on the wide
+// design (stream_wide.cuh, *design = 1) where it takes the level,
+// coefficients on the face-plane design (stream_faces.cuh, *design = 2),
+// the rest on stream_kernel.cuh
 template <typename T, int NS, int NE>
 static int launch_down(const LevelParams& P, const EpsParams& E,
                        int fine_out, const void* phi, const void* rhs,
                        void* phi_out, void* phic_out, void* iresc_out,
-                       cudaStream_t s, int* wide) {
+                       cudaStream_t s, int* design) {
 #if OMG_WIDE
   if constexpr (NE == 0 && sizeof(T) == 4)
     if (fine_out && wide_takes<T, M_DOWN>(P)) {
-      *wide = 1;
+      *design = 1;
       return launch_wide<T, NS, M_DOWN>(P, phi, rhs, phi_out, phic_out, iresc_out, s);
+    }
+#endif
+#if OMG_FACES
+  if constexpr (NE != 0 && sizeof(T) == 4)
+    if (fine_out) {
+      *design = 2;
+      return launch_faces<T, NS, M_DOWN, NE>(P, E, phi, rhs, phi_out, phic_out, iresc_out, s);
     }
 #endif
   return launch_stream<T, NS, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
@@ -53,11 +70,11 @@ template <typename T, int NE>
 static int dispatch(const LevelParams& P, const EpsParams& E, int fine_out,
                     const void* phi, const void* rhs, void* phi_out,
                     void* phic_out, void* iresc_out, cudaStream_t s,
-                    int* wide) {
+                    int* design) {
   switch (P.n_sweeps) {
     case 0: return launch_stream<T, 0, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
-    case 2: return launch_down<T, 2, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
-    case 4: return launch_down<T, 4, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
+    case 2: return launch_down<T, 2, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, design);
+    case 4: return launch_down<T, 4, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, design);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -66,24 +83,25 @@ template <typename T>
 static int dispatch_eps(const LevelParams& P, const EpsParams& E,
                         int fine_out, const void* phi, const void* rhs,
                         void* phi_out, void* phic_out, void* iresc_out,
-                        cudaStream_t s, int* wide) {
+                        cudaStream_t s, int* design) {
   switch (E.n) {
-    case 0: return dispatch<T, 0>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
-    case 1: return dispatch<T, 1>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
-    case 3: return dispatch<T, 3>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, wide);
+    case 0: return dispatch<T, 0>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, design);
+    case 1: return dispatch<T, 1>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, design);
+    case 3: return dispatch<T, 3>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, design);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = float64.  P->n_sweeps = 2*n_pairs (0, 2 or 4);
 // E: E->n coefficient fields (0, 1 or 3) in E->f, or null for none.  All
-// of X, Y, Z must be even.  wide, unless null, receives 1 where the
-// launch ran the wide design (stream_wide.cuh), else 0.  Returns the
-// cudaError_t of the launch.
+// of X, Y, Z must be even.  design, unless null, receives 1 where the
+// launch ran the wide design (stream_wide.cuh), 2 where it ran the
+// face-plane design (stream_faces.cuh), else 0.  Returns the cudaError_t
+// of the launch.
 extern "C" int omg_downsweep(int dtype, int fine_out, const LevelParams* P,
                              const EpsParams* E, const void* phi,
                              const void* rhs, void* phi_out, void* phic_out,
-                             void* iresc_out, void* stream, int* wide) {
+                             void* iresc_out, void* stream, int* design) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((P->X | P->Y | P->Z) & 1) return (int)cudaErrorInvalidValue;
   const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
@@ -91,6 +109,6 @@ extern "C" int omg_downsweep(int dtype, int fine_out, const LevelParams* P,
   const int err = dtype == 0
       ? dispatch_eps<float>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, &w)
       : dispatch_eps<double>(*P, e, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s, &w);
-  if (wide) *wide = w;
+  if (design) *design = w;
   return err;
 }

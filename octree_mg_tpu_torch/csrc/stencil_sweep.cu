@@ -33,11 +33,23 @@
 // updates.
 //
 // The variable-coefficient variants (E->n 1 or 3) replace the Pallas
-// bodies' eps windows (_halfsweep / _apply_expr with eps): the same ring
-// and wavefront, with the coefficients of each updated cell and of its
-// six neighbours read from device memory (L1/L2 serve the reuse), so
-// shared memory stays what the NE = 0 kernel needs.  Bound: bytes, one
-// more field read per coefficient field.
+// bodies' eps windows (_halfsweep / _apply_expr with eps).  Bound: bytes,
+// one more field read per coefficient field.  Which design runs them:
+// * the double pair in float32 (one or two pairs): the face-plane design
+//   of stream_faces.cuh at every level, because it was faster than the
+//   kernel below at every level from 16^3 to 512^3 on an H100 (4.33
+//   against 8.95 ms for n_eps 1 and two pairs at 512^3, PERF.md,
+//   experiments/probe_torch_kernels.py faces): each face coefficient is
+//   built once per plane, from one read per field, into shared-memory
+//   face rings beside the phi ring;
+// * the double pair in float64, the apply and the residual, and the slab
+//   variants: stream_kernel.cuh's ring and wavefront, which build the six
+//   harmonic means of a cell at every update from the coefficients of
+//   the cell and its six neighbours, read from device memory (L1/L2
+//   serve the reuse), so shared memory stays what the NE = 0 kernel
+//   needs.  In float64 the face rings of the double pair would not fit a
+//   block's 227 KB; an apply or a residual builds each face only once or
+//   twice per cell anyway.
 //
 // The z-slab variants (omg_stencil_slab, SLAB = 1) replace the same
 // Pallas entry points called with z_gates, on one slab of the z-slab
@@ -50,21 +62,28 @@
 // Bound: bytes, as the unsharded kernel, plus the halo planes read.
 // half_sweep_dense with z_gates has no caller in the JAX package and is
 // not instantiated.
-#include "stream_wide.cuh"
+#include "stream_faces.cuh"
 
 // n_sweeps half-sweeps of one or two pairs: constant coefficients on the
-// wide design (stream_wide.cuh, *wide = 1) where it takes the level, the
-// rest on stream_kernel.cuh
+// wide design (stream_wide.cuh, *design = 1) where it takes the level,
+// float32 coefficients on the face-plane design (stream_faces.cuh,
+// *design = 2), the rest on stream_kernel.cuh
 template <typename T, int NS, int NE>
 static int launch_pairs(const LevelParams& P, const EpsParams& E,
                         const void* phi, const void* rhs, void* out,
-                        cudaStream_t s, int* wide) {
+                        cudaStream_t s, int* design) {
 #if OMG_WIDE
   if constexpr (NE == 0)
     if (wide_takes<T, M_PAIRS>(P)) {
-      *wide = 1;
+      *design = 1;
       return launch_wide<T, NS, M_PAIRS>(P, phi, rhs, out, nullptr, nullptr, s);
     }
+#endif
+#if OMG_FACES
+  if constexpr (NE != 0 && sizeof(T) == 4) {
+    *design = 2;
+    return launch_faces<T, NS, M_PAIRS, NE>(P, E, phi, rhs, out, nullptr, nullptr, s);
+  }
 #endif
   return launch_stream<T, NS, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
 }
@@ -72,7 +91,7 @@ static int launch_pairs(const LevelParams& P, const EpsParams& E,
 template <typename T, int NE>
 static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
                     const void* phi, const void* rhs, void* out,
-                    cudaStream_t s, int* wide) {
+                    cudaStream_t s, int* design) {
   if (mode == M_APPLY)
     return launch_stream<T, 0, M_APPLY, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
   if (mode == M_RESIDUAL)
@@ -84,39 +103,40 @@ static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
       return launch_stream<T, 1, M_PAIRS, 0>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (P.n_sweeps == 2) return launch_pairs<T, 2, NE>(P, E, phi, rhs, out, s, wide);
-  if (P.n_sweeps == 4) return launch_pairs<T, 4, NE>(P, E, phi, rhs, out, s, wide);
+  if (P.n_sweeps == 2) return launch_pairs<T, 2, NE>(P, E, phi, rhs, out, s, design);
+  if (P.n_sweeps == 4) return launch_pairs<T, 4, NE>(P, E, phi, rhs, out, s, design);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 static int dispatch_eps(int mode, const LevelParams& P, const EpsParams& E,
                         const void* phi, const void* rhs, void* out,
-                        cudaStream_t s, int* wide) {
+                        cudaStream_t s, int* design) {
   switch (E.n) {
-    case 0: return dispatch<T, 0>(mode, P, E, phi, rhs, out, s, wide);
-    case 1: return dispatch<T, 1>(mode, P, E, phi, rhs, out, s, wide);
-    case 3: return dispatch<T, 3>(mode, P, E, phi, rhs, out, s, wide);
+    case 0: return dispatch<T, 0>(mode, P, E, phi, rhs, out, s, design);
+    case 1: return dispatch<T, 1>(mode, P, E, phi, rhs, out, s, design);
+    case 3: return dispatch<T, 3>(mode, P, E, phi, rhs, out, s, design);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: 0 = float32, 1 = float64; mode: 0 = n_sweeps half-sweeps (1, 2
 // or 4; 1 only with E->n 0), 1 = A(phi), 2 = rhs - A(phi); E: E->n coefficient fields (0, 1 or
-// 3) in E->f, or null for none.  wide, unless null, receives 1 where the
-// launch ran the wide design (stream_wide.cuh), else 0.  Returns the
-// cudaError_t of the launch.
+// 3) in E->f, or null for none.  design, unless null, receives 1 where
+// the launch ran the wide design (stream_wide.cuh), 2 where it ran the
+// face-plane design (stream_faces.cuh), else 0.  Returns the cudaError_t
+// of the launch.
 extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
                                  const EpsParams* E, const void* phi,
                                  const void* rhs, void* out, void* stream,
-                                 int* wide) {
+                                 int* design) {
   cudaStream_t s = (cudaStream_t)stream;
   const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
   int w = 0;
   const int err = dtype == 0
       ? dispatch_eps<float>(mode, *P, e, phi, rhs, out, s, &w)
       : dispatch_eps<double>(mode, *P, e, phi, rhs, out, s, &w);
-  if (wide) *wide = w;
+  if (design) *design = w;
   return err;
 }
 

@@ -29,8 +29,13 @@
 // constant-coefficient stencil; NE > 0 (vlaplacian/vhelmholtz,
 // ahelmholtz) replaces the update and the apply by their harmonic-mean
 // forms and reads the coefficients of a cell and its six neighbours from
-// device memory (face_coeffs): the ring, the wavefront and the geometry
-// are the same for every NE, and the NE = 0 code paths are untouched.
+// device memory at every update (face_coeffs): the ring, the wavefront
+// and the geometry are the same for every NE, and the NE = 0 code paths
+// are untouched.  These NE > 0 instantiations run the float64 double
+// pair and down-leg, the apply, the residual, residual_restrict_dense and
+// the slab variants; the float32 double pair and down-leg (fine output)
+// run stream_faces.cuh, which builds each face once per plane into
+// shared-memory face rings that would not fit a block in float64.
 //
 // SEG = 1 is the segment-synthesis variant of the dense forest's
 // fused-canvas path (NE = 0 only): no physical-face synthesis at all;

@@ -64,11 +64,14 @@ variants).  ``half_sweep_dense``, ``downsweep_dense`` and
 ``residual_restrict_dense`` take no gates: the JAX package never calls
 them with any.
 
-The constant-coefficient double pair and down-leg run one of two kernel
-designs, which the library picks by level size, dtype and SM count
-(csrc/stream_wide.cuh on large levels, csrc/stream_kernel.cuh below);
-the library reports which one a launch ran, and a launch of the wide one
-is counted under ``name[wide]`` as well.
+The double pair and the down-leg run one of three kernel designs, which
+the library picks by level size, dtype, ``n_eps`` and SM count:
+csrc/stream_wide.cuh for constant coefficients on large levels,
+csrc/stream_faces.cuh for the coefficient variants on every float32
+level, csrc/stream_kernel.cuh for the rest.  The library reports which
+one a launch ran; a launch of the wide one is counted under
+``name[wide]`` as well, one of the face-plane one under
+``name[n_eps=k][faces]``.
 
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
@@ -131,6 +134,18 @@ for _e in SLAB_ENTRIES:
 for _n in (1, 3):
     for _e in SLAB_ENTRIES[:2]:
         _LAUNCHES[slab_name(_e, _n)] = 0
+#: the entry points with face-plane variants (csrc/stream_faces.cuh)
+FACE_ENTRIES = ("pair_sweep_dense", "downsweep_dense")
+
+
+def faces_name(name: str, n_eps: int) -> str:
+    """Launch-counter name of a launch of the face-plane design."""
+    return variant_name(name, n_eps) + "[faces]"
+
+
+for _n in (1, 3):
+    for _e in FACE_ENTRIES:
+        _LAUNCHES[faces_name(_e, _n)] = 0
 
 
 def launch_counts() -> dict:
@@ -732,6 +747,15 @@ def cuda_stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count_design(name: str, n_eps: int, design: int) -> None:
+    """Count a launch of the double pair or the down-leg under the design
+    the library reports it ran (1 wide, 2 face-plane, 0 neither)."""
+    if design == 1:
+        _LAUNCHES[name + "[wide]"] += 1
+    elif design == 2:
+        _LAUNCHES[faces_name(name, n_eps)] += 1
+
+
 def record_launch(err: int, what: str,
                   counter: Optional[str] = None) -> None:
     """After a kernel's launch: raise if it failed, else add one to its
@@ -955,15 +979,14 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes, red_parity, 2 * n_pairs)
     E = _eps_params(cfg, eps)
-    wide = ctypes.c_int(0)
+    design = ctypes.c_int(0)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
         phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
-        ctypes.byref(wide))
+        ctypes.byref(design))
     record_launch(err, "pair_sweep_dense",
                   variant_name("pair_sweep_dense", cfg.n_eps))
-    if wide.value:
-        _LAUNCHES["pair_sweep_dense[wide]"] += 1
+    _count_design("pair_sweep_dense", cfg.n_eps, design.value)
     return out
 
 
@@ -1053,16 +1076,15 @@ def _downsweep(name, cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
     E = _eps_params(cfg, eps)
     phi_out = torch.empty_like(phi) if fine_out else None
     phi_c, ires_c = _coarse_empty(cfg, phi), _coarse_empty(cfg, phi)
-    wide = ctypes.c_int(0)
+    design = ctypes.c_int(0)
     err = _fn("downsweep", "omg_downsweep")(
         _dt(cfg), int(fine_out), ctypes.byref(P), ctypes.byref(E),
         phi.data_ptr(),
         rhs.data_ptr(), phi_out.data_ptr() if fine_out else None,
         phi_c.data_ptr(), ires_c.data_ptr(), cuda_stream(phi),
-        ctypes.byref(wide))
+        ctypes.byref(design))
     record_launch(err, name, variant_name(name, cfg.n_eps))
-    if wide.value:
-        _LAUNCHES[name + "[wide]"] += 1
+    _count_design(name, cfg.n_eps, design.value)
     return phi_out, phi_c, ires_c
 
 

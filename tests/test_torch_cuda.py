@@ -60,6 +60,36 @@ def test_wide_kernels_equal_plain_versions_bitwise_at_edges(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("level", ["edge", "large"])
+def test_face_kernels_equal_plain_versions_bitwise(level):
+    """The float32 coefficient double pair and down-leg (n_eps 1 and 3,
+    n_pairs 1 and 2; the face-plane design of csrc/stream_faces.cuh)
+    against their plain versions on a level with ragged big and coarse
+    tiles (chip_smoke.WIDE_EDGE_SHAPES[0]) or on 520x520x264 with x and
+    z periodic (WIDE_DOWN_SHAPES[2]): the four BC kinds, smooth and rough
+    coefficients, NaN pads, 0 ulp, every launch on the face-plane
+    design."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    shape = (chip_smoke.WIDE_EDGE_SHAPES[0] if level == "edge"
+             else chip_smoke.WIDE_DOWN_SHAPES[2])
+    dk.reset_launch_counts()
+    rows = chip_smoke.face_checks(dk, [shape])
+    assert len(rows) == 40 and all(
+        r["max_ulp"] == 0 and r["faces"] for r in rows), [
+        r for r in rows if r["max_ulp"] or not r["faces"]][:5]
+    counts = dk.launch_counts()
+    for n_eps in (1, 3):
+        for entry, prefix in (("pair_sweep_dense", "pairs"),
+                              ("downsweep_dense", "downsweep")):
+            assert counts[dk.faces_name(entry, n_eps)] == sum(
+                r["kernel"].startswith(prefix)
+                and f"[n_eps={n_eps}]" in r["kernel"] for r in rows)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", range(3))
 def test_wide_down_leg_equals_plain_version_bitwise_on_a_large_level(shape):
     """The float32 down-leg takes the wide design only on large levels

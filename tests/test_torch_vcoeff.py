@@ -234,6 +234,58 @@ def test_eps_fields_are_checked():
                               eps_bc=[(0.0, 1.0, 0.0)] * 6)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32
+                               else torch.int64)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("n_eps", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_face_coefficients_are_symmetric(dtype, n_eps, periodic):
+    """What the face-plane kernels (csrc/stream_faces.cuh) rest on: the
+    plain version's high face coefficient of cell i along each dim is,
+    bit for bit, the low face of cell i+1, on coefficients spanning 1e-30
+    to 1e30 with equal neighbours among them; on a periodic dim the high
+    face of the last cell is the low face of the first, on a physical
+    face the first cell's low face and the last cell's high face are the
+    self-face ((2*e)*e)/(e + e)*idr2 the kernel builds from a clamped
+    source."""
+    dims = (6, 5, 4)
+    X, Y, Z = dims
+    rng = np.random.default_rng(17 + 2 * n_eps + int(periodic))
+    cfg = dk.DenseStencilConfig(dims, (36.0, 25.0, 16.0),
+                                [(2.0, -1.0, 0.0)] * 6, (periodic,) * 3,
+                                dtype, b_const=[0.0] * 6, n_eps=n_eps)
+    eps = []
+    for _ in range(n_eps):
+        v = 10.0 ** rng.uniform(-3.0, 3.0, (Z, Y, X))
+        flat = v.reshape(-1)
+        flat[rng.choice(flat.size, 8, replace=False)] = [1e-30, 1e30] * 4
+        v[:, :, 2] = v[:, :, 1]          # equal neighbours along each dim
+        v[:, 3, :] = v[:, 2, :]
+        v[1] = v[0]
+        a = torch.full(cfg.pshape, float("nan"), dtype=dtype)
+        a[ISL] = torch.from_numpy(v).to(dtype)
+        eps.append(dk.sync_pads(cfg, a))
+    masks = dk._face_masks(cfg, dk._full_iotas(cfg, "cpu"))
+    for d, axis in dk._DIM_AXIS:
+        lo, hi = (c[ISL] for c in dk._face_coeffs(cfg, eps, d, axis, masks))
+        n = dims[d]
+        assert torch.equal(_bits(hi.narrow(axis, 0, n - 1)),
+                           _bits(lo.narrow(axis, 1, n - 1))), d
+        first, last = lo.narrow(axis, 0, 1), hi.narrow(axis, n - 1, 1)
+        if periodic:
+            assert torch.equal(_bits(last), _bits(first)), d
+            continue
+        e = (eps[0] if n_eps == 1 else eps[d])[ISL]
+        idr2 = cfg.rnd(cfg.idr2[d])
+        for face, cell in ((first, e.narrow(axis, 0, 1)),
+                           (last, e.narrow(axis, n - 1, 1))):
+            assert torch.equal(_bits(face), _bits(
+                2.0 * cell * cell / (cell + cell) * idr2)), d
+
+
 # ---------------------------------------------------------------------------
 # solvers
 # ---------------------------------------------------------------------------
