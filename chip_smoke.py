@@ -30,7 +30,11 @@ object per line:
   run the wide design; the coefficient double pair and down-leg
   (n_eps 1 and 3, n_pairs 1 and 2, float32: the face-plane design of
   csrc/stream_faces.cuh, which every case must run) on the same edge
-  levels and the 520x520x264 ones, the four BC kinds with coefficients
+  levels and the 520x520x264 ones, and the coefficient apply, residual
+  and residual-restriction (n_eps 1 and 3, float32 and float64: the
+  face-plane apply of csrc/apply_faces.cuh, which every case must run)
+  on the edge levels, the 520x520x264 one with x and z periodic and a
+  13x7x5 one (apply and residual), the four BC kinds with coefficients
   0.5 + U[0,1) and Dirichlet faces also with 10**(3 U[0,1)) (a 1e3
   contrast); the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
@@ -78,8 +82,9 @@ object per line:
   and eight have-guess FMGs (must fall monotonically below 1e-3 of the
   first), the probe's setup time, ms per have-guess FMG, unknowns/s,
   launches (the coefficient kernels on every level, no
-  constant-coefficient stencil launch, every double pair and down-leg
-  on the face-plane design), peak memory;
+  constant-coefficient stencil launch, every double pair, down-leg,
+  apply, residual and residual-restriction on its face-plane design),
+  peak memory;
 * ``refined_vcoeff`` — ``solve_refined`` for ahelmholtz at 512^3 (lam
   0.31, three float64 coefficient fields, ten outers): norms to 1e-10 of
   the first, ms per outer, device time of ``residual_df32_vcoeff`` (plain
@@ -131,7 +136,8 @@ object per line:
   plain_ms, bound_ms (bytes over 3.35 TB/s or flops over 67 TFLOP/s,
   whichever is larger), library_ms (the double pair's and the
   down-leg's rows name the design they run at 512^3 in ``design``, the
-  wide one or, for ``n_eps`` 1 and 3, the face-plane one;
+  wide one or, for ``n_eps`` 1 and 3, the face-plane one, and so do the
+  apply's and the residual-restriction's ``n_eps`` rows;
   the apply's row carries ``conv3d_core_ms``, a cuDNN 7-point
   convolution of the zero-padded core as a yardstick: not the same
   function at the faces); then the forest's kernels at the
@@ -758,10 +764,19 @@ def phase_checks(dk, df, quick):
     wide = wide_checks(dk) + big
     worst = max([worst] + [r["max_ulp"] for r in wide])
     rows += wide
-    faces = face_checks(dk) + face_checks(dk, WIDE_DOWN_SHAPES)
+    # float32: every kind on the edge levels and on 520x520x264 with x
+    # and z periodic, the double pair and the down-leg on the other two
+    # large levels, the apply and the residual on the odd one; float64:
+    # the apply's three kinds on the same levels as in float32
+    apply_shapes = WIDE_EDGE_SHAPES + WIDE_DOWN_SHAPES[2:]
+    faces = (face_checks(dk) + face_checks(dk, WIDE_DOWN_SHAPES[2:]) +
+             face_checks(dk, WIDE_DOWN_SHAPES[:2], FACE_KINDS[:2]) +
+             face_checks(dk, [ODD_APPLY_SHAPE], FACE_KINDS[2:]) +
+             face_checks(dk, apply_shapes + [ODD_APPLY_SHAPE],
+                         FACE_KINDS[2:], torch.float64))
     if not all(r["faces"] for r in faces):
-        fail("a float32 coefficient double pair or down-leg did not run the "
-             f"face-plane design: {[r for r in faces if not r['faces']][:1]}")
+        fail("a coefficient kernel did not run its face-plane design: "
+             f"{[r for r in faces if not r['faces']][:1]}")
     worst = max([worst] + [r["max_ulp"] for r in faces])
     rows += faces
     bad = [r for r in rows if r["max_ulp"] != 0]
@@ -875,13 +890,33 @@ def wide_checks(dk, shapes=WIDE_EDGE_SHAPES,
     return rows
 
 
-def face_checks(dk, shapes=WIDE_EDGE_SHAPES):
-    """The coefficient double pair and down-leg (n_pairs 1 and 2, n_eps 1
-    and 3; the face-plane design of csrc/stream_faces.cuh, which takes
-    every float32 launch) against their plain versions on ``shapes``:
-    float32, the four BC kinds with smooth coefficients 0.5 + U[0,1),
-    Dirichlet faces also with rough ones 10**(3 U[0,1)), NaN pads.  A
-    case must be 0 ulp and counted under its ``[faces]`` counter."""
+#: the face-plane design of each entry point's coefficient launches
+#: (the double pair's and the down-leg's in float32 only)
+FACE_DESIGNS = {
+    "pair_sweep_dense": "octree_mg_tpu_torch/csrc/stream_faces.cuh",
+    "downsweep_dense": "octree_mg_tpu_torch/csrc/stream_faces.cuh",
+    "stencil_apply_dense": "octree_mg_tpu_torch/csrc/apply_faces.cuh",
+    "residual_restrict_dense": "octree_mg_tpu_torch/csrc/apply_faces.cuh"}
+#: the kernels of face_checks: the double pair and the down-leg
+#: (csrc/stream_faces.cuh), the apply, the residual and the
+#: residual-restriction (csrc/apply_faces.cuh)
+FACE_KINDS = ("pairs", "downsweep", "apply", "residual", "residual_restrict")
+#: a small level with odd extents, y periodic, for the apply and the
+#: residual (they need no even extents; the others do, or take one pair)
+ODD_APPLY_SHAPE = ((13, 7, 5), (False, True, False))
+
+
+def face_checks(dk, shapes=WIDE_EDGE_SHAPES, kinds=FACE_KINDS,
+                dtype=torch.float32):
+    """The coefficient kernels of ``kinds`` (n_eps 1 and 3; the
+    face-plane designs: the double pair and the down-leg, n_pairs 1 and
+    2, in csrc/stream_faces.cuh, which takes every float32 launch, the
+    apply, the residual and residual_restrict_dense in
+    csrc/apply_faces.cuh, which takes every launch) against their plain
+    versions on ``shapes`` in ``dtype``: the four BC kinds with smooth
+    coefficients 0.5 + U[0,1), Dirichlet faces also with rough ones
+    10**(3 U[0,1)), NaN pads.  A case must be 0 ulp and counted under
+    its ``[faces]`` counter."""
     rows, seed = [], 700
     for dims, per in shapes:
         for n_eps in (1, 3):
@@ -891,20 +926,21 @@ def face_checks(dk, shapes=WIDE_EDGE_SHAPES):
                 lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
                 seed += 1
                 cfg, field, planes = make_case(dk, dims, per, bc_kind,
-                                               torch.float32, seed,
-                                               n_eps=n_eps)
+                                               dtype, seed, n_eps=n_eps)
                 eps = eps_fields(dk, cfg, seed, rough)
                 phi, rhs = field(cfg), field(cfg)
                 cases = []
                 for k in (1, 2) if cfg.periodic_even else (1,):
-                    cases.append((
-                        f"pairs{k}[n_eps={n_eps}][faces]", "pair_sweep_dense",
-                        lambda k=k: (dk.pair_sweep_dense(
-                            cfg, phi, rhs, lam, planes, 0, n_pairs=k,
-                            eps=eps),),
-                        lambda k=k: (dk._pairs_plain(
-                            cfg, phi, rhs, lam, planes, 0, k, eps),)))
-                    if cfg.even_dims:
+                    if "pairs" in kinds:
+                        cases.append((
+                            f"pairs{k}[n_eps={n_eps}][faces]",
+                            "pair_sweep_dense",
+                            lambda k=k: (dk.pair_sweep_dense(
+                                cfg, phi, rhs, lam, planes, 0, n_pairs=k,
+                                eps=eps),),
+                            lambda k=k: (dk._pairs_plain(
+                                cfg, phi, rhs, lam, planes, 0, k, eps),)))
+                    if cfg.even_dims and "downsweep" in kinds:
                         cases.append((
                             f"downsweep{k}[n_eps={n_eps}][faces]",
                             "downsweep_dense",
@@ -913,6 +949,24 @@ def face_checks(dk, shapes=WIDE_EDGE_SHAPES):
                                 eps=eps),
                             lambda k=k: dk._down_plain(
                                 cfg, phi, rhs, lam, planes, 0, k, eps)))
+                for res in (False, True):
+                    kind = "residual" if res else "apply"
+                    if kind in kinds:
+                        cases.append((
+                            f"{kind}[n_eps={n_eps}][faces]",
+                            "stencil_apply_dense",
+                            lambda res=res: (dk.stencil_apply_dense(
+                                cfg, phi, rhs, lam, planes, res, eps=eps),),
+                            lambda res=res: (dk._apply_plain(
+                                cfg, phi, rhs, lam, planes, res, eps),)))
+                if cfg.even_dims and "residual_restrict" in kinds:
+                    cases.append((
+                        f"residual_restrict[n_eps={n_eps}][faces]",
+                        "residual_restrict_dense",
+                        lambda: dk.residual_restrict_dense(
+                            cfg, phi, rhs, lam, planes, eps=eps),
+                        lambda: dk._down_plain(
+                            cfg, phi, rhs, lam, planes, 0, 0, eps)[1:]))
                 for name, entry, kern, plain in cases:
                     counter = dk.faces_name(entry, n_eps)
                     before = dk.launch_counts()[counter]
@@ -924,7 +978,7 @@ def face_checks(dk, shapes=WIDE_EDGE_SHAPES):
                           for a, b in zip(got, want)]
                     u = max(us) if min(us) >= 0 else 1 << 62
                     rows.append({"kernel": name, "dims": dims,
-                                 "periodic": per, "dtype": "float32",
+                                 "periodic": per, "dtype": str(dtype)[6:],
                                  "bc": bc_kind, "rough_eps": rough,
                                  "lam": lam, "max_ulp": u, "faces": faces})
                 del phi, rhs, eps, cases
@@ -1234,7 +1288,7 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
             **({"design": "octree_mg_tpu_torch/csrc/stream_wide.cuh",
                 "launches_on_the_wide_design": path[name + "[wide]"]}
                if name in WIDE_KERNELS else {}),
-            **({"design": "octree_mg_tpu_torch/csrc/stream_faces.cuh",
+            **({"design": FACE_DESIGNS[name.split("[")[0]],
                 "launches_on_the_face_design": path[name + "[faces]"]}
                if name.split("[")[0] in dk.FACE_ENTRIES
                and name in EPS_VARIANTS else {}),
@@ -1678,8 +1732,9 @@ def phase_vcoeff_path(pkg, dk):
                  if launches[k]]
         if const:
             fail(f"vcoeff path {op} ran constant-coefficient kernels {const}")
-        # every float32 double pair and down-leg, the 512^3 ones included,
-        # runs the face-plane design
+        # every float32 coefficient double pair, down-leg, apply,
+        # residual and residual-restriction, the 512^3 ones and the
+        # probe's included, runs its face-plane design
         off = [k for k in dk.FACE_ENTRIES
                if launches[dk.faces_name(k, n_eps)]
                != launches[dk.variant_name(k, n_eps)]]

@@ -19,10 +19,17 @@ Kernels here without a counterpart there (new variants: NE = 1 and 3,
 SEG = 1, the NS = 1 half-sweep, prolongation modes 1 and 2, the boxed
 solver's flat half-sweep) are listed as new.
 
-Prints one JSON object: {"kernels": [{"name", "counterpart",
+A kernel of OTHER_ROOT that a newer design here replaced, so that the
+shipped build no longer holds it, is looked up in this tree's build of
+the designs before (``PROBE_FLAGS``, what
+``experiments/probe_torch_kernels.py`` times the new designs against)
+and listed under "probe_only" when found there.
+
+Prints one JSON object: {"kernels": [{"name", "counterpart", "build",
 "instructions", "identical", "first_difference"}], "new": [...],
-"all_identical": bool}.  Exits 1 when a kernel of OTHER_ROOT has no
-counterpart or differs.  Needs nvcc and cuobjdump, no GPU.
+"probe_only": [...], "all_identical": bool}.  Exits 1 when a kernel of
+OTHER_ROOT has no counterpart in either build or differs.  Needs nvcc
+and cuobjdump, no GPU.
 """
 import json
 import os
@@ -40,6 +47,9 @@ from octree_mg_tpu_torch.ops import _cuda_build as cb  # noqa: E402
 LIB_ONLY = ("-shared", "-Xcompiler", "-fPIC")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _NAME = re.compile(r"^(?:void )?([\w:]+)(?:<(.*)>)?\(")
+#: the build of the designs the shipped ones replaced: every coefficient
+#: kernel on stream_kernel.cuh
+PROBE_FLAGS = ["-DOMG_FACES=0"]
 
 
 def _tool(name):
@@ -52,8 +62,9 @@ def _flags():
     return [f for f in cb.NVCC_FLAGS if f not in LIB_ONLY]
 
 
-def disassemble(root, work):
-    """{mangled kernel name: [normalised SASS lines]} of every source."""
+def disassemble(root, work, extra=()):
+    """{mangled kernel name: [normalised SASS lines]} of every source,
+    built with the extra nvcc flags."""
     csrc = os.path.join(root, "octree_mg_tpu_torch", "csrc")
     os.makedirs(work, exist_ok=True)
     procs = {}
@@ -62,7 +73,7 @@ def disassemble(root, work):
             continue
         cubin = os.path.join(work, fn[:-3] + ".cubin")
         procs[fn] = (cubin, subprocess.Popen(
-            [cb._nvcc(), *_flags(), "-cubin", "-I", csrc, "-o", cubin,
+            [cb._nvcc(), *_flags(), *extra, "-cubin", "-I", csrc, "-o", cubin,
              os.path.join(csrc, fn)]))
     kernels = {}
     for fn, (cubin, p) in procs.items():
@@ -105,31 +116,45 @@ def main(argv):
     other = os.path.abspath(argv[0])
     work = argv[1] if len(argv) > 1 else tempfile.mkdtemp(prefix="sass_")
     here = disassemble(ROOT, os.path.join(work, "here"))
+    probe = disassemble(ROOT, os.path.join(work, "probe"), PROBE_FLAGS)
     there = disassemble(other, os.path.join(work, "other"))
-    names = demangle(list(here) + list(there))
-    by_key = {key(names[k]): k for k in here}
-    rows, used, ok = [], set(), True
+    names = demangle(sorted(set(here) | set(probe) | set(there)))
+
+    keys = {b: {key(names[k]): k for k in built}
+            for b, built in (("shipped", here), ("probe", probe))}
+
+    def find(b, name, args):
+        return keys[b].get((name, args)) or keys[b].get((name, args + ("0",)))
+
+    rows, used, probe_only, ok = [], set(), [], True
     for k, lines in sorted(there.items()):
         name, args = key(names[k])
-        mine = by_key.get((name, args)) or by_key.get((name, args + ("0",)))
+        mine, built, src = find("shipped", name, args), "shipped", here
+        if mine is None:
+            mine, built, src = find("probe", name, args), "probe", probe
         row = {"name": names[k], "counterpart": names.get(mine),
-               "instructions": len(lines) // 2}
+               "build": built, "instructions": len(lines) // 2}
         if mine is None:
             row.update(identical=False, first_difference="no counterpart")
         else:
-            used.add(mine)
-            same = here[mine] == lines
-            diff = next((i for i, (a, b) in enumerate(zip(here[mine], lines))
-                         if a != b), min(len(here[mine]), len(lines)))
+            if built == "shipped":
+                used.add(mine)
+            else:
+                probe_only.append(names[k])
+            here_lines = src[mine]
+            same = here_lines == lines
+            diff = next((i for i, (a, b) in enumerate(zip(here_lines, lines))
+                         if a != b), min(len(here_lines), len(lines)))
             row.update(identical=same, first_difference=None if same else {
                 "line": diff,
-                "here": here[mine][diff] if diff < len(here[mine]) else None,
+                "here": here_lines[diff] if diff < len(here_lines) else None,
                 "other": lines[diff] if diff < len(lines) else None})
         ok &= row["identical"]
         rows.append(row)
     print(json.dumps({"other": other, "kernels": rows,
                       "new": sorted(names[k] for k in here if k not in used),
-                      "all_identical": ok}), flush=True)
+                      "probe_only": probe_only, "all_identical": ok}),
+          flush=True)
     return 0 if ok else 1
 
 

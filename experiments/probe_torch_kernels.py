@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
 with other build-time constants (``-DOMG_WIDE``, ``-DOMG_FACES``,
-``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``) into
-``build/probe`` and prints, one JSON object per line:
+``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``)
+into ``build/probe`` and prints, one JSON object per line:
 
 * ``wide``   — the double pair and the down-leg (n_pairs 2) as shipped
   (the wide design of csrc/stream_wide.cuh where it takes the level)
@@ -36,14 +36,32 @@ with other build-time constants (``-DOMG_WIDE``, ``-DOMG_FACES``,
 * ``faces_fmg`` — chip_smoke.py's ``vcoeff_path`` solver (512^3 float32,
   vhelmholtz and ahelmholtz, lam 1.5) after three FMGs: the device time
   (CUDA events) of a have-guess FMG and of its 512^3 V-cycle stage with
-  the coefficient kernels of the old design and of the shipped one, in
-  turns (old, new, new, old), median of 10 per turn;
+  the coefficient kernels of the old design (``-DOMG_FACES=0``:
+  stream_kernel.cuh for every one) and of the shipped ones, in turns
+  (old, new, new, old), median of 10 per turn;
+* ``apply_faces`` — the coefficient apply, residual and residual-
+  restriction (n_eps 1 and 3, coefficients 0.5 + U[0,1), lam 0.3,
+  Dirichlet faces) as shipped (the face-plane apply of
+  csrc/apply_faces.cuh on every coefficient launch) against the design
+  before it (``-DOMG_FACES=0``, stream_kernel.cuh), at every level from
+  512^3 to 16^3 in float32, in turns (old, new, new, old), median of 10
+  per turn, CUDA events, with the design each launch ran and the byte
+  bound at 3.35 TB/s; the same in float64; then the design forced on
+  every launch (``-DOMG_FACES=2``) for constant coefficients (float32,
+  512^3 to 128^3) against the old one; then old
+  against new at 512^3, bitwise, for the three kernels and both n_eps
+  (``apply_faces_bitwise``), and the resources ptxas reports for the
+  face-plane apply's instantiations (``apply_faces_ptxas``);
 * ``sass``   — static SASS instructions of the double pair's and the
   down-leg's main loop (the longest backward branch), old and new, and
   per cell a thread updates in one step of that loop (old: one per
   half-sweep; new: R per half-sweep); the same for the float32
   coefficient kernels of both designs (``stream_kernel`` with n_eps 1
-  or 3, ``face_kernel``), from the shipped build;
+  or 3, ``face_kernel``), and per cell of a thread's step for the
+  coefficient apply, residual and residual-restriction of both designs
+  (``stream_kernel`` with no half-sweep, ``apply_faces_kernel``): the
+  face-plane kernels from the shipped build, the ``stream_kernel`` ones
+  they replaced from a build with ``-DOMG_FACES=0``;
 * ``tiles``  — double pair and downsweep at 512^3 float32 for a list of
   (tile x, tile y, chunk z) shapes of the old design, median of 8, CUDA
   events;
@@ -500,6 +518,9 @@ def sass_loops(flags):
 def probe_sass():
     old = sass_loops(["-DOMG_WIDE=0"])
     new = sass_loops([])
+    # the coefficient kernels the face-plane designs replaced are built
+    # only with OMG_FACES=0
+    faces_old = sass_loops(["-DOMG_FACES=0"])
     rows = []
     for d, (n_all, n_loop) in sorted(old.items()):
         m = re.match(r"void stream_kernel<float, (?:\(int\))?([24]), "
@@ -518,18 +539,36 @@ def probe_sass():
             rows.append({"kernel": d, "design": "new", "instructions": n_all,
                          "loop": n_loop, "updates_per_thread_step": ns * r,
                          "loop_per_update": n_loop / (ns * r)})
-        # the face-plane kernels and the coefficient kernels they replace
-        m = re.match(r"void (face_kernel<float, (?:\(int\))?([24]), "
-                     r"(?:\(int\))?[03], (?:\(int\))?[13]>|"
-                     r"stream_kernel<float, (?:\(int\))?([24]), "
-                     r"(?:\(int\))?[03], (?:\(int\))?[13], "
-                     r"(?:\(int\))?0, (?:\(int\))?0>)", d)
-        if m:
-            ns = int(m.group(2) or m.group(3))
-            rows.append({"kernel": d, "design": "faces" if m.group(2)
-                         else "stream (n_eps)", "instructions": n_all,
-                         "loop": n_loop, "updates_per_thread_step": ns,
-                         "loop_per_update": n_loop / ns})
+    for built, design in ((new, "faces"), (faces_old, "stream (n_eps)")):
+        for d, (n_all, n_loop) in sorted(built.items()):
+            # the face-plane kernels and the coefficient kernels they
+            # replace
+            m = re.match(r"void (face_kernel<float, (?:\(int\))?([24]), "
+                         r"(?:\(int\))?[03], (?:\(int\))?[13]>|"
+                         r"stream_kernel<float, (?:\(int\))?([24]), "
+                         r"(?:\(int\))?[03], (?:\(int\))?[13], "
+                         r"(?:\(int\))?0, (?:\(int\))?0>)", d)
+            if m and (m.group(2) is not None) == (design == "faces"):
+                ns = int(m.group(2) or m.group(3))
+                rows.append({"kernel": d, "design": design,
+                             "instructions": n_all, "loop": n_loop,
+                             "updates_per_thread_step": ns,
+                             "loop_per_update": n_loop / ns})
+            # the face-plane apply (four cells a thread and step) and the
+            # coefficient apply, residual and residual-restriction it
+            # replaces (two cells a thread and step)
+            m = re.match(r"void (apply_faces_kernel<float, (?:\(int\))?"
+                         r"[123], (?:\(int\))?[13]>|stream_kernel<float, "
+                         r"(?:\(int\))?0, (?:\(int\))?[123], "
+                         r"(?:\(int\))?[13], (?:\(int\))?0, "
+                         r"(?:\(int\))?0>)", d)
+            cells = 4 if d.startswith("void apply_faces") else 2
+            if m and (cells == 4) == (design == "faces"):
+                rows.append({"kernel": d, "design": "apply_faces"
+                             if cells == 4 else design,
+                             "instructions": n_all, "loop": n_loop,
+                             "cells_per_thread_step": cells,
+                             "loop_per_cell": n_loop / cells})
     print(json.dumps({"sass": rows}), flush=True)
 
 
@@ -552,17 +591,22 @@ def eps_level(n, n_eps, dtype):
     return cfg, f
 
 
-def faces_calls(fns, cfg, f, n_pairs):
-    """(pair, down) launches of one build on the fields f with their
-    coefficient fields; each returns the design the library ran."""
-    st = torch.cuda.current_stream().cuda_stream
-    P = dk._params(cfg, 0.3, [None] * 6, 0, 2 * n_pairs)
+def eps_launch_args(cfg, f, n_sweeps=0):
+    """(stream, LevelParams, EpsParams, dtype code, design out) of a
+    launch on the fields f with their coefficient fields, lam 0.3."""
+    P = dk._params(cfg, 0.3, [None] * 6, 0, n_sweeps)
     E = dk._EpsParams()
     E.n = len(f["eps"])
     for i, e in enumerate(f["eps"]):
         E.f[i] = e.data_ptr()
-    dt = dk._dt(cfg)
-    d = ctypes.c_int(0)
+    return (torch.cuda.current_stream().cuda_stream, P, E, dk._dt(cfg),
+            ctypes.c_int(0))
+
+
+def faces_calls(fns, cfg, f, n_pairs):
+    """(pair, down) launches of one build on the fields f with their
+    coefficient fields; each returns the design the library ran."""
+    st, P, E, dt, d = eps_launch_args(cfg, f, 2 * n_pairs)
 
     def pair():
         e = fns["omg_stencil_sweep"](dt, 0, ctypes.byref(P), ctypes.byref(E),
@@ -638,6 +682,106 @@ def probe_faces():
     print(json.dumps({"faces_ptxas": {"old": old, "new": new}}), flush=True)
 
 
+#: the face-plane apply (csrc/apply_faces.cuh) as shipped against the
+#: design before it (OMG_FACES=0: stream_kernel.cuh alone), and a build
+#: that sends every apply, residual and residual-restriction to it
+#: (OMG_FACES=2: constant coefficients too)
+APPLY_VARIANTS = {"old": ["-DOMG_FACES=0"], "new": [], "all": ["-DOMG_FACES=2"]}
+
+
+def apply_calls(fns, cfg, f):
+    """(apply, residual, residual-restriction) launches of one build on
+    the fields f with their coefficient fields; each returns the design
+    the library ran."""
+    st, P, E, dt, d = eps_launch_args(cfg, f)
+
+    def sweep(mode):
+        def run():
+            e = fns["omg_stencil_sweep"](
+                dt, mode, ctypes.byref(P), ctypes.byref(E),
+                f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                f["out"].data_ptr(), st, ctypes.byref(d))
+            assert e == 0, e
+            return d.value
+        return run
+
+    def rr():
+        e = fns["omg_downsweep"](dt, 0, ctypes.byref(P), ctypes.byref(E),
+                                 f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                                 None, f["pc"].data_ptr(),
+                                 f["rc"].data_ptr(), st, ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+
+    return sweep(1), sweep(2), rr
+
+
+def apply_bytes(kern, n, n_eps, item):
+    """Bytes an apply (phi in, out), residual (phi, rhs in, out) or
+    residual-restriction (phi, rhs in, two coarse fields out) must move,
+    each coefficient field read once."""
+    n_f, n_c = n ** 3, (n // 2) ** 3
+    return item * ({"apply": 2 * n_f, "residual": 3 * n_f,
+                    "residual_restrict": 2 * n_f + 2 * n_c}[kern] +
+                   n_eps * n_f)
+
+
+APPLY_KINDS = ("apply", "residual", "residual_restrict")
+
+
+def probe_apply_faces():
+    fns, logs = build_many({k: v + ["-Xptxas", "-v"]
+                            for k, v in APPLY_VARIANTS.items()})
+    # coefficients: the shipped dispatch (new) against the old design at
+    # every level, float32 and float64; constant coefficients: the
+    # design forced (all) against the old one, as input for row 4
+    plan = [(torch.float32, n_eps, n, "new") for n in (512, 256, 128, 64,
+                                                        32, 16)
+            for n_eps in (1, 3)]
+    plan += [(torch.float64, n_eps, n, "new") for n in (512, 256, 128, 64,
+                                                        32, 16)
+             for n_eps in (1, 3)]
+    plan += [(torch.float32, 0, n, "all") for n in (512, 256, 128)]
+    for dtype, n_eps, n, tag in plan:
+        cfg, f = eps_level(n, n_eps, dtype)
+        item = 4 if dtype == torch.float32 else 8
+        calls = {t: apply_calls(fns[t], cfg, f) for t in ("old", tag)}
+        for k, kern in enumerate(APPLY_KINDS):
+            design = {t: calls[t][k]() for t in calls}
+            ms = {t: [] for t in calls}
+            for t in ("old", tag, tag, "old"):
+                ms[t].append(time_ms(calls[t][k], reps=10))
+            print(json.dumps({"apply_faces": {
+                "n": n, "dtype": str(dtype)[6:], "n_eps": n_eps,
+                "kernel": kern, "build": tag, "ms": ms, "design": design,
+                "bound_ms": 1e3 * apply_bytes(kern, n, n_eps, item) /
+                3.35e12}}), flush=True)
+        del f, calls
+        torch.cuda.empty_cache()
+    # old against new, bitwise, at 512^3
+    checks = []
+    for n_eps in (1, 3):
+        cfg, f = eps_level(512, n_eps, torch.float32)
+        for k, kern in enumerate(APPLY_KINDS):
+            got = {}
+            for t in ("old", "new"):
+                for key in ("out", "pc", "rc"):
+                    f[key].fill_(float("nan"))
+                apply_calls(fns[t], cfg, f)[k]()
+                keys = ("pc", "rc") if kern == "residual_restrict" else (
+                    "out",)
+                got[t] = [f[key][dk._ISL].clone() for key in keys]
+            torch.cuda.synchronize()
+            checks.append({"n_eps": n_eps, "kernel": kern, "bitwise": all(
+                torch.equal(a, b) for a, b in zip(got["old"], got["new"]))})
+            del got
+        del f
+        torch.cuda.empty_cache()
+    print(json.dumps({"apply_faces_bitwise": checks}), flush=True)
+    print(json.dumps({"apply_faces_ptxas": ptxas_resources(
+        logs["all"], lambda d: "apply_faces_kernel" in d)}), flush=True)
+
+
 def vcoeff_solver(op, n=512):
     """The vcoeff_path solver of chip_smoke.py (512^3 float32, lam 1.5,
     Dirichlet 0, smooth coefficients, seeded rhs) after three FMGs."""
@@ -698,6 +842,7 @@ if __name__ == "__main__":
     for name, probe in (("wide", probe_wide), ("wide_fmg", probe_wide_fmg),
                         ("faces", probe_faces),
                         ("faces_fmg", probe_faces_fmg),
+                        ("apply_faces", probe_apply_faces),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

@@ -42,14 +42,21 @@
 //   experiments/probe_torch_kernels.py faces): each face coefficient is
 //   built once per plane, from one read per field, into shared-memory
 //   face rings beside the phi ring;
-// * the double pair in float64, the apply and the residual, and the slab
-//   variants: stream_kernel.cuh's ring and wavefront, which build the six
-//   harmonic means of a cell at every update from the coefficients of
-//   the cell and its six neighbours, read from device memory (L1/L2
-//   serve the reuse), so shared memory stays what the NE = 0 kernel
-//   needs.  In float64 the face rings of the double pair would not fit a
-//   block's 227 KB; an apply or a residual builds each face only once or
-//   twice per cell anyway.
+// * the apply and the residual in float32 and float64: the face-plane
+//   apply of apply_faces.cuh at every level, because it was faster than
+//   stream_kernel.cuh at every level from 16^3 to 512^3 on an H100 (1.32
+//   against 2.56 ms for the n_eps 1 residual at 512^3 float32, PERF.md,
+//   experiments/probe_torch_kernels.py apply_faces): no wavefront, four
+//   cells a thread, planes copied in by cp.async, each face built once
+//   per plane.  Building a cell's six faces from seven or nine
+//   scattered reads and six divisions, as the kernel below does, was
+//   what the apply lost its time to, not a deep ring;
+// * the double pair in float64 and the slab variants: stream_kernel.cuh's
+//   ring and wavefront, which build the six harmonic means of a cell at
+//   every update from the coefficients of the cell and its six
+//   neighbours, read from device memory (L1/L2 serve the reuse), so
+//   shared memory stays what the NE = 0 kernel needs.  In float64 the
+//   face rings of the double pair would not fit a block's 227 KB.
 //
 // The z-slab variants (omg_stencil_slab, SLAB = 1) replace the same
 // Pallas entry points called with z_gates, on one slab of the z-slab
@@ -62,7 +69,7 @@
 // Bound: bytes, as the unsharded kernel, plus the halo planes read.
 // half_sweep_dense with z_gates has no caller in the JAX package and is
 // not instantiated.
-#include "stream_faces.cuh"
+#include "apply_faces.cuh"
 
 // n_sweeps half-sweeps of one or two pairs: constant coefficients on the
 // wide design (stream_wide.cuh, *design = 1) where it takes the level,
@@ -88,14 +95,31 @@ static int launch_pairs(const LevelParams& P, const EpsParams& E,
   return launch_stream<T, NS, M_PAIRS, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
 }
 
+// A(phi) or rhs - A(phi): coefficients on the face-plane apply
+// (apply_faces.cuh, *design = 2), the rest on stream_kernel.cuh.  The
+// stream_kernel.cuh instance of a launch the face-plane apply takes is
+// built only with -DOMG_FACES=0, for the probe.
+template <typename T, int MODE, int NE>
+static int launch_apply(const LevelParams& P, const EpsParams& E,
+                        const void* phi, const void* rhs, void* out,
+                        cudaStream_t s, int* design) {
+#if OMG_FACES
+  if constexpr (af_takes<T, NE>()) {
+    *design = 2;
+    return launch_apply_faces<T, MODE, NE>(P, E, phi, rhs, out, nullptr, nullptr, s);
+  } else
+#endif
+    return launch_stream<T, 0, MODE, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+}
+
 template <typename T, int NE>
 static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
                     const void* phi, const void* rhs, void* out,
                     cudaStream_t s, int* design) {
   if (mode == M_APPLY)
-    return launch_stream<T, 0, M_APPLY, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+    return launch_apply<T, M_APPLY, NE>(P, E, phi, rhs, out, s, design);
   if (mode == M_RESIDUAL)
-    return launch_stream<T, 0, M_RESIDUAL, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+    return launch_apply<T, M_RESIDUAL, NE>(P, E, phi, rhs, out, s, design);
   if (mode != M_PAIRS) return (int)cudaErrorInvalidValue;
   if (P.n_sweeps == 1) {
     // half_sweep_dense: constant coefficients only
@@ -123,9 +147,9 @@ static int dispatch_eps(int mode, const LevelParams& P, const EpsParams& E,
 // dtype: 0 = float32, 1 = float64; mode: 0 = n_sweeps half-sweeps (1, 2
 // or 4; 1 only with E->n 0), 1 = A(phi), 2 = rhs - A(phi); E: E->n coefficient fields (0, 1 or
 // 3) in E->f, or null for none.  design, unless null, receives 1 where
-// the launch ran the wide design (stream_wide.cuh), 2 where it ran the
-// face-plane design (stream_faces.cuh), else 0.  Returns the cudaError_t
-// of the launch.
+// the launch ran the wide design (stream_wide.cuh), 2 where it ran a
+// face-plane design (stream_faces.cuh for pairs, apply_faces.cuh for
+// modes 1 and 2), else 0.  Returns the cudaError_t of the launch.
 extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
                                  const EpsParams* E, const void* phi,
                                  const void* rhs, void* out, void* stream,

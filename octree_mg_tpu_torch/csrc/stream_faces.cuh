@@ -2,9 +2,10 @@
 // (pair_sweep_dense with n_eps 1 or 3, n_pairs 1 or 2) of K1
 // (stencil_sweep.cu) and the fused down-leg (downsweep_dense with n_eps 1
 // or 3 and its fine output) of K2 (downsweep.cu), float32, no segments,
-// no slabs.  Every other coefficient launch of the two sources (float64,
-// the slabs, the apply, the residual, residual_restrict_dense) runs
-// stream_kernel.cuh.
+// no slabs.  The coefficient apply, residual and residual_restrict_dense
+// run apply_faces.cuh, which builds its faces the same way without a
+// wavefront; every other coefficient launch of the two sources (the
+// float64 double pair and down-leg, the slabs) runs stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the eps bodies of the Pallas entry
 // points pair_sweep_dense and downsweep_dense of the JAX package's

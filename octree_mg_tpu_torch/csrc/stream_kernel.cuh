@@ -32,10 +32,13 @@
 // device memory at every update (face_coeffs): the ring, the wavefront
 // and the geometry are the same for every NE, and the NE = 0 code paths
 // are untouched.  These NE > 0 instantiations run the float64 double
-// pair and down-leg, the apply, the residual, residual_restrict_dense and
-// the slab variants; the float32 double pair and down-leg (fine output)
-// run stream_faces.cuh, which builds each face once per plane into
-// shared-memory face rings that would not fit a block in float64.
+// pair and down-leg (whose face rings would not fit a block in float64)
+// and the slab variants.  The float32 double pair and down-leg with its
+// fine output run stream_faces.cuh, and the apply, the residual and
+// residual_restrict_dense apply_faces.cuh in both dtypes: both build
+// each face once per plane and were faster at every level they take
+// (PERF.md).  The NE > 0 apply, residual and residual-restriction here
+// are instantiated only in the probe's -DOMG_FACES=0 build.
 //
 // SEG = 1 is the segment-synthesis variant of the dense forest's
 // fused-canvas path (NE = 0 only): no physical-face synthesis at all;

@@ -27,7 +27,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("stencil_sweep", "seg_sweep", "downsweep", "restrict",
            "prolong_correct", "residual_df32", "flat_sweep")
 HEADERS = ("stencil_common.cuh", "stream_kernel.cuh", "stream_wide.cuh",
-           "stream_faces.cuh")
+           "stream_faces.cuh", "apply_faces.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -68,9 +68,15 @@ The double pair and the down-leg run one of three kernel designs, which
 the library picks by level size, dtype, ``n_eps`` and SM count:
 csrc/stream_wide.cuh for constant coefficients on large levels,
 csrc/stream_faces.cuh for the coefficient variants on every float32
-level, csrc/stream_kernel.cuh for the rest.  The library reports which
-one a launch ran; a launch of the wide one is counted under
-``name[wide]`` as well, one of the face-plane one under
+level, csrc/stream_kernel.cuh for the rest.  The apply, the residual and
+``residual_restrict_dense`` run one of two: csrc/apply_faces.cuh for the
+coefficient variants on every level in both dtypes, csrc/stream_kernel.cuh
+for the rest.  Both face-plane designs build each harmonic-mean face once
+per plane, where stream_kernel.cuh builds a cell's six from the
+coefficients of the cell and its neighbours at every update; they were
+faster at every level they take (PERF.md).  The library reports
+which design a launch ran; a launch of the wide one is counted under
+``name[wide]`` as well, one of a face-plane one under
 ``name[n_eps=k][faces]``.
 
 Kernel and plain version keep one arithmetic order, one rounding per
@@ -134,8 +140,11 @@ for _e in SLAB_ENTRIES:
 for _n in (1, 3):
     for _e in SLAB_ENTRIES[:2]:
         _LAUNCHES[slab_name(_e, _n)] = 0
-#: the entry points with face-plane variants (csrc/stream_faces.cuh)
-FACE_ENTRIES = ("pair_sweep_dense", "downsweep_dense")
+#: the entry points with face-plane variants (csrc/stream_faces.cuh for
+#: the double pair and the down-leg, csrc/apply_faces.cuh for the apply,
+#: the residual and the residual-restriction)
+FACE_ENTRIES = ("pair_sweep_dense", "downsweep_dense", "stencil_apply_dense",
+                "residual_restrict_dense")
 
 
 def faces_name(name: str, n_eps: int) -> str:
@@ -748,8 +757,8 @@ def cuda_stream(t: torch.Tensor) -> int:
 
 
 def _count_design(name: str, n_eps: int, design: int) -> None:
-    """Count a launch of the double pair or the down-leg under the design
-    the library reports it ran (1 wide, 2 face-plane, 0 neither)."""
+    """Count a launch of a stencil entry point under the design the
+    library reports it ran (1 wide, 2 face-plane, 0 neither)."""
     if design == 1:
         _LAUNCHES[name + "[wide]"] += 1
     elif design == 2:
@@ -1054,11 +1063,14 @@ def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes)
     E = _eps_params(cfg, eps)
+    design = ctypes.c_int(0)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), mode, ctypes.byref(P), ctypes.byref(E), phi.data_ptr(),
-        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi), None)
+        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
+        ctypes.byref(design))
     record_launch(err, "stencil_apply_dense",
                   variant_name("stencil_apply_dense", cfg.n_eps))
+    _count_design("stencil_apply_dense", cfg.n_eps, design.value)
     return out
 
 

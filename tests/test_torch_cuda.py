@@ -60,33 +60,47 @@ def test_wide_kernels_equal_plain_versions_bitwise_at_edges(shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", ["edge", "large"])
-def test_face_kernels_equal_plain_versions_bitwise(level):
-    """The float32 coefficient double pair and down-leg (n_eps 1 and 3,
-    n_pairs 1 and 2; the face-plane design of csrc/stream_faces.cuh)
-    against their plain versions on a level with ragged big and coarse
-    tiles (chip_smoke.WIDE_EDGE_SHAPES[0]) or on 520x520x264 with x and
-    z periodic (WIDE_DOWN_SHAPES[2]): the four BC kinds, smooth and rough
-    coefficients, NaN pads, 0 ulp, every launch on the face-plane
-    design."""
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("level", ["edge", "large", "odd"])
+def test_face_kernels_equal_plain_versions_bitwise(level, dtype):
+    """The coefficient kernels of the face-plane designs (n_eps 1 and 3):
+    in float32 the double pair and the down-leg (n_pairs 1 and 2,
+    csrc/stream_faces.cuh), in both dtypes the apply, the residual and
+    the residual-restriction (csrc/apply_faces.cuh), against their plain
+    versions on a level with ragged big and coarse tiles
+    (chip_smoke.WIDE_EDGE_SHAPES[0]) or on 520x520x264 with x and z
+    periodic (WIDE_DOWN_SHAPES[2]), and the apply and the residual on a
+    small level with odd extents (ODD_APPLY_SHAPE): the four BC kinds,
+    smooth and rough coefficients, NaN pads, 0 ulp, every launch on its
+    face-plane design."""
     need_cuda()
     sys.path.insert(0, ROOT)
     import chip_smoke
     from octree_mg_tpu_torch.ops import dense_kernels as dk
-    shape = (chip_smoke.WIDE_EDGE_SHAPES[0] if level == "edge"
-             else chip_smoke.WIDE_DOWN_SHAPES[2])
+    kinds = (chip_smoke.FACE_KINDS if level != "odd" and dtype == "float32"
+             else chip_smoke.FACE_KINDS[2:])
+    shape = {"edge": chip_smoke.WIDE_EDGE_SHAPES[0],
+             "large": chip_smoke.WIDE_DOWN_SHAPES[2],
+             "odd": chip_smoke.ODD_APPLY_SHAPE}[level]
+    # ten cases (n_eps 1 and 3, five BC and coefficient sets) per kernel:
+    # the pair and the down-leg with one and two pairs, the apply, the
+    # residual and, on even levels, the residual-restriction
+    n_rows = 10 * (2 if level == "odd" else 7 if len(kinds) == 5 else 3)
     dk.reset_launch_counts()
-    rows = chip_smoke.face_checks(dk, [shape])
-    assert len(rows) == 40 and all(
+    rows = chip_smoke.face_checks(dk, [shape], kinds, getattr(torch, dtype))
+    assert len(rows) == n_rows and all(
         r["max_ulp"] == 0 and r["faces"] for r in rows), [
         r for r in rows if r["max_ulp"] or not r["faces"]][:5]
     counts = dk.launch_counts()
+    entry_of = {"pairs": "pair_sweep_dense", "downsweep": "downsweep_dense",
+                "apply": "stencil_apply_dense",
+                "residual": "stencil_apply_dense",
+                "residual_restrict": "residual_restrict_dense"}
     for n_eps in (1, 3):
-        for entry, prefix in (("pair_sweep_dense", "pairs"),
-                              ("downsweep_dense", "downsweep")):
+        for entry in set(entry_of.values()):
             assert counts[dk.faces_name(entry, n_eps)] == sum(
-                r["kernel"].startswith(prefix)
-                and f"[n_eps={n_eps}]" in r["kernel"] for r in rows)
+                entry_of[r["kernel"].split("[")[0].rstrip("12")] == entry
+                and f"[n_eps={n_eps}]" in r["kernel"] for r in rows), entry
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ Tolerances, each with its reason:
 The interpret-mode Pallas bodies with eps windows (the JAX package's
 kernel path) take minutes on the CPU and are marked ``slow``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,6 +140,14 @@ class BodyCase:
         phi, rhs = jnp.asarray(self.phi), jnp.asarray(self.rhs)
         bp = [jnp.asarray(p) for p in self.planes]
         eps = tuple(jnp.asarray(e) for e in self.eps)
+        if entry == "residual_restrict":
+            # the JAX solver's update_coarse where no fused kernel takes
+            # the level: the residual, then both restrictions by
+            # reduce_window (solve/dense.py _restrict_into)
+            res = jdk._apply_jnp(c, phi, rhs, lam, bp, True, eps=eps)
+            return [np.asarray(jax.lax.reduce_window(
+                a[ISL], 0.0, jax.lax.add, (2, 2, 2), (2, 2, 2), "VALID")
+                / 8.0) for a in (phi, res)]
         if entry == "pair1":
             out = (jdk._pair_jnp(c, phi, rhs, lam, bp, 0, eps=eps),)
         elif entry == "pair2":
@@ -182,7 +191,8 @@ class BodyCase:
 
 _BODY = [(e, n, per, bc)
          for i, (e, n, per) in enumerate(
-             (e, n, per) for e in ("pair1", "pair2", "apply", "residual")
+             (e, n, per) for e in ("pair1", "pair2", "apply", "residual",
+                                   "residual_restrict")
              for n in (1, 3)
              for per in ((False, False, False), (True, False, True)))
          for bc in (list(BCS)[i % 4],)]
@@ -212,6 +222,23 @@ def test_eps_pallas_body_matches_plain(dims, entries, n_eps):
         assert len(want) == len(got)
         for w, g in zip(want, got):
             close(g, w, 64, entry)
+
+
+@pytest.mark.parametrize("n_eps", [1, 3])
+def test_face_counters_exist_and_cpu_tensors_never_count(n_eps):
+    """Every entry point with a face-plane design (the double pair, the
+    down-leg, the apply and the residual-restriction) has its
+    ``name[n_eps=k][faces]`` counter, and a call on CPU tensors (the
+    plain versions) counts under none of them."""
+    counts = dk.launch_counts()
+    for e in ("pair_sweep_dense", "downsweep_dense", "stencil_apply_dense",
+              "residual_restrict_dense"):
+        assert e in dk.FACE_ENTRIES and dk.faces_name(e, n_eps) in counts
+    case = BodyCase(n_eps, (False,) * 3, "dirichlet", seed=3, dims=(8, 6, 4))
+    before = dk.launch_counts()
+    for entry in ("apply", "residual", "residual_restrict"):
+        case.run_port(entry)
+    assert dk.launch_counts() == before
 
 
 def test_eps_fields_are_checked():
