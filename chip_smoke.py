@@ -36,7 +36,16 @@ object per line:
   on the edge levels, the 520x520x264 one with x and z periodic and a
   13x7x5 one (apply and residual), the four BC kinds with coefficients
   0.5 + U[0,1) and Dirichlet faces also with 10**(3 U[0,1)) (a 1e3
-  contrast); the double-float residual on the
+  contrast); the constant-coefficient residual-restriction (the
+  face-plane apply of csrc/apply_faces.cuh without coefficients, which
+  every case must run) on the edge levels and the three 520x520x264
+  ones, float32 and float64; the slab double pair on float32 slabs its
+  wide design takes (csrc/stream_wide.cuh with SLAB = 1, which every
+  case must run: 520x520x64, 512x512x64, the sharded 256^3 level's
+  256x256x32 and the thin 512x512x8 and 512x512x12, x and y on faces,
+  periodic and mixed), n_pairs 1 and 2, every gate pair, physical and periodic z, the four BC kinds, the pads of
+  gated-off faces random and every other pad NaN, both gates on also
+  against the ungated kernel; the double-float residual on the
   same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
@@ -49,7 +58,8 @@ object per line:
   Dirichlet faces, a seeded random right-hand side: one zero-guess FMG
   and eight have-guess FMGs through ``solve``, then a timed loop of
   have-guess FMGs; residual history, ms per FMG, unknowns/s, kernel
-  launches, peak memory;
+  launches (the six residual-restrictions of a have-guess FMG must all
+  run the face-plane apply), peak memory;
 * ``fmg_stages`` — device and host time of each FMG stage by level;
 * ``refined_path`` — the same solver's f64-class mode: a seeded float64
   right-hand side through ``solve_refined(rhs, n_outer=10)``; the norm
@@ -121,7 +131,10 @@ object per line:
   zero-guess and eight have-guess FMGs against the single-device
   solver's on the same rhs (phi within 1e-5 of max|phi|, the difference
   and its place printed), ms per have-guess FMG of both, launches, the
-  stage breakdown of both, and overlap_halo off bitwise against on;
+  stage breakdown of both, the slab double pairs per timed FMG on the
+  wide design (the 48 whole slabs of the 512^3 and 256^3 levels must
+  run it, the edge strips and smaller slabs not), and overlap_halo off
+  bitwise against on;
 * ``sharded_periodic`` — fully periodic 128^3 over 8 slabs, sharded
   against single; ``sharded_refined`` — ``ShardedRefinedPoisson`` at
   512^3, n_outer=10, norms against ``RefinedPoisson``'s (1e-5
@@ -150,7 +163,9 @@ object per line:
   ``name[z_gates]`` (and the pair's and apply's ``[n_eps=1][z_gates]``)
   on an interior slab of the 512^3 level over 8 slabs (64 planes; the
   prolongation's coarse slab 32 planes), both gates off, their bound
-  counting the pad planes they read;
+  counting the pad planes they read (the pair's row names the wide
+  design and its launches; the residual-restriction's row the
+  face-plane apply and its launches);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -552,12 +567,23 @@ def slab_case(dk, dims, per, bc_kind, dtype, seed, gates, n_eps=0,
               equal_pow2=False):
     """make_case for one z-slab with the given gates: its fields from
     slab_field, its plane-valued faces random and finite everywhere (the
-    halo planes' rows are read)."""
+    halo planes' rows are read), their y pads on a periodic y axis the
+    wrapped copies the solver keeps there."""
     cfg, _, planes = make_case(dk, dims, per, bc_kind, dtype, seed,
                                equal_pow2=equal_pow2, n_eps=n_eps)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    planes = [torch.randn(cfg.plane_shape(nb), generator=g, dtype=dtype,
-                          device="cuda") if cfg.b_const[nb] is None else p
+
+    def plane(nb):
+        p = torch.randn(cfg.plane_shape(nb), generator=g, dtype=dtype,
+                        device="cuda")
+        ax = (1, 1, None, None, 0, 0)[nb]        # the y axis of the plane
+        if ax is not None and cfg.periodic[1]:
+            Y, w = cfg.Y, dk.PY
+            idx = (torch.arange(-w, Y + w, device="cuda") % Y) + w
+            p = p.index_select(ax, idx).contiguous()
+        return p
+
+    planes = [plane(nb) if cfg.b_const[nb] is None else p
               for nb, p in enumerate(planes)]
     return cfg, lambda coef=False: slab_field(dk, cfg, g, gates, coef), planes
 
@@ -779,6 +805,16 @@ def phase_checks(dk, df, quick):
              f"{[r for r in faces if not r['faces']][:1]}")
     worst = max([worst] + [r["max_ulp"] for r in faces])
     rows += faces
+    rr = rr_checks(dk)
+    if not all(r["faces"] for r in rr):
+        fail("a residual-restriction did not run the face-plane apply: "
+             f"{[r for r in rr if not r['faces']][:1]}")
+    swide = slab_wide_checks(dk)
+    if not all(r["wide"] for r in swide):
+        fail("a slab double pair did not run the wide design: "
+             f"{[r for r in swide if not r['wide']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in rr + swide])
+    rows += rr + swide
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
                       and "faces" not in r["kernel"] for r in rows)
@@ -801,6 +837,10 @@ def phase_checks(dk, df, quick):
                      "face_cases_on_the_face_design": sum(
                          r["faces"] for r in faces),
                      "face_max_ulp": max(r["max_ulp"] for r in faces),
+                     "rr_faces_cases": len(rr),
+                     "rr_faces_max_ulp": max(r["max_ulp"] for r in rr),
+                     "slab_wide_cases": len(swide),
+                     "slab_wide_max_ulp": max(r["max_ulp"] for r in swide),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -982,6 +1022,110 @@ def face_checks(dk, shapes=WIDE_EDGE_SHAPES, kinds=FACE_KINDS,
                                  "bc": bc_kind, "rough_eps": rough,
                                  "lam": lam, "max_ulp": u, "faces": faces})
                 del phi, rhs, eps, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: the counter of a constant-coefficient residual-restriction on the
+#: face-plane apply (csrc/apply_faces.cuh with no coefficients)
+RR_FACES = "residual_restrict_dense[faces]"
+
+
+def rr_checks(dk, shapes=WIDE_EDGE_SHAPES + WIDE_DOWN_SHAPES,
+              dtypes=(torch.float32, torch.float64)):
+    """The constant-coefficient residual-restriction (csrc/apply_faces.cuh,
+    which takes every launch) against its plain version on ``shapes``:
+    each dtype, the four BC kinds, NaN pads.  A case must be 0 ulp and
+    counted under RR_FACES."""
+    rows, seed = [], 900
+    for dims, per in shapes:
+        for dtype in dtypes:
+            for bc_kind in ("dirichlet", "neumann", "continuous", "planes"):
+                lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+                seed += 1
+                cfg, field, planes = make_case(dk, dims, per, bc_kind, dtype,
+                                               seed)
+                phi, rhs = field(cfg), field(cfg)
+                before = dk.launch_counts()[RR_FACES]
+                got = dk.residual_restrict_dense(cfg, phi, rhs, lam, planes)
+                faces = dk.launch_counts()[RR_FACES] == before + 1
+                want = dk._down_plain(cfg, phi, rhs, lam, planes, 0, 0)[1:]
+                torch.cuda.synchronize()
+                us = [ulp_diff(a[dk._ISL], b[dk._ISL])
+                      for a, b in zip(got, want)]
+                rows.append({"kernel": "residual_restrict[faces]",
+                             "dims": dims, "periodic": per,
+                             "dtype": str(dtype)[6:], "bc": bc_kind,
+                             "lam": lam,
+                             "max_ulp": max(us) if min(us) >= 0 else 1 << 62,
+                             "faces": faces})
+                del phi, rhs, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: float32 slabs that the slab double pair's wide design takes
+#: (csrc/stream_wide.cuh with SLAB = 1): the slabs of the sharded 512^3
+#: and 256^3 levels over 8 (512^2 x 64 in 16-plane chunks, 256^2 x 32 in
+#: 8-plane ones), a ragged 520^2 x 64 one, the thinnest the rule takes
+#: (8 planes: one chunk holds both z faces) and 512^2 x 12 (an 8-plane
+#: chunk and a 4-plane one); (dims, (x, y) periodic), z physical and
+#: periodic
+SLAB_WIDE_SHAPES = [((520, 520, 64), (False, False)),
+                    ((512, 512, 64), (True, True)),
+                    ((520, 520, 64), (True, False)),
+                    ((256, 256, 32), (False, False)),
+                    ((512, 512, 8), (False, True)),
+                    ((512, 512, 12), (True, True))]
+SLAB_WIDE = "pair_sweep_dense[z_gates][wide]"
+
+
+def slab_wide_checks(dk, shapes=SLAB_WIDE_SHAPES):
+    """The float32 slab double pair (n_pairs 1 and 2) on slabs its wide
+    design takes, against its plain version: every gate pair, physical
+    and periodic z, the four BC kinds, the pads of gated-off faces random
+    and every other pad NaN; with both gates on a physical z axis also
+    against the ungated kernel.  A case must be 0 ulp and counted under
+    SLAB_WIDE (``wide``)."""
+    rows, seed, dtype = [], 1100, torch.float32
+    for (dims, pxy), per_z, gates in itertools.product(
+            shapes, (False, True),
+            itertools.product((False, True), repeat=2)):
+        per = tuple(pxy) + (per_z,)
+        for bc_kind in ("dirichlet", "neumann", "continuous", "planes"):
+            lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+            seed += 1
+            cfg, field, planes = slab_case(dk, dims, per, bc_kind, dtype,
+                                           seed, gates)
+            phi, rhs = field(), field()
+            tag = f"[z_gates={int(gates[0])}{int(gates[1])}]"
+            cases = [(f"pairs{k}" + tag,
+                      lambda k=k: dk.pair_sweep_dense(
+                          cfg, phi, rhs, lam, planes, 0, n_pairs=k,
+                          z_gates=gates),
+                      lambda k=k: dk._pairs_plain(
+                          cfg, phi, rhs, lam, planes, 0, k, (), gates))
+                     for k in (1, 2)]
+            if gates == (True, True) and not per_z:
+                cases.append((
+                    "pairs2[both gates on = ungated kernel]",
+                    lambda: dk.pair_sweep_dense(cfg, phi, rhs, lam, planes,
+                                                0, n_pairs=2, z_gates=gates),
+                    lambda: dk.pair_sweep_dense(cfg, phi, rhs, lam, planes,
+                                                0, n_pairs=2)))
+            for name, kern, plain in cases:
+                before = dk.launch_counts()[SLAB_WIDE]
+                got = kern()
+                wide = dk.launch_counts()[SLAB_WIDE] == before + 1
+                want = plain()
+                torch.cuda.synchronize()
+                u = ulp_diff(got[dk._ISL], want[dk._ISL])
+                rows.append({"kernel": name, "dims": dims, "periodic": per,
+                             "dtype": str(dtype)[6:], "bc": bc_kind,
+                             "lam": lam, "max_ulp": u if u >= 0 else 1 << 62,
+                             "wide": wide})
+                del got, want
+            del phi, rhs
     torch.cuda.empty_cache()
     return rows
 
@@ -1292,6 +1436,9 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
                 "launches_on_the_face_design": path[name + "[faces]"]}
                if name.split("[")[0] in dk.FACE_ENTRIES
                and name in EPS_VARIANTS else {}),
+            **({"design": FACE_DESIGNS[name],
+                "launches_on_the_face_design": path[RR_FACES]}
+               if name == "residual_restrict_dense" else {}),
             **({"conv3d_core_ms": conv3d_ms}
                if name == "stencil_apply_dense" else {}),
         })
@@ -1353,6 +1500,12 @@ def phase_main_path(pkg, dk):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items()}
+    # update_coarse on every level 512^3 .. 16^3: the residual-restriction
+    # on the face-plane apply
+    if not per_fmg[RR_FACES] == per_fmg["residual_restrict_dense"] == 6:
+        fail(f"main path: {per_fmg['residual_restrict_dense']} "
+             f"residual-restrictions per FMG, {per_fmg[RR_FACES]} on the "
+             f"face-plane apply (6 of 6 expected)")
     unknowns = float(sum(int(np.prod(sv.dims[l])) for l in sv.levels))
     emit({"main_path": {
         "model": "PoissonSolver(3, (512,)*3, 16, float32), Dirichlet 0",
@@ -2726,6 +2879,15 @@ def phase_sharded_path(pkg, dk):
     ms, per_fmg = timed_fmgs(ss, st_s, n_timed)
     stages = {"sharded": fmg_stage_marks(ss, st_s),
               "single": fmg_stage_marks(sd, st_d)}
+    # a have-guess FMG runs 2 (d + 1) overlapped pair groups on the level
+    # d below the top, each of 8 whole-slab launches and 16 edge strips:
+    # the whole slabs of 512^3 (2 groups) and 256^3 (4) run the wide
+    # design, the strips and the smaller levels' slabs do not
+    wide_want = K * (2 + 4)
+    if per_fmg.get(SLAB_WIDE, 0) != wide_want:
+        fail(f"sharded path: {per_fmg.get(SLAB_WIDE, 0)} slab double pairs "
+             f"per FMG on the wide design, not the {wide_want} whole slabs "
+             "of the 512^3 and 256^3 levels")
     del st_d, sd
     torch.cuda.empty_cache()
     # overlap_halo off against on, from one rhs, two FMGs each
@@ -2753,6 +2915,7 @@ def phase_sharded_path(pkg, dk):
         "launches_in_solve": launches, "launches_per_fmg": per_fmg,
         "single_device_launches_per_fmg": per_single,
         "stages": stages, "vs_single_device": cmp,
+        "wide_slab_pairs_per_fmg": per_fmg.get(SLAB_WIDE, 0),
         "overlap_halo_off_bitwise": same,
         "peak_memory_bytes": peak}})
     del st_s, st_on, st_off, off
@@ -2944,9 +3107,14 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
                 plain = lambda: (dk._apply_plain(
                     cfg, phi, rhs, 0.0, planes, True, eps, gates)[isl],)
             nbytes, flops = slab_work_model(name, zl, n * n, 4, halo, n_eps)
+            wide = ({"design": "octree_mg_tpu_torch/csrc/stream_wide.cuh",
+                     "launches_on_the_wide_design": launches[SLAB_WIDE],
+                     "launches_per_fmg_on_the_wide_design":
+                         per_fmg.get(SLAB_WIDE, 0.0)}
+                    if name == SLAB_WIDE.rsplit("[", 1)[0] else None)
             rows.append(timed_row(name, kern, plain, src[0][name],
                                   src[1].get(name, 0.0), (n, n, zl),
-                                  nbytes, flops))
+                                  nbytes, flops, extra=wide))
         del phi, rhs, eps
         torch.cuda.empty_cache()
     # the prolongation: coarse slab of the 256^3 level into the 512^3 one

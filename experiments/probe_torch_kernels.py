@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
 with other build-time constants (``-DOMG_WIDE``, ``-DOMG_FACES``,
@@ -52,16 +52,33 @@ into ``build/probe`` and prints, one JSON object per line:
   against new at 512^3, bitwise, for the three kernels and both n_eps
   (``apply_faces_bitwise``), and the resources ptxas reports for the
   face-plane apply's instantiations (``apply_faces_ptxas``);
+* ``rr_slab`` — row 4, the constant-coefficient residual-restriction, as
+  shipped (the face-plane apply of csrc/apply_faces.cuh without
+  coefficients) against the design before it (``-DOMG_FACES=0``,
+  stream_kernel.cuh) at every level from 512^3 to 16^3 in float32 and
+  float64; and row 1z, the slab double pair (interior slab, gates off),
+  as shipped (stream_wide.cuh with SLAB = 1 where wide_slab_takes)
+  against the design before it (``-DOMG_WIDE=0``) on the whole slabs of
+  the 512^3 .. 32^3 levels over 8 slabs (n_pairs 2 and 1) and the edge
+  strips of the 512^3 and 256^3 levels' overlapped pair groups, float32
+  (float64 slabs keep stream_kernel.cuh); in turns (old, new, new, old),
+  median of 10 per turn, CUDA events, the design each launch ran and
+  the byte bound at 3.35 TB/s; then old against new bitwise (row 4 at
+  512^3 in both dtypes, row 1z on a 512^2 x 64 slab for both n_pairs and
+  every gate pair) and the registers ptxas reports (``rr_slab_bitwise``,
+  ``rr_slab_ptxas``);
 * ``sass``   — static SASS instructions of the double pair's and the
   down-leg's main loop (the longest backward branch), old and new, and
   per cell a thread updates in one step of that loop (old: one per
   half-sweep; new: R per half-sweep); the same for the float32
   coefficient kernels of both designs (``stream_kernel`` with n_eps 1
   or 3, ``face_kernel``), and per cell of a thread's step for the
-  coefficient apply, residual and residual-restriction of both designs
+  coefficient apply, residual and residual-restriction and the
+  constant-coefficient residual-restriction of both designs
   (``stream_kernel`` with no half-sweep, ``apply_faces_kernel``): the
   face-plane kernels from the shipped build, the ``stream_kernel`` ones
-  they replaced from a build with ``-DOMG_FACES=0``;
+  they replaced from a build with ``-DOMG_FACES=0``; the slab double
+  pair's rows (``SLAB`` 1) beside the unsharded ones;
 * ``tiles``  — double pair and downsweep at 512^3 float32 for a list of
   (tile x, tile y, chunk z) shapes of the old design, median of 8, CUDA
   events;
@@ -523,9 +540,10 @@ def probe_sass():
     faces_old = sass_loops(["-DOMG_FACES=0"])
     rows = []
     for d, (n_all, n_loop) in sorted(old.items()):
+        # the unsharded double pair and down-leg, and the slab double pair
         m = re.match(r"void stream_kernel<float, (?:\(int\))?([24]), "
                      r"(?:\(int\))?([03]), (?:\(int\))?0, (?:\(int\))?0, "
-                     r"(?:\(int\))?0>", d)
+                     r"(?:\(int\))?[01]>", d)
         if m:
             ns = int(m.group(1))
             rows.append({"kernel": d, "design": "old", "instructions": n_all,
@@ -533,7 +551,7 @@ def probe_sass():
                          "loop_per_update": n_loop / ns})
     for d, (n_all, n_loop) in sorted(new.items()):
         m = re.match(r"void wide_kernel<float, (?:\(int\))?([24]), "
-                     r"(?:\(int\))?([03])>", d)
+                     r"(?:\(int\))?([03]), (?:\(int\))?[01]>", d)
         if m:
             ns, r = int(m.group(1)), WIDE_ROWS
             rows.append({"kernel": d, "design": "new", "instructions": n_all,
@@ -556,13 +574,17 @@ def probe_sass():
                              "loop_per_update": n_loop / ns})
             # the face-plane apply (four cells a thread and step) and the
             # coefficient apply, residual and residual-restriction it
-            # replaces (two cells a thread and step)
+            # replaces, and the constant-coefficient residual-restriction
+            # (two cells a thread and step)
             m = re.match(r"void (apply_faces_kernel<float, (?:\(int\))?"
-                         r"[123], (?:\(int\))?[13]>|stream_kernel<float, "
-                         r"(?:\(int\))?0, (?:\(int\))?[123], "
-                         r"(?:\(int\))?[13], (?:\(int\))?0, "
+                         r"([123]), (?:\(int\))?([013])>|stream_kernel<"
+                         r"float, (?:\(int\))?0, (?:\(int\))?([123]), "
+                         r"(?:\(int\))?([013]), (?:\(int\))?0, "
                          r"(?:\(int\))?0>)", d)
             cells = 4 if d.startswith("void apply_faces") else 2
+            if m and (m.group(3) or m.group(5)) == "0" and \
+                    (m.group(2) or m.group(4)) != "3":
+                m = None        # the constant apply and residual
             if m and (cells == 4) == (design == "faces"):
                 rows.append({"kernel": d, "design": "apply_faces"
                              if cells == 4 else design,
@@ -782,6 +804,165 @@ def probe_apply_faces():
         logs["all"], lambda d: "apply_faces_kernel" in d)}), flush=True)
 
 
+#: row 4, the constant-coefficient residual-restriction, as shipped
+#: (csrc/apply_faces.cuh with no coefficients) against the design before
+#: it (OMG_FACES=0: stream_kernel.cuh), and row 1z, the slab double pair,
+#: as shipped (csrc/stream_wide.cuh with SLAB = 1 where it takes the
+#: slab) against the design before it (OMG_WIDE=0: stream_kernel.cuh)
+RR_VARIANTS = {"old": ["-DOMG_FACES=0"], "new": []}
+SLAB_VARIANTS = {"old": ["-DOMG_WIDE=0"], "new": []}
+def rr_call(fns, cfg, f):
+    """The residual-restriction (lam 0) of one build on the fields f;
+    returns the design the library ran."""
+    st = torch.cuda.current_stream().cuda_stream
+    P = dk._params(cfg, 0.0, [None] * 6, 0, 0)
+    d = ctypes.c_int(0)
+
+    def run():
+        e = fns["omg_downsweep"](dk._dt(cfg), 0, ctypes.byref(P), None,
+                                 f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                                 None, f["pc"].data_ptr(), f["rc"].data_ptr(),
+                                 st, ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+    return run
+
+
+def slab_fields(n, zl, dtype, seed=3):
+    """One z-slab of n^2 x zl cells (Dirichlet 0 faces), phi and rhs
+    random in the core and in the pads (the neighbour slabs' planes)."""
+    cfg = dk.DenseStencilConfig((n, n, zl), (float(n * n),) * 3,
+                                [(2.0, -1.0, 0.0)] * 6, (False,) * 3,
+                                dtype, b_const=[0.0] * 6)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f = {k: torch.randn(cfg.pshape, generator=g, dtype=dtype, device="cuda")
+         for k in ("phi", "rhs")}
+    f["out"] = torch.empty_like(f["phi"])
+    return cfg, f
+
+
+def slab_call(fns, cfg, f, n_pairs, gates=(False, False)):
+    """The slab double pair of one build on the fields f."""
+    st = torch.cuda.current_stream().cuda_stream
+    P = dk._params(cfg, 0.0, [None] * 6, 0, 2 * n_pairs)
+    Zs = dk._slab_params(gates)
+    d = ctypes.c_int(0)
+
+    def run():
+        e = fns["omg_stencil_slab"](dk._dt(cfg), 0, ctypes.byref(P), None,
+                                    ctypes.byref(Zs), f["phi"].data_ptr(),
+                                    f["rhs"].data_ptr(), f["out"].data_ptr(),
+                                    st, ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+    return run
+
+
+def in_turns(calls, reps=10):
+    """{tag: [ms, ms]}: each call timed in the turns t1 .. tn, tn .. t1."""
+    tags = list(calls)
+    ms = {t: [] for t in tags}
+    for t in tags + tags[::-1]:
+        ms[t].append(time_ms(calls[t], reps=reps))
+    return ms
+
+
+def probe_rr_slab(levels=(512, 256, 128, 64, 32, 16)):
+    rr_fns, rr_logs = build_many(
+        {k: v + ["-Xptxas", "-v"] for k, v in RR_VARIANTS.items()},
+        {"downsweep": "omg_downsweep"})
+    sl_fns, sl_logs = build_many(
+        {k: v + ["-Xptxas", "-v"] for k, v in SLAB_VARIANTS.items()},
+        {"stencil_sweep": "omg_stencil_slab"})
+    slab_levels = levels[:-1]
+    # row 4 at every level of the main path, float32 and float64
+    for dtype in (torch.float32, torch.float64):
+        item = 4 if dtype == torch.float32 else 8
+        for n in levels:
+            cfg, f = level_fields(n, dtype)
+            calls = {t: rr_call(fns, cfg, f) for t, fns in rr_fns.items()}
+            design = {t: c() for t, c in calls.items()}
+            print(json.dumps({"rr_slab": {
+                "kernel": "residual_restrict", "dims": [n] * 3,
+                "dtype": str(dtype)[6:], "ms": in_turns(calls),
+                "design": design,
+                "bound_ms": 1e3 * (2 * n ** 3 + 2 * (n // 2) ** 3) * item /
+                3.35e12}}), flush=True)
+            del f, calls
+            torch.cuda.empty_cache()
+    # row 1z: the whole slabs of the sharded levels over 8 slabs and the
+    # edge strips of their overlapped pair groups (2 * n_pairs planes)
+    shapes = [(n, n // 8, k, torch.float32) for n in slab_levels
+              for k in (2, 1)]
+    shapes += [(n, 2 * k, k, torch.float32) for n in slab_levels[:2]
+               for k in (2, 1)]
+    for n, zl, k, dtype in shapes:
+        item = 4 if dtype == torch.float32 else 8
+        cfg, f = slab_fields(n, zl, dtype)
+        calls = {t: slab_call(fns, cfg, f, k) for t, fns in sl_fns.items()}
+        design = {t: c() for t, c in calls.items()}
+        h = 2 * k
+        print(json.dumps({"rr_slab": {
+            "kernel": "slab_pairs", "dims": [n, n, zl], "n_pairs": k,
+            "dtype": str(dtype)[6:], "ms": in_turns(calls),
+            "design": design,
+            "bound_ms": 1e3 * (2 * (zl + 2 * h) + zl) * n * n * item /
+            3.35e12}}), flush=True)
+        del f, calls
+        torch.cuda.empty_cache()
+    # every build against the first, bitwise: row 4 at 512^3 in both
+    # dtypes, the slab pair on a 512^2 x 64 slab for both n_pairs and
+    # every gate pair
+    ref = list(rr_fns)[0]
+    checks = []
+    for dtype in (torch.float32, torch.float64):
+        cfg, f = level_fields(512, dtype)
+        got = {}
+        for t, fns in rr_fns.items():
+            f["pc"].fill_(float("nan"))
+            f["rc"].fill_(float("nan"))
+            rr_call(fns, cfg, f)()
+            got[t] = [f[k][dk._ISL].clone() for k in ("pc", "rc")]
+        torch.cuda.synchronize()
+        checks.append({"kernel": "residual_restrict",
+                       "dtype": str(dtype)[6:], "bitwise": {
+                           t: all(torch.equal(a, b) for a, b in
+                                  zip(got[ref], g)) for t, g in got.items()}})
+        del f, got
+        torch.cuda.empty_cache()
+    ref = list(sl_fns)[0]
+    cfg, f = slab_fields(512, 64, torch.float32)
+    for k in (1, 2):
+        for gates in ((False, False), (True, False), (False, True),
+                      (True, True)):
+            got = {}
+            for t, fns in sl_fns.items():
+                f["out"].fill_(float("nan"))
+                slab_call(fns, cfg, f, k, gates)()
+                got[t] = f["out"][dk._ISL].clone()
+            torch.cuda.synchronize()
+            checks.append({"kernel": "slab_pairs", "n_pairs": k,
+                           "gates": gates, "bitwise": {
+                               t: torch.equal(got[ref], g)
+                               for t, g in got.items()}})
+            del got
+    del f
+    torch.cuda.empty_cache()
+    print(json.dumps({"rr_slab_bitwise": checks}), flush=True)
+    i = r"(?:\(int\))?"
+    pick_rr = re.compile(rf"void (apply_faces_kernel<\w+, {i}\d, {i}0>|"
+                         rf"stream_kernel<\w+, {i}0, {i}3, {i}0, {i}0, "
+                         rf"{i}0>)")
+    pick_slab = re.compile(rf"void (wide_kernel<\w+, {i}[24], {i}0, {i}1>|"
+                           rf"stream_kernel<\w+, {i}[24], {i}0, {i}0, "
+                           rf"{i}0, {i}1>)")
+    print(json.dumps({"rr_slab_ptxas": {
+        "residual_restrict": {t: ptxas_resources(g, pick_rr.match)
+                              for t, g in rr_logs.items()},
+        "slab_pairs": {t: ptxas_resources(g, pick_slab.match)
+                       for t, g in sl_logs.items()}}}), flush=True)
+
+
 def vcoeff_solver(op, n=512):
     """The vcoeff_path solver of chip_smoke.py (512^3 float32, lam 1.5,
     Dirichlet 0, smooth coefficients, seeded rhs) after three FMGs."""
@@ -843,6 +1024,7 @@ if __name__ == "__main__":
                         ("faces", probe_faces),
                         ("faces_fmg", probe_faces_fmg),
                         ("apply_faces", probe_apply_faces),
+                        ("rr_slab", probe_rr_slab),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

@@ -5,6 +5,7 @@
     python3 experiments/profile_torch_fmg.py --vcoeff   # the coefficient ones
     python3 experiments/profile_torch_fmg.py --forest   # the forest ones
     python3 experiments/profile_torch_fmg.py --boxed    # the boxed solver
+    python3 experiments/profile_torch_fmg.py --sharded  # the slab solver
 
 On the 512^3 float32 main path (``PoissonSolver(3, (512,)*3, 16)``,
 Dirichlet 0, seeded random right-hand side) it prints, one JSON object
@@ -44,7 +45,13 @@ per line:
   ``chip_smoke.py``'s ``boxed_path`` float64 solve: the boxed solver
   (``MGSolver``) on the fully periodic sparse tree at base 256, box 16,
   the flat half-sweep kernel on; with the kernel launches and the
-  coarse loop's host reads per FMG.
+  coarse loop's host reads per FMG;
+* ``profile_sharded``, ``profile_sharded_vcoeff`` (``--sharded``
+  only) — the same pass for ``chip_smoke.py``'s ``sharded_path`` solver
+  (512^3 float32 over 8 slabs on one card) and its ``sharded_vcoeff``
+  one (vhelmholtz at 128^3 over 8 slabs): the device time per FMG by
+  kernel name shows the slab kernels' share, which the stage clocks of
+  a launch-bound FMG do not.
 
 Needs a CUDA device and nvcc.
 """
@@ -299,6 +306,42 @@ def phase_profile_forest(n=4):
         del ps
 
 
+def phase_profile_sharded(n=4):
+    """The ``profile`` pass for the slab solver: chip_smoke.py's
+    ``sharded_path`` problem (the main path's 512^3 level and rhs over 8
+    slabs on the card) and its ``sharded_vcoeff`` one (vhelmholtz at
+    128^3 over 8 slabs, lam 1.5, smooth coefficients), each after three
+    FMGs."""
+    import chip_smoke
+
+    def profile(ss, st, lam):
+        chip_smoke.run_fmgs(ss, st, 3, lam)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ss.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        return profiled(run, n, "fmg")
+
+    _, ss = chip_smoke.dense_pair(pkg, N, 8)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    st = chip_smoke.seeded_state(ss, torch.randn((N,) * 3, generator=g,
+                                                 device="cuda"))
+    emit({"profile_sharded": profile(ss, st, 0.0)})
+    del ss, st
+    torch.cuda.empty_cache()
+    sd, ss = chip_smoke.dense_pair(pkg, 128, 8, operator="vhelmholtz")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rhs = torch.randn((128,) * 3, generator=g, device="cuda")
+    st = chip_smoke.seeded_state(
+        ss, rhs, (chip_smoke.smooth_eps(sd, 0, torch.float32),))
+    emit({"profile_sharded_vcoeff": profile(ss, st, 1.5)})
+
+
 def phase_profile_boxed(n=4):
     import chip_smoke
     from octree_mg_tpu_torch.core import tree as tm
@@ -327,6 +370,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if "--boxed" in sys.argv[1:]:
         phase_profile_boxed()
+        sys.exit(0)
+    if "--sharded" in sys.argv[1:]:
+        phase_profile_sharded()
         sys.exit(0)
     if "--vcoeff" not in sys.argv[1:]:
         solver = main_path()

@@ -1,13 +1,15 @@
 // The face-plane apply: A(phi), rhs - A(phi) (stencil_apply_dense, K1,
-// stencil_sweep.cu) and the residual-restriction without a fine output
-// (residual_restrict_dense, K2, downsweep.cu) with coefficients, n_eps 1
-// or 3, float32 and float64, no segments, no slabs.  Every other apply,
-// residual and residual-restriction of the two sources (constant
-// coefficients, the slabs, the segments) runs stream_kernel.cuh.
+// stencil_sweep.cu) with coefficients, n_eps 1 or 3, and the
+// residual-restriction without a fine output (residual_restrict_dense,
+// K2, downsweep.cu) with and without coefficients (NE 0, 1 or 3); float32
+// and float64, no segments, no slabs.  Every other apply and residual of
+// the two sources (constant coefficients, the slabs, the segments) runs
+// stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the eps bodies of the Pallas entry
 // points stencil_apply_dense and residual_restrict_dense of the JAX
-// package's ops/dense_kernels.py (_apply_expr with eps).  Bound: bytes
+// package's ops/dense_kernels.py (_apply_expr with eps), and the body of
+// residual_restrict_dense without them (_apply_expr).  Bound: bytes
 // (phi, rhs where read and the output, 12 B per cell for a float32
 // residual, plus 4 B per coefficient field; the residual-restriction
 // writes two coarse fields instead of the output).
@@ -56,11 +58,13 @@
 // operation (face_coef of stream_faces.cuh, eps_apply and the BC
 // synthesis of stencil_common.cuh, rhs - a for the residual).
 //
-// NE = 0 (the constant-coefficient apply_from) is written too, for the
-// probe: OMG_FACES 2 sends every apply, residual and residual-
-// restriction, constant coefficients included, to this kernel
-// (experiments/probe_torch_kernels.py apply_faces).  The library as
-// built dispatches only coefficient launches to it.
+// NE = 0 (apply_from, no faces: no face arrays and no coefficient rings)
+// runs the constant-coefficient residual-restriction, row 4 of PERF.md,
+// with its own planes ahead and register cap (AF0_*, below): 0.55
+// against 0.85 ms for stream_kernel.cuh at 512^3 float32 on an H100
+// (experiments/probe_torch_kernels.py rr_slab).  The constant apply and
+// residual stay on stream_kernel.cuh; OMG_FACES 2 sends them here too,
+// for the probe (experiments/probe_torch_kernels.py apply_faces).
 #pragma once
 #include "stream_faces.cuh"
 
@@ -79,13 +83,23 @@ static_assert(AF_MIN_CZ % 2 == 0 && AF_CHUNK_Z % AF_MIN_CZ == 0 &&
                   (AF_CHUNK_Z & (AF_CHUNK_Z - 1)) == 0,
               "chunks halve from AF_CHUNK_Z to AF_MIN_CZ, all even");
 
+// The constant-coefficient residual-restriction (NE = 0; under OMG_FACES 2
+// also the constant apply and residual) builds no faces: it loads two
+// planes ahead and caps its registers for more blocks per SM (float32 4,
+// at 56 registers; float64 2): the set measured fastest of fourteen
+// (PERF_HISTORY.md, the rr_slab trials).
+constexpr int AF0_PD = 2, AF0_MINB = 4, AF0_MINB64 = 2;
+
 template <typename T, int MODE, int NE>
 struct AfGeo {
   static constexpr int C = 4;                    // x cells per thread
   static constexpr int TX = 64, TY = AF_TY;      // the tile
   static constexpr int HT = TX / C;              // threads per row
   static constexpr int NT = HT * TY;             // threads
-  static constexpr int PD = AF_PD;               // planes loaded ahead
+  static constexpr int PD = NE ? AF_PD : AF0_PD; // planes loaded ahead
+  // blocks per SM the registers must leave room for (__launch_bounds__)
+  static constexpr int MINB = NE ? (sizeof(T) == 4 ? AF_MINB : 1)
+                                 : (sizeof(T) == 4 ? AF0_MINB : AF0_MINB64);
   // a plane in shared memory: TY + 2 rows of SX cells, the tile's cells
   // at columns 4 .. TX + 3 (16-byte aligned), its x halo at 3 and TX + 4
   static constexpr int SX = TX + 8;
@@ -190,7 +204,7 @@ __device__ __forceinline__ void af_cell(T* dst, const T* base, const T* row,
 
 template <typename T, int MODE, int NE>
 __global__ void __launch_bounds__(AfGeo<T, MODE, NE>::NT,
-                                  sizeof(T) == 4 ? AF_MINB : 1)
+                                  AfGeo<T, MODE, NE>::MINB)
 apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
                    const T* __restrict__ phi, const T* __restrict__ rhs,
                    T* __restrict__ out, T* __restrict__ phic_out,
@@ -451,16 +465,17 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
 }
 
 // Whether the face-plane apply takes the apply, residual and residual-
-// restriction launches of a dtype and coefficient count: the coefficient
-// ones (OMG_FACES 1), float32 and float64, where it was faster than
-// stream_kernel.cuh at every level measured, 16^3 to 512^3 (PERF.md);
-// every one under OMG_FACES 2, for the probe.
-template <typename T, int NE>
+// restriction launches of a mode, dtype and coefficient count: the
+// coefficient ones and every residual-restriction (OMG_FACES 1), float32
+// and float64, where it was faster than stream_kernel.cuh at every level
+// measured, 16^3 to 512^3 (PERF.md); every one under OMG_FACES 2, for the
+// probe.
+template <typename T, int MODE, int NE>
 constexpr bool af_takes() {
 #if OMG_FACES == 2
   return true;
 #else
-  return NE != 0;
+  return NE != 0 || MODE == M_DOWN;
 #endif
 }
 

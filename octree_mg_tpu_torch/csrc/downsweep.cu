@@ -28,13 +28,15 @@
 // float64 those rings would not fit a block's 227 KB, and there this
 // kernel reads the coefficients of each cell and its six neighbours from
 // device memory at every update.  Without smoothing and without the
-// fine output (residual_restrict_dense) the coefficient variants run the
-// face-plane apply of apply_faces.cuh in both dtypes at every level: it
-// was faster than this kernel at every level from 16^3 to 512^3 on an
-// H100 (1.32 against 2.57 ms for n_eps 1 at 512^3 float32, PERF.md,
-// experiments/probe_torch_kernels.py apply_faces).  It needs no
-// wavefront, builds each face once per plane and restricts from
-// registers, the y partner one warp shuffle away.
+// fine output (residual_restrict_dense) every launch, with or without
+// coefficients, runs the face-plane apply of apply_faces.cuh in both
+// dtypes at every level: it was faster than this kernel at every level
+// from 16^3 to 512^3 on an H100 (1.32 against 2.57 ms for n_eps 1 at
+// 512^3 float32, experiments/probe_torch_kernels.py apply_faces; 0.55
+// against 0.85 ms without coefficients, probe_torch_kernels.py rr_slab;
+// PERF.md).  It needs no wavefront, builds each face once per plane
+// (none without coefficients) and restricts from registers, the y
+// partner one warp shuffle away.
 //
 // On float32 levels of 512^3 the constant-coefficient down-leg runs the
 // wide design of stream_wide.cuh instead (a phi-only ring with the plane
@@ -70,18 +72,17 @@ static int launch_down(const LevelParams& P, const EpsParams& E,
   return launch_stream<T, NS, M_DOWN, NE>(P, E, fine_out, phi, rhs, phi_out, phic_out, iresc_out, s);
 }
 
-// The residual and both restrictions without smoothing: coefficients
-// on the face-plane apply (apply_faces.cuh, *design = 2), which has no
-// fine output (residual_restrict_dense asks for none), the rest on
-// stream_kernel.cuh.  The stream_kernel.cuh instance of a launch the
-// face-plane apply takes is built only with -DOMG_FACES=0, for the probe.
+// The residual and both restrictions without smoothing: every launch on
+// the face-plane apply (apply_faces.cuh, *design = 2), which has no fine
+// output (residual_restrict_dense asks for none).  The stream_kernel.cuh
+// instances it replaced are built only with -DOMG_FACES=0, for the probe.
 template <typename T, int NE>
 static int launch_restrict(const LevelParams& P, const EpsParams& E,
                            int fine_out, const void* phi, const void* rhs,
                            void* phi_out, void* phic_out, void* iresc_out,
                            cudaStream_t s, int* design) {
 #if OMG_FACES
-  if constexpr (af_takes<T, NE>()) {
+  if constexpr (af_takes<T, M_DOWN, NE>()) {
     if (fine_out) return (int)cudaErrorInvalidValue;
     *design = 2;
     return launch_apply_faces<T, M_DOWN, NE>(P, E, phi, rhs, nullptr, phic_out, iresc_out, s);
@@ -118,8 +119,8 @@ static int dispatch_eps(const LevelParams& P, const EpsParams& E,
 
 // dtype: 0 = float32, 1 = float64.  P->n_sweeps = 2*n_pairs (0, 2 or 4);
 // E: E->n coefficient fields (0, 1 or 3) in E->f, or null for none.  All
-// of X, Y, Z must be even; with coefficients, n_sweeps 0 takes no fine
-// output (cudaErrorInvalidValue).  design, unless null, receives 1 where
+// of X, Y, Z must be even; n_sweeps 0 takes no fine output
+// (cudaErrorInvalidValue).  design, unless null, receives 1 where
 // the launch ran the wide design (stream_wide.cuh), 2 where it ran a
 // face-plane design (stream_faces.cuh, or apply_faces.cuh for
 // n_sweeps 0), else 0.  Returns the cudaError_t of the launch.

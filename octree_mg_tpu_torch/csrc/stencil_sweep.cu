@@ -66,9 +66,16 @@
 // copies of the neighbour slabs' planes), 2*n_pairs deep for a pair, 1
 // for the apply; the wavefront sweeps them redundantly, as the Pallas
 // kernel's hz = 2*n_pairs window does, and writes core planes only.
-// Bound: bytes, as the unsharded kernel, plus the halo planes read.
-// half_sweep_dense with z_gates has no caller in the JAX package and is
-// not instantiated.
+// Bound: bytes, as the unsharded kernel, plus the halo planes read.  The
+// constant-coefficient double pair on a whole slab of the 512^3 or 256^3
+// level over 8 slabs runs the wide design (stream_wide.cuh with SLAB = 1,
+// wide_slab_takes): 0.313 against 0.382 ms on a 512^2 x 64 slab, 0.070
+// against 0.084 on a 256^2 x 32 one (two pairs, float32, H100, PERF.md,
+// experiments/probe_torch_kernels.py rr_slab); float32 only, the dtype of
+// every slab solve that has such slabs.  The edge strips of an overlapped
+// pair group (2*n_pairs planes), smaller slabs, float64 and the
+// coefficient variants keep stream_kernel.cuh.  half_sweep_dense with z_gates has no
+// caller in the JAX package and is not instantiated.
 #include "apply_faces.cuh"
 
 // n_sweeps half-sweeps of one or two pairs: constant coefficients on the
@@ -104,7 +111,7 @@ static int launch_apply(const LevelParams& P, const EpsParams& E,
                         const void* phi, const void* rhs, void* out,
                         cudaStream_t s, int* design) {
 #if OMG_FACES
-  if constexpr (af_takes<T, NE>()) {
+  if constexpr (af_takes<T, MODE, NE>()) {
     *design = 2;
     return launch_apply_faces<T, MODE, NE>(P, E, phi, rhs, out, nullptr, nullptr, s);
   } else
@@ -164,38 +171,65 @@ extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
   return err;
 }
 
+// The slab double pair of NS half-sweeps: constant coefficients on the
+// wide design (stream_wide.cuh with SLAB = 1, *design = 1) where it takes
+// the slab, the rest (coefficients, float64, the edge strips of an
+// overlapped pair group, small slabs) on stream_kernel.cuh.  float64 stays
+// there: no slab solve runs a float64 slab large enough for the rule.
+template <typename T, int NS, int NE>
+static int launch_slab_pairs(const LevelParams& P, const EpsParams& E,
+                             const SlabParams& Zs, const void* phi,
+                             const void* rhs, void* out, cudaStream_t s,
+                             int* design) {
+#if OMG_WIDE
+  if constexpr (NE == 0 && sizeof(T) == 4)
+    if (wide_slab_takes<T>(P)) {
+      *design = 1;
+      return launch_wide<T, NS, M_PAIRS, 1>(P, phi, rhs, out, nullptr, nullptr, s, &Zs);
+    }
+#endif
+  return launch_stream<T, NS, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+}
+
 template <typename T, int NE>
 static int dispatch_slab(int mode, const LevelParams& P, const EpsParams& E,
                          const SlabParams& Zs, const void* phi,
-                         const void* rhs, void* out, cudaStream_t s) {
+                         const void* rhs, void* out, cudaStream_t s,
+                         int* design) {
   if (mode == M_APPLY)
     return launch_stream<T, 0, M_APPLY, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
   if (mode == M_RESIDUAL)
     return launch_stream<T, 0, M_RESIDUAL, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
   if (mode != M_PAIRS) return (int)cudaErrorInvalidValue;
   if (P.n_sweeps == 2)
-    return launch_stream<T, 2, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+    return launch_slab_pairs<T, 2, NE>(P, E, Zs, phi, rhs, out, s, design);
   if (P.n_sweeps == 4)
-    return launch_stream<T, 4, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+    return launch_slab_pairs<T, 4, NE>(P, E, Zs, phi, rhs, out, s, design);
   return (int)cudaErrorInvalidValue;
 }
 
 // The z-slab variants: as omg_stencil_sweep, on one slab whose z pads
 // hold the neighbour slabs' planes; Zs: the slab's (lo, hi) z-face gates.
-// mode 0 takes n_sweeps 2 or 4 (one or two pairs).
+// mode 0 takes n_sweeps 2 or 4 (one or two pairs).  design, unless null,
+// receives 1 where the launch ran the wide design (stream_wide.cuh),
+// else 0.
 extern "C" int omg_stencil_slab(int dtype, int mode, const LevelParams* P,
                                 const EpsParams* E, const SlabParams* Zs,
                                 const void* phi, const void* rhs, void* out,
-                                void* stream) {
+                                void* stream, int* design) {
   cudaStream_t s = (cudaStream_t)stream;
   const EpsParams e = E ? *E : EpsParams{0, {nullptr, nullptr, nullptr}};
   if (e.n != 0 && e.n != 1 && e.n != 3) return (int)cudaErrorInvalidValue;
+  int w = 0, err;
   if (dtype == 0) {
-    if (e.n == 0) return dispatch_slab<float, 0>(mode, *P, e, *Zs, phi, rhs, out, s);
-    if (e.n == 1) return dispatch_slab<float, 1>(mode, *P, e, *Zs, phi, rhs, out, s);
-    return dispatch_slab<float, 3>(mode, *P, e, *Zs, phi, rhs, out, s);
+    if (e.n == 0) err = dispatch_slab<float, 0>(mode, *P, e, *Zs, phi, rhs, out, s, &w);
+    else if (e.n == 1) err = dispatch_slab<float, 1>(mode, *P, e, *Zs, phi, rhs, out, s, &w);
+    else err = dispatch_slab<float, 3>(mode, *P, e, *Zs, phi, rhs, out, s, &w);
+  } else {
+    if (e.n == 0) err = dispatch_slab<double, 0>(mode, *P, e, *Zs, phi, rhs, out, s, &w);
+    else if (e.n == 1) err = dispatch_slab<double, 1>(mode, *P, e, *Zs, phi, rhs, out, s, &w);
+    else err = dispatch_slab<double, 3>(mode, *P, e, *Zs, phi, rhs, out, s, &w);
   }
-  if (e.n == 0) return dispatch_slab<double, 0>(mode, *P, e, *Zs, phi, rhs, out, s);
-  if (e.n == 1) return dispatch_slab<double, 1>(mode, *P, e, *Zs, phi, rhs, out, s);
-  return dispatch_slab<double, 3>(mode, *P, e, *Zs, phi, rhs, out, s);
+  if (design) *design = w;
+  return err;
 }

@@ -38,7 +38,9 @@
 // residual_restrict_dense apply_faces.cuh in both dtypes: both build
 // each face once per plane and were faster at every level they take
 // (PERF.md).  The NE > 0 apply, residual and residual-restriction here
-// are instantiated only in the probe's -DOMG_FACES=0 build.
+// are instantiated only in the probe's -DOMG_FACES=0 build, and so is the
+// NE = 0 residual-restriction (MODE M_DOWN with NS = 0), which
+// apply_faces.cuh runs too.
 //
 // SEG = 1 is the segment-synthesis variant of the dense forest's
 // fused-canvas path (NE = 0 only): no physical-face synthesis at all;
@@ -54,7 +56,10 @@
 // one plane shallower (a double pair sweeps 3 pad planes and reads 4);
 // only core planes are written.  A halo plane's cells keep their local
 // z (negative below the slab): parity, BC-plane rows and coefficient
-// reads follow from it.  The SLAB = 0 code paths are untouched.
+// reads follow from it.  The SLAB = 0 code paths are untouched.  The
+// constant-coefficient double pair on a large slab runs stream_wide.cuh's
+// SLAB = 1 instead (wide_slab_takes); the edge strips of an overlapped
+// pair group, smaller slabs and the coefficient pairs run this one.
 #pragma once
 #include "stencil_common.cuh"
 

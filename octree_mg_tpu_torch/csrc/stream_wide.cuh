@@ -1,12 +1,15 @@
 // The wide z-streaming kernel: the double pair (pair_sweep_dense, n_pairs
 // 1 or 2) of K1 (stencil_sweep.cu) and the fused down-leg
 // (downsweep_dense) of K2 (downsweep.cu), constant coefficients, no
-// segments, no slabs, on large levels (wide_takes, at the end).  Every
-// other launch of the two sources runs stream_kernel.cuh.
+// segments, on large levels (wide_takes, at the end); and the double pair
+// on one z-slab of the slab solver (SLAB = 1, omg_stencil_slab) on large
+// slabs (wide_slab_takes).  Every other launch of the two sources runs
+// stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the Pallas entry points
-// pair_sweep_dense and downsweep_dense of the JAX package's
-// ops/dense_kernels.py.  Bound: bytes (12 and 13 B per cell in float32).
+// pair_sweep_dense (also called with z_gates) and downsweep_dense of the
+// JAX package's ops/dense_kernels.py.  Bound: bytes (12 and 13 B per cell
+// in float32; a slab also reads its 2 * n_pairs pad planes each side).
 //
 // The march is stream_kernel.cuh's: a block owns a tile of (x, y) with a
 // halo and walks a chunk of z planes through a ring in shared memory; in
@@ -41,6 +44,15 @@
 // * The down-leg restricts the plane pair (r-1, r) from its own cells'
 //   phi and residual, held in registers: no residual buffer in shared
 //   memory and no second barrier.
+//
+// SLAB = 1 is stream_kernel.cuh's z-slab variant on this march (SlabParams,
+// stencil_common.cuh): a plane beyond a z face that does not synthesize its
+// ghost is loaded from the z pads (rhs too), H deep, and swept redundantly
+// like the halo planes between two chunks; a halo plane's cells keep their
+// local z (negative below the slab), from which parity and BC-plane rows
+// follow; only core planes are written.  The x and y faces, the colour
+// template and the chunking are those of SLAB = 0, whose code paths are
+// selected by constants and unchanged.
 //
 // Arithmetic per cell is that of the plain PyTorch versions, operation by
 // operation; a sum of two neighbours may be formed in the other order
@@ -124,12 +136,19 @@ __device__ __forceinline__ void wide_cp_async(void* dst, const void* src,
                : "memory");
 }
 
-template <typename T, int NS, int MODE>
+// SLAB: plane q of a slab swept H deep beyond its faces, clamped into
+// [-H, Z - 1 + H], inside the pads (a clamped plane's values are unused)
+__device__ __forceinline__ int slab_clamp(int q, int Z, int H) {
+  return q < -H ? -H : q > Z - 1 + H ? Z - 1 + H : q;
+}
+
+template <typename T, int NS, int MODE, int SLAB = 0>
 __global__ void __launch_bounds__(WideGeo<T, NS, MODE>::NT)
 wide_kernel(LevelParams P, int cz, int vec,
             const T* __restrict__ phi, const T* __restrict__ rhs,
             T* __restrict__ out, T* __restrict__ phic_out,
-            T* __restrict__ iresc_out) {
+            T* __restrict__ iresc_out, SlabParams Zs) {
+  static_assert(SLAB == 0 || MODE == M_PAIRS, "slab variant: the double pair");
   using G = WideGeo<T, NS, MODE>;
   using V2 = typename WidePair<T>::type;
   constexpr int H = G::H, HX = G::HX, HY = G::HY, CX = G::CX, WS = G::WS;
@@ -185,6 +204,9 @@ wide_kernel(LevelParams P, int cz, int vec,
   const long long gplane = (long long)(P.Y + 2 * PY) * P.X;
   const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
   const T inv_den = (T)P.inv_den;
+  // SLAB: the z faces this slab synthesizes (else it reads their pads)
+  const bool zsyn_lo = SLAB != 0 && slab_syn(P, Zs, 0);
+  const bool zsyn_hi = SLAB != 0 && slab_syn(P, Zs, 1);
 
   // Ring slot (cell offset) of plane t+1-k in step t: the slot of the
   // incoming plane t+1 advances by one per step, so no step divides.
@@ -208,8 +230,13 @@ wide_kernel(LevelParams P, int cz, int vec,
     // ---- A. plane t+1: fetched into registers, or copied into its slot ----
     const int pin = t + 1;
     const bool loading = pin <= ze - 1 + H;
-    const int szin = src_idx(pin, P.Z, P.per[2]);
-    const T* src = phi + (long long)((szin < 0 ? 0 : szin) + PZ) * gplane;
+    // SLAB: every plane is read where it lies (a pad plane beyond the
+    // slab), but one beyond a face that synthesizes
+    const int szin = SLAB != 0 ? pin : src_idx(pin, P.Z, P.per[2]);
+    const bool have = SLAB != 0
+        ? !((zsyn_lo && pin < 0) || (zsyn_hi && pin >= P.Z)) : szin >= 0;
+    const T* src = phi + (long long)((SLAB != 0 ? szin : szin < 0 ? 0 : szin) +
+                                     PZ) * gplane;
     T va[R][2] = {};
     if (DOWN && loading) {
       T* d = s + slot_in + i0;
@@ -223,7 +250,7 @@ wide_kernel(LevelParams P, int cz, int vec,
         }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    if (!DOWN && loading && szin >= 0) {
+    if (!DOWN && loading && have) {
       if (inner) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -249,8 +276,11 @@ wide_kernel(LevelParams P, int cz, int vec,
 #pragma unroll
       for (int sw = 0; sw < NS; ++sw) {
         const int c1 = B ^ 1 ^ (sw & 1);
-        const int sz1 = src_idx(t - 2 * sw, P.Z, P.per[2]);
-        const T* rz = rhs + (long long)((sz1 < 0 ? 0 : sz1) + PZ) * gplane;
+        // SLAB: the plane where it lies, clamped into the pads
+        const int sz1 = SLAB != 0 ? slab_clamp(t - 2 * sw, P.Z, H)
+                                  : src_idx(t - 2 * sw, P.Z, P.per[2]);
+        const T* rz = rhs + (long long)((SLAB != 0 ? sz1 : sz1 < 0 ? 0 : sz1) +
+                                        PZ) * gplane;
 #pragma unroll
         for (int j = 0; j < R; ++j)
           dq[sw][j] = __ldg(rz + roff[j] + sx[(j & 1) ^ c1]);
@@ -275,11 +305,17 @@ wide_kernel(LevelParams P, int cz, int vec,
       const int p = t - 1 - 2 * sw;
       // z range in which half-sweep sw is still valid, and the plane exists
       if (p < zb - (H - 1 - sw) || p > ze - 1 + (H - 1 - sw)) continue;
-      if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      if constexpr (SLAB != 0) {
+        if ((zsyn_lo && p < 0) || (zsyn_hi && p >= P.Z)) continue;
+      } else {
+        if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      }
       const int c = B ^ (sw & 1);       // x cell updated in even rows
       const int sc = slot(2 + 2 * sw), sm = slot(3 + 2 * sw),
                 sp = slot(1 + 2 * sw);
-      const bool zface = !P.per[2] && (p == 0 || p == P.Z - 1);
+      const bool zface = SLAB != 0
+          ? (zsyn_lo && p == 0) || (zsyn_hi && p == P.Z - 1)
+          : !P.per[2] && (p == 0 || p == P.Z - 1);
       // ring offsets, relative to a row's cell 0: the updated cell, and
       // its x neighbour outside the pair, in even and in odd rows; the
       // pair partner of even rows is odd rows' updated cell and back
@@ -309,7 +345,7 @@ wide_kernel(LevelParams P, int cz, int vec,
       }
       if (face || zface) {
         // a cell on a face: stream_kernel.cuh's BC synthesis
-        const int sz = src_idx(p, P.Z, P.per[2]);
+        const int sz = SLAB != 0 ? p : src_idx(p, P.Z, P.per[2]);
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int cu = (j & 1) ^ c;   // x cell of the updated one
@@ -324,8 +360,12 @@ wide_kernel(LevelParams P, int cz, int vec,
           neighbor_pair<T>(P, 1, gy0 + j, P.Y, v, a[j], a[j + 2], sx[cu], sy,
                            sz, lo, hi);
           ys[j] = lo + hi;
-          neighbor_pair<T>(P, 2, p, P.Z, v, zl[j], zh[j], sx[cu], sy, sz, lo,
-                           hi);
+          if constexpr (SLAB != 0)
+            slab_z_pair<T>(P, zsyn_lo, zsyn_hi, p, v, zl[j], zh[j], sx[cu],
+                           sy, sz, lo, hi);
+          else
+            neighbor_pair<T>(P, 2, p, P.Z, v, zl[j], zh[j], sx[cu], sy, sz,
+                             lo, hi);
           zs[j] = lo + hi;
         }
       }
@@ -509,14 +549,31 @@ static bool wide_takes(const LevelParams& P) {
   return tiles * cdiv(P.Z, 8) >= MIN_BLOCKS_PER_SM * (unsigned)wide_sms();
 }
 
+// Whether the wide design takes a slab double pair (SLAB = 1): a slab of
+// at least one 8-plane chunk (an edge strip of an overlapped pair group
+// is 2 * n_pairs planes thick, all of them halo) whose tiles and 8-plane
+// chunks give a block for every second SM; on an H100 the 512^2 x 64 and
+// 256^2 x 32 slabs of the 512^3 and 256^3 levels over 8 slabs, where it
+// was faster than stream_kernel.cuh (PERF.md); chip_smoke.py holds it
+// against the plain version on these, on the thinnest it takes (512^2 x
+// 8, one chunk holding both z faces) and on 512^2 x 12 (a 4-plane last
+// chunk).
+template <typename T>
+static bool wide_slab_takes(const LevelParams& P) {
+  const unsigned tiles = cdiv(P.X, WIDE_TX) * cdiv(P.Y, wide_ty<T>());
+  return P.Z >= 8 &&
+         2 * tiles * cdiv(P.Z, 8) >= (unsigned)wide_sms();
+}
+
 // The double pair (MODE M_PAIRS) or the fused down-leg with its fine
-// output (M_DOWN) of NS half-sweeps on a level that wide_takes.
-template <typename T, int NS, int MODE>
+// output (M_DOWN) of NS half-sweeps on a level that wide_takes; SLAB 1:
+// the double pair on a slab that wide_slab_takes, Zs its gates.
+template <typename T, int NS, int MODE, int SLAB = 0>
 static int launch_wide(const LevelParams& P, const void* phi, const void* rhs,
                        void* out, void* phic_out, void* iresc_out,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const SlabParams* Zs = nullptr) {
   using G = WideGeo<T, NS, MODE>;
-  auto kernel = wide_kernel<T, NS, MODE>;
+  auto kernel = wide_kernel<T, NS, MODE, SLAB>;
   const size_t smem = G::smem_bytes();
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -532,6 +589,7 @@ static int launch_wide(const LevelParams& P, const void* phi, const void* rhs,
   dim3 grid(cdiv(P.X, G::TX), cdiv(P.Y, G::TY), cdiv(P.Z, cz));
   kernel<<<grid, G::NT, smem, stream>>>(P, cz, vec, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
-                                        (T*)iresc_out);
+                                        (T*)iresc_out,
+                                        Zs ? *Zs : SlabParams{});
   return (int)cudaGetLastError();
 }

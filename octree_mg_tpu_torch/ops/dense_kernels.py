@@ -60,24 +60,29 @@ slabs' planes (the JAX package's ``_face_masks`` with ``zgates``).  On
 the card these calls launch the slab variants of the kernels
 (``SlabParams``, csrc/stencil_common.cuh), counted under
 ``name[z_gates]`` (``name[n_eps=k][z_gates]`` for the coefficient
-variants).  ``half_sweep_dense``, ``downsweep_dense`` and
+variants); a slab double pair on the wide design (below) is counted
+under ``pair_sweep_dense[z_gates][wide]`` as well.  ``half_sweep_dense``, ``downsweep_dense`` and
 ``residual_restrict_dense`` take no gates: the JAX package never calls
 them with any.
 
 The double pair and the down-leg run one of three kernel designs, which
 the library picks by level size, dtype, ``n_eps`` and SM count:
-csrc/stream_wide.cuh for constant coefficients on large levels,
-csrc/stream_faces.cuh for the coefficient variants on every float32
-level, csrc/stream_kernel.cuh for the rest.  The apply, the residual and
-``residual_restrict_dense`` run one of two: csrc/apply_faces.cuh for the
-coefficient variants on every level in both dtypes, csrc/stream_kernel.cuh
-for the rest.  Both face-plane designs build each harmonic-mean face once
+csrc/stream_wide.cuh for constant coefficients on large levels (and for
+the slab double pair on large slabs), csrc/stream_faces.cuh for the
+coefficient variants on every float32 level, csrc/stream_kernel.cuh for
+the rest.  The apply and the residual run one of two:
+csrc/apply_faces.cuh for the coefficient variants on every level in both
+dtypes, csrc/stream_kernel.cuh for the rest; ``residual_restrict_dense``
+runs csrc/apply_faces.cuh on every launch, constant coefficients
+included.  Both face-plane designs build each harmonic-mean face once
 per plane, where stream_kernel.cuh builds a cell's six from the
 coefficients of the cell and its neighbours at every update; they were
-faster at every level they take (PERF.md).  The library reports
-which design a launch ran; a launch of the wide one is counted under
-``name[wide]`` as well, one of a face-plane one under
-``name[n_eps=k][faces]``.
+faster at every level they take, and so was the face-plane apply without
+coefficients for the residual-restriction (PERF.md).  The library
+reports which design a launch ran; a launch of the wide one is counted
+under ``name[wide]`` as well, one of a face-plane one under
+``name[n_eps=k][faces]`` (``residual_restrict_dense[faces]`` without
+coefficients).
 
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
@@ -155,6 +160,11 @@ def faces_name(name: str, n_eps: int) -> str:
 for _n in (1, 3):
     for _e in FACE_ENTRIES:
         _LAUNCHES[faces_name(_e, _n)] = 0
+#: the constant-coefficient residual-restriction runs the face-plane apply
+#: too (csrc/apply_faces.cuh, with no coefficients)
+_LAUNCHES[faces_name("residual_restrict_dense", 0)] = 0
+#: a slab double pair on the wide design (csrc/stream_wide.cuh)
+_LAUNCHES[slab_name("pair_sweep_dense") + "[wide]"] = 0
 
 
 def launch_counts() -> dict:
@@ -796,7 +806,8 @@ _ARGTYPES = {
     "omg_stencil_slab": [ctypes.c_int, ctypes.c_int,
                          ctypes.POINTER(_LevelParams),
                          ctypes.POINTER(_EpsParams),
-                         ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP],
+                         ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP,
+                         ctypes.POINTER(ctypes.c_int)],
     "omg_prolong_slab": [ctypes.c_int, ctypes.POINTER(_LevelParams),
                          ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP],
 }
@@ -918,10 +929,13 @@ def _slab_launch(name, cfg, mode, phi, rhs, lam, bplanes, red_parity,
     P = _params(cfg, lam, bplanes, red_parity, n_sweeps)
     E = _eps_params(cfg, eps)
     Zs = _slab_params(z_gates)
+    design = ctypes.c_int(0)
     err = _fn("stencil_sweep", "omg_stencil_slab")(
         _dt(cfg), mode, ctypes.byref(P), ctypes.byref(E), ctypes.byref(Zs),
-        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+        phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
+        ctypes.byref(design))
     record_launch(err, name, slab_name(name, cfg.n_eps))
+    _count_design(slab_name(name, cfg.n_eps), cfg.n_eps, design.value)
     return out
 
 

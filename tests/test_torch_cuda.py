@@ -104,6 +104,56 @@ def test_face_kernels_equal_plain_versions_bitwise(level, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", range(10))
+def test_residual_restriction_equals_plain_version_bitwise(shape, dtype):
+    """The constant-coefficient residual-restriction (the face-plane
+    apply of csrc/apply_faces.cuh with no coefficients, every launch)
+    against its plain version on the wide design's edge levels and the
+    520x520x264 ones (chip_smoke.WIDE_EDGE_SHAPES + WIDE_DOWN_SHAPES):
+    the four BC kinds, NaN pads, 0 ulp, every launch counted under
+    residual_restrict_dense[faces]."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    shapes = chip_smoke.WIDE_EDGE_SHAPES + chip_smoke.WIDE_DOWN_SHAPES
+    dk.reset_launch_counts()
+    rows = chip_smoke.rr_checks(dk, [shapes[shape]], (getattr(torch, dtype),))
+    assert len(rows) == 4 and all(
+        r["max_ulp"] == 0 and r["faces"] for r in rows), rows
+    counts = dk.launch_counts()
+    assert counts["residual_restrict_dense"] == 4
+    assert counts[chip_smoke.RR_FACES] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(6))
+def test_wide_slab_pair_equals_plain_version_bitwise(shape):
+    """The float32 slab double pair (n_pairs 1 and 2) on slabs its wide
+    design takes (chip_smoke.SLAB_WIDE_SHAPES: 520x520x64, 512x512x64,
+    256x256x32, 512x512x8 and 512x512x12): every gate pair, physical and
+    periodic z, the four BC kinds, the pads of gated-off faces random and
+    every other pad NaN; both gates on also against the ungated kernel:
+    0 ulp, every launch counted under pair_sweep_dense[z_gates][wide]."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    dk.reset_launch_counts()
+    rows = chip_smoke.slab_wide_checks(
+        dk, [chip_smoke.SLAB_WIDE_SHAPES[shape]])
+    # 2 z axes x 4 gate pairs x 4 BC kinds x 2 n_pairs, and 4 against the
+    # ungated kernel
+    assert len(rows) == 68 and all(
+        r["max_ulp"] == 0 and r["wide"] for r in rows), [
+        r for r in rows if r["max_ulp"] or not r["wide"]][:5]
+    counts = dk.launch_counts()
+    assert counts[chip_smoke.SLAB_WIDE] == 68
+    assert counts["pair_sweep_dense[z_gates]"] == 68
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", range(3))
 def test_wide_down_leg_equals_plain_version_bitwise_on_a_large_level(shape):
     """The float32 down-leg takes the wide design only on large levels

@@ -193,6 +193,57 @@ def test_gated_prolongation_matches_reference_kernel():
                                atol=64 * EPS * np.abs(want).max())
 
 
+@pytest.mark.parametrize("n_pairs,gates,per_z", [(1, (True, False), False),
+                                                  (2, (False, True), False),
+                                                  (2, (False, False), True)])
+def test_gated_pair_matches_reference_kernel(n_pairs, gates, per_z):
+    """The gated double pair on one aligned slab against the JAX
+    package's Pallas body (interpret mode), n_pairs 1 and 2: the face a
+    gate turns off, and a periodic z axis, read the pads 2 * n_pairs
+    deep."""
+    rng = np.random.default_rng(31 + n_pairs)
+    dims = (256, 16, 8)
+    dr = 1.0 / 256
+    bc = [tuple(ref_bc_coeffs(ref.BCType.DIRICHLET, dr, nb))
+          for nb in range(6)]
+    per = (False, False, per_z)
+    idr2 = (1.0 / dr ** 2,) * 3
+    jcfg = jdk.DenseStencilConfig(dims, idr2, bc, per, jnp.float64,
+                                  b_const=[None] * 6, interpret=True)
+    assert jcfg.use_kernel
+    tcfg = dk.DenseStencilConfig(dims, idr2, bc, per, torch.float64,
+                                 b_const=[None] * 6)
+    phi, rhs = (rng.normal(size=dk.padded_shape(dims)) for _ in range(2))
+    planes = [rng.normal(size=tcfg.plane_shape(nb)) for nb in range(6)]
+    want = np.asarray(jdk.pair_sweep_dense(
+        jcfg, jnp.asarray(phi), jnp.asarray(rhs), 0.3,
+        [jnp.asarray(p) for p in planes], 0, z_gates=gates,
+        n_pairs=n_pairs))[dk._ISL]
+    got = dk.pair_sweep_dense(
+        tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.3,
+        [torch.from_numpy(p) for p in planes], 0, n_pairs=n_pairs,
+        z_gates=gates)[dk._ISL]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=64 * EPS * np.abs(want).max())
+
+
+@pytest.mark.parametrize("counter", ["pair_sweep_dense[z_gates][wide]",
+                                     "residual_restrict_dense[faces]"])
+def test_design_counters_exist_and_cpu_tensors_never_count(counter):
+    """The counters of the wide slab double pair and of the
+    constant-coefficient residual-restriction on the face-plane apply
+    exist, and calls on CPU tensors (the plain versions) count under no
+    counter."""
+    assert counter in dk.launch_counts()
+    _, tcfg, (phi, rhs), _, planes = slab_case(False, 0, seed=2)
+    args = (tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.3,
+            [torch.from_numpy(p) for p in planes])
+    before = dk.launch_counts()
+    dk.pair_sweep_dense(*args, 0, n_pairs=2, z_gates=(False, True))
+    dk.residual_restrict_dense(*args)
+    assert dk.launch_counts() == before
+
+
 def test_gates_are_checked():
     _, tcfg, (phi, rhs), _, planes = slab_case(False, 0, seed=1)
     args = (tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.0,
