@@ -45,8 +45,16 @@ object per line:
   256x256x32 and the thin 512x512x8 and 512x512x12, x and y on faces,
   periodic and mixed), n_pairs 1 and 2, every gate pair, physical and periodic z, the four BC kinds, the pads of
   gated-off faces random and every other pad NaN, both gates on also
-  against the ungated kernel; the double-float residual on the
-  same shapes (float32, equal power-of-two spacing, constant faces, with
+  against the ungated kernel; the float32 segment pair (1 and 2 pairs),
+  apply and residual on canvases their new designs take
+  (``SEG_WIDE_SHAPES``: csrc/stream_wide.cuh with SEG = 1 for the pair,
+  csrc/apply_faces.cuh with SEG = 1 for the apply and the residual, which
+  every case must run): the forest's 256^3 canvas, one with x, y and z
+  tails, the smallest and the thinnest the pair's rule takes, 96 layers,
+  readers at tile and chunk edges and readers served on both sides, NaN
+  pads, each against its plain version and against the design before
+  (csrc/seg_sweep.cu built with -DOMG_SEGWIDE=0); the double-float
+  residual on the same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
   0.5 + U[0,1) with NaN pads) on every level shape, dtype and BC kind;
@@ -109,7 +117,10 @@ object per line:
   eight have-guess FMGs (footprint residuals must fall monotonically to
   below 1e-3 of the first), then eight have-guess FMGs with one sync:
   ``ms_per_fmg``, ``leaf_unknowns_per_s``, launches (the segment pair
-  and apply and the corr_ready prolongation must have run), peak memory;
+  and apply and the corr_ready prolongation must have run), the timed
+  run's segment launches per FMG by canvas (every segment pair on a
+  canvas of 256^3 and up, and every segment apply and residual, must
+  have run its new design), peak memory;
 * ``forest_periodic`` — a fully periodic forest (base 128, box 16, a
   corner patch): its full levels run the sequential path, so
   ``half_sweep_dense`` must have run;
@@ -155,7 +166,9 @@ object per line:
   convolution of the zero-padded core as a yardstick: not the same
   function at the faces); then the forest's kernels at the
   shapes the forest paths give them (the segment pair and residual on
-  level 2's 512^3 canvas with its ghost layers, the corr_ready
+  level 2's 512^3 canvas with its ghost layers, each row naming its
+  design, its launches on it per FMG by canvas and the old design's time
+  on the same inputs, the corr_ready
   correction 256^3 -> 512^3, the half-sweep on the periodic forest's
   128^3 level) and the set mode at the main path's prolongation shape;
   the flat half-sweep at the boxed path's level-1 shape [4096, 18^3]
@@ -496,20 +509,52 @@ def forest_variants(dk, cfg, phi, rhs, planes, lam, phi_f):
     return out
 
 
-def seg_variants(dk, dims, dtype, seed, lam):
-    """The segment-synthesis variants of pair (1 and 2 pairs), apply and
-    residual on a canvas with four ghost layers per dim (both canvas
-    faces, where phys and rb layers lie, and two inside the canvas, where
-    ring layers lie) whose coefficient planes are random and whose masks
-    cover ~70 % of each layer; NaN pads."""
+def seg_layer_set(dims, kind):
+    """Ghost layers (d, c, side) of a canvas: ``faces_and_middle`` both
+    canvas faces of each dim (where phys and rb layers lie) and two
+    inside (where ring layers lie); ``both_sides`` readers served by a
+    layer on each side (at both canvas faces and in the middle);
+    ``edges`` readers at the new designs' tile edges (x 3/4 and 63/64,
+    y 15/16 and 31/32), at the z-chunk edges of 8 and 16 planes, and at
+    the canvas faces, each served on both sides; ``max`` MAX_SEGS layers
+    drawn from every one the canvas admits."""
+    segs = []
+    if kind == "faces_and_middle":
+        for d, n in enumerate(dims):
+            segs += [(d, -1, 0), (d, n, 1), (d, n // 2 - 1, 0),
+                     (d, n // 2, 1)]
+    elif kind == "both_sides":
+        for d, n in enumerate(dims):
+            segs += [(d, -1, 0), (d, 1, 1), (d, n // 2 - 1, 0),
+                     (d, n // 2 + 1, 1), (d, n - 2, 0), (d, n, 1)]
+    elif kind == "edges":
+        at = ((0, 3, 4, 63, 64), (0, 15, 16, 31, 32), (0, 7, 8, 15, 16))
+        for d, n in enumerate(dims):
+            for r in at[d] + (n - 1,):
+                if 0 <= r < n:
+                    segs += [(d, r - 1, 0), (d, r + 1, 1)]
+    elif kind == "max":
+        every = [(d, c, side) for d, n in enumerate(dims) for side in (0, 1)
+                 for c in (range(-1, n - 1) if side == 0 else
+                           range(1, n + 1))]
+        pick = np.random.default_rng(len(every)).choice(
+            len(every), size=min(96, len(every)), replace=False)
+        segs = [every[i] for i in sorted(pick)]
+    else:
+        raise ValueError(kind)
+    return sorted(set(segs), key=segs.index)
+
+
+def seg_case(dk, dims, dtype, seed, segs):
+    """A forest canvas on the card with ghost layers ``segs``: random
+    coefficient planes whose masks cover ~70 % of each layer, random phi
+    and rhs with NaN pads."""
     X, Y, Z = dims
     idr2 = (1.0 / X ** 2 * 4, 1.0 / Y ** 2 * 2, 1.0 / Z ** 2)
     cfg = dk.DenseStencilConfig(dims, idr2, [(1.0, 0.0, 0.0)] * 6,
                                 (True,) * 3, dtype, b_const=[0.0] * 6)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    segs, planes = [], []
-    for d, n in enumerate(dims):
-        segs += [(d, -1, 0), (d, n, 1), (d, n // 2 - 1, 0), (d, n // 2, 1)]
+    planes = []
     for d, _, _ in segs:
         a = torch.randn(dk._seg_plane_shape(cfg, d), generator=g,
                         dtype=dtype, device="cuda")
@@ -523,7 +568,16 @@ def seg_variants(dk, dims, dtype, seed, lam):
                                  device="cuda")
         return a
 
-    phi, rhs, isl = field(), field(), dk._ISL
+    return cfg, planes, field(), field()
+
+
+def seg_variants(dk, dims, dtype, seed, lam):
+    """The segment-synthesis variants of pair (1 and 2 pairs), apply and
+    residual on a canvas with four ghost layers per dim
+    (``faces_and_middle``); NaN pads."""
+    segs = seg_layer_set(dims, "faces_and_middle")
+    cfg, planes, phi, rhs = seg_case(dk, dims, dtype, seed, segs)
+    isl = dk._ISL
     kw = dict(segs=segs, seg_planes=planes)
     out = []
     for n in (1, 2):
@@ -815,6 +869,12 @@ def phase_checks(dk, df, quick):
              f"{[r for r in swide if not r['wide']][:1]}")
     worst = max([worst] + [r["max_ulp"] for r in rr + swide])
     rows += rr + swide
+    sgw = seg_wide_checks(dk, old_seg_library(dk))
+    if not all(r["new_design"] for r in sgw):
+        fail("a segment launch did not run its new design: "
+             f"{[r for r in sgw if not r['new_design']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in sgw])
+    rows += sgw
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
                       and "faces" not in r["kernel"] for r in rows)
@@ -841,6 +901,8 @@ def phase_checks(dk, df, quick):
                      "rr_faces_max_ulp": max(r["max_ulp"] for r in rr),
                      "slab_wide_cases": len(swide),
                      "slab_wide_max_ulp": max(r["max_ulp"] for r in swide),
+                     "seg_wide_cases": len(sgw),
+                     "seg_wide_max_ulp": max(r["max_ulp"] for r in sgw),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -1126,6 +1188,104 @@ def slab_wide_checks(dk, shapes=SLAB_WIDE_SHAPES):
                              "wide": wide})
                 del got, want
             del phi, rhs
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: float32 forest canvases that the segment kernels' new designs take
+#: (csrc/stream_wide.cuh with SEG = 1 for the double pair, where
+#: wide_seg_takes; csrc/apply_faces.cuh with SEG = 1 for every apply and
+#: residual), with their ghost layers (seg_layer_set): the forest's 256^3
+#: canvas; one with x, y and z tails (8 of the pair's 64 x 32 tile, 8 of
+#: the apply's 64 x 16 one, 4 of an 8-plane chunk); on the 132 SMs of an
+#: H100 the smallest canvas the pair's rule takes (one tile, 264 chunks
+#: of 8 planes) and the thinnest (2 planes, 272 tiles); MAX_SEGS layers;
+#: readers at tile and chunk edges; readers served on both sides
+SEG_WIDE_SHAPES = [((256, 256, 256), "faces_and_middle"),
+                   ((264, 168, 100), "faces_and_middle"),
+                   ((2, 2, 2112), "faces_and_middle"),
+                   ((1024, 544, 2), "faces_and_middle"),
+                   ((264, 168, 100), "max"),
+                   ((264, 168, 100), "edges"),
+                   ((264, 168, 100), "both_sides")]
+#: the counters of the segment launches on the new designs
+SEG_WIDE = "pair_sweep_dense[segs][wide]"
+SEG_FACES = "stencil_apply_dense[segs][faces]"
+
+
+def old_seg_library(dk):
+    """omg_seg_sweep of csrc/seg_sweep.cu built with -DOMG_SEGWIDE=0: every
+    segment launch on csrc/stream_kernel.cuh, the design before the wide
+    and face-plane ones, to hold the new designs against."""
+    import ctypes
+    from octree_mg_tpu_torch.ops import _cuda_build
+    path = _cuda_build.build_kernels(("-DOMG_SEGWIDE=0",),
+                                     sources=("seg_sweep",))["seg_sweep"]
+    fn = ctypes.CDLL(path).omg_seg_sweep
+    fn.argtypes, fn.restype = dk._ARGTYPES["omg_seg_sweep"], ctypes.c_int
+    return fn
+
+
+def old_seg_launch(dk, fn, cfg, mode, phi, rhs, lam, n_pairs, layers,
+                   planes):
+    """One launch of the old design (old_seg_library) as the wrappers
+    make it; not counted (a comparison, not the path)."""
+    import ctypes
+    S = dk._seg_params(layers, planes)
+    P = dk._params(cfg, lam, None, 0, 2 * n_pairs, seg=True)
+    out = torch.empty_like(phi)
+    design = ctypes.c_int(-1)
+    err = fn(dk._dt(cfg), mode, ctypes.byref(P), ctypes.byref(S),
+             phi.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+             dk.cuda_stream(phi), ctypes.byref(design))
+    if err != 0 or design.value != 0:
+        fail(f"the old segment design: error {err}, design {design.value}")
+    return out
+
+
+def seg_wide_checks(dk, old_fn, shapes=SEG_WIDE_SHAPES):
+    """The float32 segment pair (1 and 2 pairs), apply and residual on
+    canvases their new designs take, NaN pads: 0 ulp against the plain
+    version and against the old design (old_seg_library), and counted
+    under SEG_WIDE / SEG_FACES (``new_design``)."""
+    rows, seed, dtype, lam, isl = [], 1300, torch.float32, 0.37, dk._ISL
+    for dims, kind in shapes:
+        seed += 1
+        segs = seg_layer_set(dims, kind)
+        cfg, planes, phi, rhs = seg_case(dk, dims, dtype, seed, segs)
+        layers = dk.seg_layers(cfg, segs, phi.device)
+        for name, mode, n in (("pairs1", 0, 1), ("pairs2", 0, 2),
+                              ("apply", 1, 0), ("residual", 2, 0)):
+            counter = SEG_WIDE if mode == 0 else SEG_FACES
+            before = dk.launch_counts()[counter]
+            if mode == 0:
+                got = dk.pair_sweep_dense(cfg, phi, rhs, lam, None, 0,
+                                          n_pairs=n, segs=layers,
+                                          seg_planes=planes)
+            else:
+                got = dk.stencil_apply_dense(cfg, phi, rhs, lam, None,
+                                             mode == 2, segs=layers,
+                                             seg_planes=planes)
+            new = dk.launch_counts()[counter] == before + 1
+            if mode == 0:
+                want = dk._seg_pairs_plain(cfg, phi, rhs, lam, 0, n, segs,
+                                           planes)
+            else:
+                want = dk._seg_apply_plain(cfg, phi, rhs, lam, mode == 2,
+                                           segs, planes)
+            old = old_seg_launch(dk, old_fn, cfg, mode, phi, rhs, lam, n,
+                                 layers, planes)
+            torch.cuda.synchronize()
+            up = ulp_diff(got[isl], want[isl])
+            uo = ulp_diff(got[isl], old[isl])
+            u = max(up, uo) if min(up, uo) >= 0 else 1 << 62
+            rows.append({"kernel": f"{name}[segs][new design]",
+                         "dims": dims, "layers": kind,
+                         "ghost_layers": len(segs), "dtype": "float32",
+                         "lam": lam, "max_ulp": u, "max_ulp_vs_plain": up,
+                         "max_ulp_vs_old_design": uo, "new_design": new})
+            del got, want, old
+        del cfg, planes, phi, rhs, layers
     torch.cuda.empty_cache()
     return rows
 
@@ -2228,14 +2388,50 @@ def footprint_finite(sv, state, lvl):
     return bool(torch.isfinite(sv.interior(state, lvl, "phi")[m]).all())
 
 
+class SegTally:
+    """Segment launches by entry point and canvas, and how many of them
+    ran the new design (the SEG_WIDE / SEG_FACES counter moved): a wrap
+    of dense_kernels._seg_launch, in place while the object is entered
+    (two counter reads per launch, ~1 us)."""
+
+    def __init__(self, dk):
+        self.dk, self.n = dk, {}
+
+    def __enter__(self):
+        dk, orig = self.dk, self.dk._seg_launch
+
+        def launch(name, cfg, *args):
+            key = SEG_WIDE if name == "pair_sweep_dense" else SEG_FACES
+            before = dk._LAUNCHES[key]
+            out = orig(name, cfg, *args)
+            row = self.n.setdefault(name + "[segs]", {}).setdefault(
+                "x".join(map(str, cfg.dims)),
+                {"launches": 0, "on_the_new_design": 0})
+            row["launches"] += 1
+            row["on_the_new_design"] += dk._LAUNCHES[key] - before
+            return out
+
+        self.orig, dk._seg_launch = orig, launch
+        return self
+
+    def __exit__(self, *exc):
+        self.dk._seg_launch = self.orig
+
+    def per(self, n):
+        """The tally divided by n (per FMG)."""
+        return {k: {c: {f: v / n for f, v in r.items()}
+                    for c, r in by.items()} for k, by in self.n.items()}
+
+
 def phase_forest(pkg, dk, name, tree, box, rhs_top, need, dirichlet,
                  n_have=8, n_timed=8):
     """A forest through ``PoissonSolver(tree=...)`` in float32: one
     zero-guess and ``n_have`` have-guess FMGs through ``solve`` (the
     footprint max-norm residual after each), launches counted over that
     run; then ``n_timed`` have-guess FMGs without the residual and one
-    synchronisation at the end.  Returns (solver, state, launches of the
-    run, launches per timed FMG, the emitted record)."""
+    synchronisation at the end, segment launches tallied by canvas
+    (SegTally).  Returns (solver, state, launches of the run, launches
+    per timed FMG, the emitted record)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2266,11 +2462,12 @@ def phase_forest(pkg, dk, name, tree, box, rhs_top, need, dirichlet,
     sv.fas_fmg(state, have_guess=True, need_res=False)
     torch.cuda.synchronize()
     dk.reset_launch_counts()
-    t1 = time.perf_counter()
-    for _ in range(n_timed):
-        sv.fas_fmg(state, have_guess=True, need_res=False)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t1) / n_timed
+    with SegTally(dk) as tally:
+        t1 = time.perf_counter()
+        for _ in range(n_timed):
+            sv.fas_fmg(state, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / n_timed
     per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items() if v}
     n_unk = leaf_unknowns(tree, box)
     rec = {"model": f"PoissonSolver(tree={name} base {base} box {box}, "
@@ -2290,6 +2487,7 @@ def phase_forest(pkg, dk, name, tree, box, rhs_top, need, dirichlet,
            "leaf_unknowns_per_s": n_unk / dt,
            "launches_in_solve": {k: v for k, v in launches.items() if v},
            "launches_per_fmg": per_fmg,
+           "seg_launches_per_fmg_by_canvas": tally.per(n_timed),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     return sv, state, launches, per_fmg, rec
 
@@ -2316,6 +2514,24 @@ def phase_forest_path(pkg, dk, base=256):
                                     dtype=torch.float32, device="cuda"),
         FOREST_PATH_KERNELS, dirichlet=True)
     emit({"forest_path": rec})
+    # the timed run: every segment pair on a canvas of 256^3 and up, and
+    # every segment apply and residual, ran the new design; the counters
+    # agree with the tally
+    by = rec["seg_launches_per_fmg_by_canvas"]
+    for entry, counter in (("pair_sweep_dense[segs]", SEG_WIDE),
+                           ("stencil_apply_dense[segs]", SEG_FACES)):
+        rows_ = by.get(entry, {})
+        want = {c: r["launches"] for c, r in rows_.items()
+                if entry.startswith("stencil") or
+                min(int(v) for v in c.split("x")) >= 256}
+        got = {c: rows_[c]["on_the_new_design"] for c in want}
+        if not want or got != want:
+            fail(f"forest_path: {entry} per FMG on the new design {got}, "
+                 f"not {want}")
+        if sum(r["on_the_new_design"] for r in rows_.values()) != \
+                per_fmg.get(counter, 0):
+            fail(f"forest_path: {counter} per FMG {per_fmg.get(counter)} "
+                 f"disagrees with the tally {rows_}")
     rows = []
     lvl = 2
     cfg = sv._seg_kcfg(lvl)
@@ -2325,6 +2541,25 @@ def phase_forest_path(pkg, dk, base=256):
     pb = sum(p.numel() for p in planes) * 4
     shape = list(sv.dims[lvl])
     extra = {"ghost_layers": len(descs.segs), "level": lvl}
+    old_fn = old_seg_library(dk)
+    designs = {"pair_sweep_dense[segs]": (
+        "octree_mg_tpu_torch/csrc/stream_wide.cuh", SEG_WIDE),
+        "stencil_apply_dense[segs]": (
+        "octree_mg_tpu_torch/csrc/apply_faces.cuh", SEG_FACES)}
+
+    def design(entry, mode, n_pairs):
+        """The row's design, its launches, and the old design's time on
+        the same inputs (-DOMG_SEGWIDE=0, csrc/stream_kernel.cuh)."""
+        src, counter = designs[entry]
+        old_ms = time_ms(lambda: old_seg_launch(
+            dk, old_fn, cfg, mode, phi, rhs, 0.0, n_pairs, descs, planes), 12)
+        return {"design": src,
+                "launches_on_the_new_design": launches[counter],
+                "launches_per_fmg_on_the_new_design": per_fmg.get(counter, 0),
+                "launches_per_fmg_by_canvas": by.get(entry, {}),
+                "old_design": "octree_mg_tpu_torch/csrc/stream_kernel.cuh",
+                "old_design_ms": old_ms}
+
     rows.append(timed_row(
         "pair_sweep_dense[segs]",
         lambda: (dk.pair_sweep_dense(cfg, phi, rhs, 0.0, None, 0, n_pairs=2,
@@ -2334,7 +2569,7 @@ def phase_forest_path(pkg, dk, base=256):
         launches["pair_sweep_dense[segs]"],
         per_fmg.get("pair_sweep_dense[segs]", 0), shape,
         *forest_work_model("pair_sweep_dense[segs]", n, 0, pb, 4),
-        dict(extra, n_pairs=2)))
+        dict(extra, n_pairs=2, **design("pair_sweep_dense[segs]", 0, 2))))
     rows.append(timed_row(
         "stencil_apply_dense[segs]",
         lambda: (dk.stencil_apply_dense(cfg, phi, rhs, 0.0, None, True,
@@ -2344,7 +2579,8 @@ def phase_forest_path(pkg, dk, base=256):
         launches["stencil_apply_dense[segs]"],
         per_fmg.get("stencil_apply_dense[segs]", 0), shape,
         *forest_work_model("stencil_apply_dense[segs]", n, 0, pb, 4),
-        dict(extra, residual=True)))
+        dict(extra, residual=True,
+             **design("stencil_apply_dense[segs]", 2, 0))))
     # the correction of level 2 from level 1: its window is level 1's
     # whole 256^3 canvas with a ring
     X, Y, Z = sv.dims[lvl]

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
-with other build-time constants (``-DOMG_WIDE``, ``-DOMG_FACES``,
+(and ``seg_sweep.cu``) with other build-time constants (``-DOMG_WIDE``,
+``-DOMG_FACES``, ``-DOMG_SEGWIDE``,
 ``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``)
 into ``build/probe`` and prints, one JSON object per line:
 
@@ -67,6 +68,19 @@ into ``build/probe`` and prints, one JSON object per line:
   512^3 in both dtypes, row 1z on a 512^2 x 64 slab for both n_pairs and
   every gate pair) and the registers ptxas reports (``rr_slab_bitwise``,
   ``rr_slab_ptxas``);
+* ``seg``    — rows 1s and 5s, the dense forest's segment double pair
+  (n_pairs 2) and its residual and apply, as shipped (float32: the wide
+  design of csrc/stream_wide.cuh with SEG = 1 where wide_seg_takes the
+  canvas, the face-plane apply of csrc/apply_faces.cuh with SEG = 1)
+  against the design before them (``-DOMG_SEGWIDE=0``, stream_kernel.cuh
+  alone), on every segment canvas of chip_smoke.py's ``forest_path``
+  forest (L tree, base 256, box 16: level 2's 512^3 canvas and levels 1
+  and 3's 256^3 ones with their real ghost layers and planes after one
+  FMG, the coarse canvases 128^3 .. 16^3 with theirs), in turns (old,
+  new, new, old), median of 10 per turn, CUDA events, with the design
+  each launch ran and the byte bound at 3.35 TB/s; old against new
+  bitwise on every canvas and kind (``seg_bitwise``), and the registers
+  and spills ptxas reports for both designs' instances (``seg_ptxas``);
 * ``sass``   — static SASS instructions of the double pair's and the
   down-leg's main loop (the longest backward branch), old and new, and
   per cell a thread updates in one step of that loop (old: one per
@@ -94,6 +108,7 @@ Needs a CUDA device and nvcc; the shipped kernels are not changed.
 """
 import ctypes
 import json
+import math
 import os
 import re
 import statistics
@@ -963,6 +978,89 @@ def probe_rr_slab(levels=(512, 256, 128, 64, 32, 16)):
                        for t, g in sl_logs.items()}}}), flush=True)
 
 
+#: rows 1s and 5s as shipped against the design before them
+#: (OMG_SEGWIDE=0: every segment launch on stream_kernel.cuh)
+SEG_VARIANTS = {"old": ["-DOMG_SEGWIDE=0"], "new": []}
+
+
+def seg_call(fns, cfg, phi, rhs, out, layers, planes, mode, n_pairs=0):
+    """One segment launch (mode 0 pairs, 1 apply, 2 residual) of one
+    build; returns the design the library ran."""
+    st = torch.cuda.current_stream().cuda_stream
+    S = dk._seg_params(layers, planes)
+    P = dk._params(cfg, 0.0, None, 0, 2 * n_pairs, seg=True)
+    d = ctypes.c_int(0)
+
+    def run():
+        e = fns["omg_seg_sweep"](dk._dt(cfg), mode, ctypes.byref(P),
+                                 ctypes.byref(S), phi.data_ptr(),
+                                 rhs.data_ptr(), out.data_ptr(), st,
+                                 ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+    return run
+
+
+def probe_seg():
+    import chip_smoke
+    from octree_mg_tpu_torch.core import tree as tm
+    fns, logs = build_many({k: v + ["-Xptxas", "-v"]
+                            for k, v in SEG_VARIANTS.items()},
+                           {"seg_sweep": "omg_seg_sweep"})
+    tree = chip_smoke.forest_tree(pkg, tm, "L", 256, 16)
+    ps = pkg.PoissonSolver(3, (1,) * 3, 16, tree=tree, dtype=torch.float32)
+    ps.set_dirichlet(0.0)
+    sv = ps.solver
+    top = sv.levels[-1]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    ps.set_rhs(arrays={top: torch.randn(sv._ishape(top), generator=g,
+                                        device="cuda")})
+    ps.solve(rtol=0.0, atol=0.0, max_cycles=1)
+    state = ps.state
+    checks = []
+    for lvl in sorted(sv.levels, key=lambda l: -math.prod(sv.dims[l])):
+        if sv._seg_desc(lvl) is None:
+            continue
+        cfg = sv._seg_kcfg(lvl)
+        layers, planes = sv._seg_data(state, lvl)
+        phi, rhs = state["phi"][lvl], state["rhs"][lvl]
+        out = torch.empty_like(phi)
+        n = math.prod(cfg.dims)
+        pb = sum(p.numel() for p in planes) * 4
+        for kind, mode, k in (("pairs2", 0, 2), ("residual", 2, 0),
+                              ("apply", 1, 0)):
+            calls = {t: seg_call(f, cfg, phi, rhs, out, layers, planes, mode,
+                                 k) for t, f in fns.items()}
+            design = {t: c() for t, c in calls.items()}
+            nbytes = (3 if mode != 1 else 2) * n * 4 + pb
+            print(json.dumps({"seg": {
+                "kernel": kind, "level": lvl, "dims": list(cfg.dims),
+                "ghost_layers": len(layers.segs), "ms": in_turns(calls),
+                "design": design,
+                "bound_ms": 1e3 * nbytes / 3.35e12}}), flush=True)
+            got = {}
+            for t, c in calls.items():
+                out.fill_(float("nan"))
+                c()
+                got[t] = out[dk._ISL].clone()
+            torch.cuda.synchronize()
+            checks.append({"kernel": kind, "dims": list(cfg.dims),
+                           "bitwise": torch.equal(got["old"], got["new"])})
+            del got, calls
+        del out
+        torch.cuda.empty_cache()
+    print(json.dumps({"seg_bitwise": checks}), flush=True)
+    i = r"(?:\(int\))?"
+    pick = re.compile(rf"void (wide_kernel<float, {i}[24], {i}0, {i}0, "
+                      rf"{i}1>|apply_faces_kernel<float, {i}[12], {i}0, "
+                      rf"{i}1>|stream_kernel<\w+, {i}[024], {i}[012], {i}0, "
+                      rf"{i}1, {i}0>)")
+    print(json.dumps({"seg_ptxas": {t: ptxas_resources(g, pick.match)
+                                    for t, g in logs.items()}}), flush=True)
+    del ps, sv, state
+    torch.cuda.empty_cache()
+
+
 def vcoeff_solver(op, n=512):
     """The vcoeff_path solver of chip_smoke.py (512^3 float32, lam 1.5,
     Dirichlet 0, smooth coefficients, seeded rhs) after three FMGs."""
@@ -1025,6 +1123,7 @@ if __name__ == "__main__":
                         ("faces_fmg", probe_faces_fmg),
                         ("apply_faces", probe_apply_faces),
                         ("rr_slab", probe_rr_slab),
+                        ("seg", probe_seg),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

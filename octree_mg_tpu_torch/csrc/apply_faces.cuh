@@ -2,9 +2,10 @@
 // stencil_sweep.cu) with coefficients, n_eps 1 or 3, and the
 // residual-restriction without a fine output (residual_restrict_dense,
 // K2, downsweep.cu) with and without coefficients (NE 0, 1 or 3); float32
-// and float64, no segments, no slabs.  Every other apply and residual of
-// the two sources (constant coefficients, the slabs, the segments) runs
-// stream_kernel.cuh.
+// and float64, no slabs; and the float32 segment apply and residual of a
+// dense-forest canvas (SEG = 1, NE = 0, seg_sweep.cu).  Every other apply
+// and residual of the three sources (constant coefficients, the slabs,
+// the float64 segments) runs stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the eps bodies of the Pallas entry
 // points stencil_apply_dense and residual_restrict_dense of the JAX
@@ -57,6 +58,15 @@
 // Arithmetic per cell is that of the plain PyTorch versions, operation by
 // operation (face_coef of stream_faces.cuh, eps_apply and the BC
 // synthesis of stencil_common.cuh, rhs - a for the residual).
+//
+// SEG = 1 (NE = 0's instance, the forest's segment apply and residual,
+// SegParams of stencil_common.cuh): no face synthesis; x wraps and a y
+// or z row or plane outside the canvas is copied in as zeros (the rows'
+// sources are src_idx's, x periodic, y and z not); a cell next to a ghost
+// layer substitutes its raw neighbours with the layer's ghost, in the
+// plain version's order (seg_sub), from device memory: its descriptors
+// looked up once per thread (x, y) or plane (z), the layers' plane
+// pointers staged in shared memory.
 //
 // NE = 0 (apply_from, no faces: no face arrays and no coefficient rings)
 // runs the constant-coefficient residual-restriction, row 4 of PERF.md,
@@ -126,6 +136,15 @@ struct AfGeo {
   }
   static_assert(smem_bytes() <= 232448, "the rings must fit a block's "
                 "227 KB of shared memory");
+  // SEG: the descriptors' plane pointers after the rings (a constant,
+  // not a function: the kernel reads it)
+  static constexpr size_t SEG_TABLE =
+      (sizeof(T) * ((size_t)NP * PL + (size_t)NE * NQ * PL +
+                    (RHS ? (size_t)NR * TX * TY : 0) +
+                    (NE ? 2 * (size_t)FP : 0)) + 7) & ~(size_t)7;
+  static constexpr size_t seg_smem_bytes() {
+    return SEG_TABLE + MAX_SEGS * sizeof(void*);
+  }
 };
 
 // cp.async of 16 bytes, bypassing L1; zero-filled when !ok
@@ -202,13 +221,15 @@ __device__ __forceinline__ void af_cell(T* dst, const T* base, const T* row,
   wide_cp_async<sizeof(T)>(dst, ok ? row + x : base, ok);
 }
 
-template <typename T, int MODE, int NE>
+template <typename T, int MODE, int NE, int SEG = 0>
 __global__ void __launch_bounds__(AfGeo<T, MODE, NE>::NT,
                                   AfGeo<T, MODE, NE>::MINB)
 apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
                    const T* __restrict__ phi, const T* __restrict__ rhs,
                    T* __restrict__ out, T* __restrict__ phic_out,
-                   T* __restrict__ iresc_out) {
+                   T* __restrict__ iresc_out, SegParams S) {
+  static_assert(SEG == 0 || (NE == 0 && MODE != M_DOWN),
+                "segment variant: constant coefficients, apply or residual");
   using G = AfGeo<T, MODE, NE>;
   constexpr int C = G::C, TX = G::TX, TY = G::TY, HT = G::HT;
   constexpr int SX = G::SX, PL = G::PL, FS = G::FS, FP = G::FP;
@@ -232,7 +253,7 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
   const int ifx = ty * FS + C * h;             // its low x face
   const int ify = (TY + ty) * FS + C * h;      // its low y face
   bool in[C], xyf[C];
-  const bool yface = !P.per[1] && (gy == 0 || gy == Y - 1);
+  const bool yface = SEG == 0 && !P.per[1] && (gy == 0 || gy == Y - 1);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int g = gx0 + c;
@@ -247,6 +268,29 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
   const int ey = face_src(gy, Y, P.per[1]);
   const long long gplane = (long long)(Y + 2 * PY) * X;
   const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
+  // SEG: the descriptors serving the thread's cells, a byte each (-1:
+  // none): x per cell and side (byte 2c + side of jxs[c / 2]), y per side;
+  // their planes' pointers, staged in shared memory after the rings
+  unsigned jxs[2] = {~0u, ~0u}, jys = ~0u;
+  bool segxy = false;
+  const T** const s_pl = reinterpret_cast<const T**>(
+      smem_raw + G::SEG_TABLE);
+  if constexpr (SEG != 0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+        if (in[c])
+          jxs[c / 2] = seg_put(jxs[c / 2], 2 * (c % 2) + side,
+                               __ldg(S.lut + 2 * (gx0 + c) + side));
+#pragma unroll
+    for (int side = 0; side < 2; ++side)
+      if (sy >= 0)
+        jys = seg_put(jys, side, __ldg(S.lut + 2 * (X + sy) + side));
+    segxy = jxs[0] != ~0u || jxs[1] != ~0u || jys != ~0u;
+    for (int i = threadIdx.x; i < S.n; i += G::NT)
+      s_pl[i] = (const T*)S.plane[i];
+  }
 
   // ---- A. copy plane q into ring position k (cp.async, one group): the
   // thread's cells, the x halo (first and last thread of a row), the y
@@ -391,14 +435,36 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
       T q[C] = {};
       if constexpr (G::RHS)
         af_ld4<T>(s_rhs + ((k + NR - 1) % NR) * TX * TY + ir, q);
-      const bool zf = !P.per[2] && (r == 0 || r == Z - 1);
+      const bool zf = SEG == 0 && !P.per[2] && (r == 0 || r == Z - 1);
+      // SEG: the z layers of plane r (every x and y one is the thread's)
+      int jzl = -1, jzh = -1;
+      if constexpr (SEG != 0) {
+        const int* lz = S.lut + 2 * (X + Y) + 2 * r;
+        jzl = __ldg(lz);
+        jzh = __ldg(lz + 1);
+      }
       T a[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const T v = pc[c];
         T lo[3] = {c ? pc[c - 1] : xl, yl[c], pm[c]};
         T hi[3] = {c < C - 1 ? pc[c + 1] : xh, yh[c], pn[c]};
-        if (xyf[c] || (zf && in[c])) {
+        if (SEG != 0 && in[c] && (segxy || jzl >= 0 || jzh >= 0)) {
+          // a cell next to a ghost layer: its substitutions, in the
+          // plain version's order (layouts as in seg_pair)
+          const long long YP = Y + 2 * PY, ZP = Z + 2 * PZ;
+          seg_sub<T>(s_pl, seg_desc(seg_byte(jxs[c / 2], 2 * (c % 2))),
+                     seg_desc(seg_byte(jxs[c / 2], 2 * (c % 2) + 1)),
+                     (long long)(r + PZ) * YP + (gy + PY), ZP * YP, v, lo[0],
+                     hi[0]);
+          seg_sub<T>(s_pl, seg_desc(seg_byte(jys, 0)),
+                     seg_desc(seg_byte(jys, 1)),
+                     (long long)(r + PZ) * X + gx0 + c, ZP * X, v, lo[1],
+                     hi[1]);
+          seg_sub<T>(s_pl, jzl, jzh, (long long)(gy + PY) * X + gx0 + c,
+                     YP * X, v, lo[2], hi[2]);
+        }
+        if (SEG == 0 && (xyf[c] || (zf && in[c]))) {
           // a cell of the level on a face: the BC ghosts
           const int g = gx0 + c;
           T l, u;
@@ -481,14 +547,15 @@ constexpr bool af_takes() {
 
 // A(phi) (MODE M_APPLY), rhs - A(phi) (M_RESIDUAL) or the residual-
 // restriction without a fine output (M_DOWN) on the face-plane apply.
-template <typename T, int MODE, int NE>
+template <typename T, int MODE, int NE, int SEG = 0>
 static int launch_apply_faces(const LevelParams& P, const EpsParams& E,
                               const void* phi, const void* rhs, void* out,
                               void* phic_out, void* iresc_out,
-                              cudaStream_t stream) {
+                              cudaStream_t stream,
+                              const SegParams* S = nullptr) {
   using G = AfGeo<T, MODE, NE>;
-  auto kernel = apply_faces_kernel<T, MODE, NE>;
-  const size_t smem = G::smem_bytes();
+  auto kernel = apply_faces_kernel<T, MODE, NE, SEG>;
+  const size_t smem = SEG != 0 ? G::seg_smem_bytes() : G::smem_bytes();
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   // 16-byte copies and stores need aligned rows and fields
@@ -505,6 +572,7 @@ static int launch_apply_faces(const LevelParams& P, const EpsParams& E,
   dim3 grid(cdiv(P.X, G::TX), cdiv(P.Y, G::TY), cdiv(P.Z, cz));
   kernel<<<grid, G::NT, smem, stream>>>(P, E, cz, vec, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
-                                        (T*)iresc_out);
+                                        (T*)iresc_out,
+                                        S ? *S : SegParams{});
   return (int)cudaGetLastError();
 }

@@ -302,6 +302,48 @@ __device__ __forceinline__ void seg_pair(const LevelParams& P,
   }
 }
 
+// seg_pair's substitution for the designs that look their descriptors up
+// once per thread and stage the descriptors' plane pointers in shared
+// memory.  One side: a points into a layer's [4, T1, T2] planes at the
+// reader's offset (st: one plane); where the layer's mask is set, the
+// neighbour becomes (a0 + a1*v) + a2*x2, v the reader, x2 its raw
+// neighbour on the other side.  The four loads are independent (one
+// latency, not two), the mask selects.  I: the offsets' type (int where
+// the plane fits it and the caller's registers are scarce).
+template <typename T, typename I>
+__device__ __forceinline__ void seg_side(const T* a, I st, T v, T x2,
+                                         T& out) {
+  const T m = __ldg(a + 3 * st), a0 = __ldg(a), a1 = __ldg(a + st),
+          a2 = __ldg(a + 2 * st);
+  if (m != (T)0) out = (a0 + a1 * v) + a2 * x2;
+}
+
+// Both sides of a reader with value v along one dim from descriptors jlo,
+// jhi (-1: none) whose plane pointers are pl[j]: (lo, hi) raw on entry,
+// o the reader's offset in its dim's face-plane layout (as in seg_pair).
+// Each ghost takes the other side's raw value as x2.
+template <typename T, typename I>
+__device__ __forceinline__ void seg_sub(const T* const* pl, int jlo, int jhi,
+                                        I o, I st, T v, T& lo, T& hi) {
+  const T lo_raw = lo, hi_raw = hi;
+  if (jlo >= 0) seg_side<T>(pl[jlo] + o, st, v, hi_raw, lo);
+  if (jhi >= 0) seg_side<T>(pl[jhi] + o, st, v, lo_raw, hi);
+}
+
+// Byte k of a word of four packed bytes (0xff: none), and the word with
+// byte k set to v (0 .. 0xff; a descriptor -1 packs as 0xff).
+__device__ __forceinline__ unsigned seg_byte(unsigned w, int k) {
+  return (w >> (8 * k)) & 0xffu;
+}
+__device__ __forceinline__ unsigned seg_put(unsigned w, int k, int v) {
+  return (w & ~(0xffu << (8 * k))) | ((unsigned)(v & 0xff) << (8 * k));
+}
+
+// A descriptor of a packed byte: -1 for none.
+__device__ __forceinline__ int seg_desc(unsigned b) {
+  return b == 0xffu ? -1 : (int)b;
+}
+
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

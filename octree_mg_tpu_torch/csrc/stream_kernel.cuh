@@ -47,7 +47,12 @@
 // x is periodic (wrapped indices), a y or z neighbour outside the canvas
 // reads 0, and a reader next to one of the canvas's ghost layers
 // substitutes that layer's ghost (seg_pair, stencil_common.cuh).  The
-// SEG = 0 code paths are untouched.
+// SEG = 0 code paths are untouched.  It runs the float64 segment launches
+// and the float32 double pair on canvases below 256^3; the float32 double
+// pair from 256^3 up runs stream_wide.cuh's SEG = 1, and the float32 apply
+// and residual apply_faces.cuh's, which were faster (seg_sweep.cu).  Its
+// float32 apply and residual are instantiated only in the probe's
+// -DOMG_SEGWIDE=0 build.
 //
 // SLAB = 1 is the z-slab variant (any NE, SEG = 0; SlabParams,
 // stencil_common.cuh): the planes beyond a z face that does not

@@ -1,10 +1,11 @@
 // The wide z-streaming kernel: the double pair (pair_sweep_dense, n_pairs
 // 1 or 2) of K1 (stencil_sweep.cu) and the fused down-leg
-// (downsweep_dense) of K2 (downsweep.cu), constant coefficients, no
-// segments, on large levels (wide_takes, at the end); and the double pair
-// on one z-slab of the slab solver (SLAB = 1, omg_stencil_slab) on large
-// slabs (wide_slab_takes).  Every other launch of the two sources runs
-// stream_kernel.cuh.
+// (downsweep_dense) of K2 (downsweep.cu), constant coefficients, on large
+// levels (wide_takes, at the end); the double pair on one z-slab of the
+// slab solver (SLAB = 1, omg_stencil_slab) on large slabs
+// (wide_slab_takes); and the float32 segment double pair of a dense-forest
+// canvas (SEG = 1, seg_sweep.cu) on large canvases (wide_seg_takes).
+// Every other launch of the three sources runs stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the Pallas entry points
 // pair_sweep_dense (also called with z_gates) and downsweep_dense of the
@@ -53,6 +54,27 @@
 // follow; only core planes are written.  The x and y faces, the colour
 // template and the chunking are those of SLAB = 0, whose code paths are
 // selected by constants and unchanged.
+//
+// SEG = 1 is stream_kernel.cuh's segment variant on this march (SegParams,
+// stencil_common.cuh; the pair only): no face synthesis, x wraps, a y or z
+// neighbour outside the canvas is 0 (plane t+1 comes in by cp.async,
+// zero-filled there, and a row outside the canvas is never written), and
+// a reader next to a ghost layer takes the layer's ghost (a0 + a1*x1) +
+// a2*x2.  A reader column of an x layer, or row of a y layer, runs
+// through every row group, or every column, of a tile, so every warp of
+// the block would hold one of its cells; substituted by each thread for
+// its own cells, it cost more than the rest of the half-sweep
+// (PERF.md).  So the window's reader columns and rows are its lines: a
+// block stages the layers' four planes over the window beside the ring,
+// plane by plane by cp.async, and during step t one thread per line cell
+// forms the substituted neighbour sum of each cell a half-sweep of step
+// t + 1 updates (its plane, t - 2s, is not written in step t) into a line
+// buffer, which the cell's owner reads in step t + 1 with one predicated
+// shared-memory load.  z layers (a whole plane, every thread at once) and
+// lines beyond SEG_NL are substituted by the owners from device memory,
+// out of line (wide_seg_rare).  rhs comes late, as in the down-leg: the
+// registers go to the substitutions.  The SEG = 0 code paths are selected
+// by constants and unchanged.
 //
 // Arithmetic per cell is that of the plain PyTorch versions, operation by
 // operation; a sum of two neighbours may be formed in the other order
@@ -120,6 +142,38 @@ struct WideGeo {
   }
   static_assert(smem_bytes() <= 232448, "the ring must fit a block's "
                 "227 KB of shared memory");
+  // SEG: after the ring, in shared memory: the descriptors' plane
+  // pointers and a word each; the staged entries' descriptors, dims and
+  // count; two line counters and the lines (window column or row, and
+  // their descriptors); the chunk's z layers; the entry ring (per plane of
+  // the ring and entry, a layer's four planes a0, a1, a2, m over the
+  // window's rows, an x layer, or columns, a y layer); two line buffers
+  // (per half-sweep of a step and line, the substituted neighbour sum of
+  // each cell).  Constants, not functions: the kernel reads them.
+  static constexpr int SEG_MAXE = 4;                     // entries staged
+  // lines a dim buffers: at most 4, and few enough that a thread has at
+  // most one line cell a step
+  static constexpr int SEG_NL =
+      NT / (NS * (WY / 2 + CX)) < 4 ? NT / (NS * (WY / 2 + CX)) : 4;
+  static constexpr int SEG_EW = 2 * CX > WY ? 2 * CX : WY;
+  static constexpr int SEG_EP = SEG_MAXE * 4 * SEG_EW;   // values a plane
+  static constexpr int SEG_NZ = WIDE_CHUNK_Z + 2 * H;    // chunk + halo
+  static constexpr int SEG_GX = NS * SEG_NL * WY;        // x lines of a step
+  static constexpr int SEG_GB = SEG_GX + NS * SEG_NL * 2 * CX;
+  static constexpr size_t SEG_TABLE =
+      (sizeof(T) * ((size_t)NB * PL + 2 * GUARD) + 7) & ~(size_t)7;
+  static constexpr size_t SEG_MAP = SEG_TABLE + MAX_SEGS * sizeof(void*);
+  static constexpr size_t SEG_ENT = SEG_MAP + MAX_SEGS * sizeof(int);
+  static constexpr size_t SEG_LINE =
+      SEG_ENT + (2 * SEG_MAXE + 3) * sizeof(int);
+  static constexpr size_t SEG_LZ = SEG_LINE + 4 * SEG_NL * sizeof(int);
+  static constexpr size_t SEG_RING =
+      (SEG_LZ + SEG_NZ * sizeof(int) + 15) & ~(size_t)15;
+  static constexpr size_t SEG_GBUF =
+      SEG_RING + sizeof(T) * (size_t)NB * SEG_EP;
+  static constexpr size_t seg_smem_bytes() {
+    return SEG_GBUF + sizeof(T) * 2 * (size_t)SEG_GB;
+  }
 };
 
 template <typename T> struct WidePair;
@@ -136,20 +190,91 @@ __device__ __forceinline__ void wide_cp_async(void* dst, const void* src,
                : "memory");
 }
 
+// seg_side of stencil_common.cuh for a layer staged in shared memory: a
+// points at the reader's a0, its a1, a2 and m follow st apart
+template <typename T>
+__device__ __forceinline__ void seg_side_staged(const T* a, int st, T v, T x2,
+                                                T& out) {
+  const T m = a[3 * st], a0 = a[0], a1 = a[st], a2 = a[2 * st];
+  if (m != (T)0) out = (a0 + a1 * v) + a2 * x2;
+}
+
+// SEG's substitutions that the line buffers do not hold, for the R rows
+// of a column in one half-sweep of the wide kernel: a cell on an x or y
+// line beyond SEG_NL (gw byte 0xfe; its descriptors in jxs / jys) and
+// every cell of a plane with a z layer (zw: its descriptors), from device
+// memory.  The cells are read from the ring s again (volatile: not merged
+// with the loads before); the rows in rows (bit j), the offsets of the
+// updated cell's plane (bc), of the planes below and above (bm, bp) and
+// within a row those of the wide kernel's stage B.  Writes the sums of
+// row j to sums[3j + d] (d = x, y, z) and returns which it wrote.  Out of
+// line: it runs on few steps, and inlined it would grow the march.
+template <typename T, int R>
+__device__ __noinline__ unsigned wide_seg_rare(
+    const T* s, const T* const* pl, int ws, int bc, int bm, int bp, int ue,
+    int uo, int xe, int xo, int c, int gy0, int sx0, int sx1, unsigned rows,
+    unsigned gw, unsigned jxs, unsigned jys, int zw, int p, int X, int YP,
+    int ZP, T* sums) {
+  auto ld = [&](int i) { return *(volatile const T*)(s + i); };
+  unsigned set = 0;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    if (!(rows >> j & 1u)) continue;
+    const int cu = (j & 1) ^ c, gy = gy0 + j, r = bc + j * ws;
+    const int u = (j & 1) ? uo : ue, sx = cu ? sx1 : sx0;
+    const T v = ld(r + u);
+    if (seg_byte(gw, cu) == 0xfeu) {
+      const T xp = ld(r + ((j & 1) ? ue : uo)),
+              xq = ld(r + ((j & 1) ? xo : xe));
+      T lo = cu ? xp : xq, hi = cu ? xq : xp;
+      seg_sub<T>(pl, seg_desc(seg_byte(jxs, 2 * cu)),
+                 seg_desc(seg_byte(jxs, 2 * cu + 1)),
+                 (p + PZ) * YP + (gy + PY), ZP * YP, v, lo, hi);
+      sums[3 * j] = lo + hi;
+      set |= 1u << (3 * j);
+    }
+    if (seg_byte(gw, 2 + j) == 0xfeu) {
+      T lo = ld(r - ws + ((j & 1) ? uo : ue)),
+        hi = ld(r + ws + ((j & 1) ? uo : ue));
+      seg_sub<T>(pl, seg_desc(seg_byte(jys, 2 * j)),
+                 seg_desc(seg_byte(jys, 2 * j + 1)), (p + PZ) * X + sx,
+                 ZP * X, v, lo, hi);
+      sums[3 * j + 1] = lo + hi;
+      set |= 2u << (3 * j);
+    }
+    if (zw != 0xffff) {
+      T lo = ld(bm + j * ws + u), hi = ld(bp + j * ws + u);
+      seg_sub<T>(pl, seg_desc(zw & 0xff), seg_desc(zw >> 8),
+                 (gy + PY) * X + sx, YP * X, v, lo, hi);
+      sums[3 * j + 2] = lo + hi;
+      set |= 4u << (3 * j);
+    }
+  }
+  return set;
+}
+
 // SLAB: plane q of a slab swept H deep beyond its faces, clamped into
 // [-H, Z - 1 + H], inside the pads (a clamped plane's values are unused)
 __device__ __forceinline__ int slab_clamp(int q, int Z, int H) {
   return q < -H ? -H : q > Z - 1 + H ? Z - 1 + H : q;
 }
 
-template <typename T, int NS, int MODE, int SLAB = 0>
+template <typename T, int NS, int MODE, int SLAB = 0, int SEG = 0>
 __global__ void __launch_bounds__(WideGeo<T, NS, MODE>::NT)
 wide_kernel(LevelParams P, int cz, int vec,
             const T* __restrict__ phi, const T* __restrict__ rhs,
             T* __restrict__ out, T* __restrict__ phic_out,
-            T* __restrict__ iresc_out, SlabParams Zs) {
+            T* __restrict__ iresc_out, SlabParams Zs, SegParams S) {
   static_assert(SLAB == 0 || MODE == M_PAIRS, "slab variant: the double pair");
+  static_assert(SEG == 0 || (MODE == M_PAIRS && SLAB == 0),
+                "segment variant: the double pair, no slab");
   using G = WideGeo<T, NS, MODE>;
+  static_assert(SEG == 0 || (G::SEG_NL >= 1 && 2 * G::NT >= G::SEG_EP &&
+                             2 * G::NT / G::SEG_EW < 256 &&
+                             G::SEG_EW < 256 && G::SEG_EW % 4 == 0 &&
+                             G::WY % 4 == 0),
+                "segment variant: a line cell and two staging copies a "
+                "thread");
   using V2 = typename WidePair<T>::type;
   constexpr int H = G::H, HX = G::HX, HY = G::HY, CX = G::CX, WS = G::WS;
   constexpr int PL = G::PL, NB = G::NB, R = G::R;
@@ -173,7 +298,8 @@ wide_kernel(LevelParams P, int cz, int vec,
   const int gx = x0 - HX + 2 * hx, gy0 = y0 - HY + ly0;  // cell (0, row 0)
   const int i0 = ly0 * WS + hx;         // its ring index; cell 1 at +CX
   // the window lies inside the level: no wrap, no face, aligned pairs
-  const bool inner = vec && x0 >= HX && x0 + G::TX + HX <= P.X &&
+  const bool inner = (SEG != 0 ? vec & 1 : vec) && x0 >= HX &&
+                     x0 + G::TX + HX <= P.X &&
                      y0 >= HY && y0 + G::TY + HY <= P.Y;
   int sx[2];                            // source x of the two cells, or -1
   bool fx[2];                           // the cell is on a non-periodic x face
@@ -198,7 +324,7 @@ wide_kernel(LevelParams P, int cz, int vec,
   for (int j = 0; j < R; ++j) {
     const int gy = gy0 + j, sy = src_idx(gy, P.Y, P.per[1]);
     roff[j] = sy < 0 ? -1 : (sy + PY) * P.X;
-    fy[j] = !P.per[1] && (gy == 0 || gy == P.Y - 1);
+    fy[j] = SEG == 0 && !P.per[1] && (gy == 0 || gy == P.Y - 1);
     face = face || fy[j];
   }
   const long long gplane = (long long)(P.Y + 2 * PY) * P.X;
@@ -207,6 +333,161 @@ wide_kernel(LevelParams P, int cz, int vec,
   // SLAB: the z faces this slab synthesizes (else it reads their pads)
   const bool zsyn_lo = SLAB != 0 && slab_syn(P, Zs, 0);
   const bool zsyn_hi = SLAB != 0 && slab_syn(P, Zs, 1);
+  // SEG: the layers serving the column (descriptor bytes, 0xff none): x
+  // per cell and side (byte 2c + side of jxs), y per row and side (2j +
+  // side of jys).  The window's reader columns of x layers and rows of y
+  // layers are its lines, SEG_NL a dim buffered: during step t, spread
+  // over the block's threads, each buffered line's cells that a half-sweep
+  // of step t + 1 updates get their substituted neighbour sum along the
+  // line's dim (their plane is not written in step t), from the layers'
+  // values staged beside the ring (the first SEG_MAXE layers the window
+  // reads; any other from device memory); in step t + 1 the owner of a
+  // cell takes it from the line buffer.  So the work of a line's cells is
+  // not repeated by every warp that holds one of them, as it is when each
+  // thread substitutes its own cells.  A line beyond SEG_NL, and every z
+  // layer (a whole plane: all threads at once), is substituted by the
+  // cell's owner from device memory.  gw: per cell (byte c) its x line,
+  // per row (byte 2 + j) its y line; < SEG_NL buffered, 0xfe substituted
+  // by the owner, 0xff none.
+  constexpr int EW = G::SEG_EW, EP = G::SEG_EP, MAXE = G::SEG_MAXE;
+  constexpr int NL = G::SEG_NL, HWY = G::WY / 2;
+  unsigned jxs = ~0u, jys = ~0u, gw = ~0u;
+  int ne = 0, nxl = 0, nyl = 0;
+  int item = -1;    // the thread's line cell: half-sweep, dim, line, place
+  bool inl = false;  // a cell or row of the thread is on an unbuffered line
+  unsigned rows = 0;  // bit j: row j of the column lies in the canvas
+  // the thread's staging copies, a row (entry and value) and a place in
+  // it each: one of 4 cells, 16 bytes (sv: the window starts on a
+  // multiple of 4 in x and y, X and Y are multiples of 4 and the planes
+  // are aligned, vec bit 2), else two of one cell
+  const bool sv = SEG != 0 && HX % 4 == 0 && HY % 4 == 0 && (vec & 2);
+  const unsigned cw = sv
+      ? (unsigned)(threadIdx.x / (EW / 4)) |
+            (unsigned)(4 * (threadIdx.x % (EW / 4))) << 8 | 0xff0000u
+      : (unsigned)(threadIdx.x / EW) | (unsigned)(threadIdx.x % EW) << 8 |
+            (unsigned)((threadIdx.x + G::NT) / EW) << 16 |
+            (unsigned)((threadIdx.x + G::NT) % EW) << 24;
+  const T** const s_pl = reinterpret_cast<const T**>(smem_raw + G::SEG_TABLE);
+  int* const s_map = reinterpret_cast<int*>(smem_raw + G::SEG_MAP);
+  int* const s_ent = reinterpret_cast<int*>(smem_raw + G::SEG_ENT);
+  int* const s_line = reinterpret_cast<int*>(smem_raw + G::SEG_LINE);
+  int* const s_lz = reinterpret_cast<int*>(smem_raw + G::SEG_LZ);
+  T* const s_ev = reinterpret_cast<T*>(smem_raw + G::SEG_RING);
+  T* const s_gb = reinterpret_cast<T*>(smem_raw + G::SEG_GBUF);
+  if constexpr (SEG != 0) {
+    for (int i = threadIdx.x; i < S.n; i += G::NT) {
+      s_pl[i] = (const T*)S.plane[i];
+      s_map[i] = 0;
+    }
+    const int* lz = S.lut + 2 * (P.X + P.Y);
+    for (int i = threadIdx.x; i < ze - zb + 2 * H; i += G::NT) {
+      const int p = zb - H + i;
+      s_lz[i] = p < 0 || p >= P.Z ? 0xffff
+          : (__ldg(lz + 2 * p) & 0xff) | ((__ldg(lz + 2 * p + 1) & 0xff) << 8);
+    }
+    if (threadIdx.x == 0) s_ent[2 * MAXE + 1] = s_ent[2 * MAXE + 2] = 0;
+    __syncthreads();
+    // the thread's layers, each marked with its dim (1 x, 2 y); the lines
+    // (x: by the threads of the first row group, y: of the first column)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      int d[2];
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        d[side] = __ldg(S.lut + 2 * sx[c] + side);
+        jxs = seg_put(jxs, 2 * c + side, d[side]);
+        if (d[side] >= 0) s_map[d[side]] = 1;
+      }
+      if (ly0 == 0 && (d[0] >= 0 || d[1] >= 0)) {
+        const int k = atomicAdd(s_ent + 2 * MAXE + 1, 1);
+        if (k < NL) {
+          s_line[k] = 2 * hx + c;
+          s_line[NL + k] = (d[0] & 0xff) | ((d[1] & 0xff) << 8);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (roff[j] < 0) continue;
+      int d[2];
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        d[side] = __ldg(S.lut + 2 * (P.X + gy0 + j) + side);
+        jys = seg_put(jys, 2 * j + side, d[side]);
+        if (d[side] >= 0) s_map[d[side]] = 2;
+      }
+      if (hx == 0 && (d[0] >= 0 || d[1] >= 0)) {
+        const int k = atomicAdd(s_ent + 2 * MAXE + 2, 1);
+        if (k < NL) {
+          s_line[2 * NL + k] = ly0 + j;
+          s_line[3 * NL + k] = (d[0] & 0xff) | ((d[1] & 0xff) << 8);
+        }
+      }
+    }
+    __syncthreads();
+    // the first MAXE layers the window reads, in descriptor order, are
+    // staged (s_map: entry < 0x80); the rest are read from device memory
+    // (0x80 + descriptor)
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int i = 0; i < S.n; ++i) {
+        const int m = s_map[i];
+        if (m == 0) continue;
+        if (n < MAXE) {
+          s_ent[n] = i;
+          s_ent[MAXE + n] = m;
+          s_map[i] = n++;
+        } else {
+          s_map[i] = 0x80 + i;
+        }
+      }
+      s_ent[2 * MAXE] = n;
+      // a buffered line's descriptors become their codes: entry, or 0x80 +
+      // descriptor (read from device memory), 0xff none
+      const int nx = s_ent[2 * MAXE + 1], ny = s_ent[2 * MAXE + 2];
+      for (int k = 0; k < 2 * NL; ++k) {
+        if (k < NL ? k >= nx : k - NL >= ny) continue;
+        const int q = (k < NL ? NL : 2 * NL) + k;
+        int w = 0;
+        for (int side = 0; side < 2; ++side) {
+          const int d = (s_line[q] >> (8 * side)) & 0xff;
+          w |= (d == 0xff ? 0xff : s_map[d]) << (8 * side);
+        }
+        s_line[q] = w;
+      }
+    }
+    __syncthreads();
+    ne = s_ent[2 * MAXE];
+    nxl = s_ent[2 * MAXE + 1] < NL ? s_ent[2 * MAXE + 1] : NL;
+    nyl = s_ent[2 * MAXE + 2] < NL ? s_ent[2 * MAXE + 2] : NL;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      if ((seg_byte(jxs, 2 * c) & seg_byte(jxs, 2 * c + 1)) != 0xffu) {
+        int k = 0;
+        while (k < nxl && s_line[k] != 2 * hx + c) ++k;
+        gw = seg_put(gw, c, k < nxl ? k : 0xfe);
+      }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if ((seg_byte(jys, 2 * j) & seg_byte(jys, 2 * j + 1)) != 0xffu) {
+        int k = 0;
+        while (k < nyl && s_line[2 * NL + k] != ly0 + j) ++k;
+        gw = seg_put(gw, 2 + j, k < nyl ? k : 0xfe);
+      }
+    inl = seg_byte(gw, 0) == 0xfeu || seg_byte(gw, 1) == 0xfeu ||
+          seg_byte(gw, 2) == 0xfeu || seg_byte(gw, 3) == 0xfeu;
+#pragma unroll
+    for (int j = 0; j < R; ++j) rows |= (roff[j] >= 0 ? 1u : 0u) << j;
+    // the line cells of a step, NS * per <= NT: one a thread (x lines'
+    // cells of a colour, then y lines')
+    const int per = nxl * HWY + nyl * CX;
+    if (threadIdx.x < NS * per) {
+      const int sw = threadIdx.x / per, e = threadIdx.x - sw * per;
+      const int ey = e - nxl * HWY;
+      item = (sw << 16) | (ey < 0 ? ((e / HWY) << 8) | (e % HWY)
+                                  : (1 << 15) | ((ey / CX) << 8) | (ey % CX));
+    }
+  }
 
   // Ring slot (cell offset) of plane t+1-k in step t: the slot of the
   // incoming plane t+1 advances by one per step, so no step divides.
@@ -238,7 +519,7 @@ wide_kernel(LevelParams P, int cz, int vec,
     const T* src = phi + (long long)((SLAB != 0 ? szin : szin < 0 ? 0 : szin) +
                                      PZ) * gplane;
     T va[R][2] = {};
-    if (DOWN && loading) {
+    if ((DOWN || SEG != 0) && loading) {
       T* d = s + slot_in + i0;
 #pragma unroll
       for (int j = 0; j < R; ++j)
@@ -250,7 +531,7 @@ wide_kernel(LevelParams P, int cz, int vec,
         }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    if (!DOWN && loading && have) {
+    if (!DOWN && SEG == 0 && loading && have) {
       if (inner) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -265,6 +546,38 @@ wide_kernel(LevelParams P, int cz, int vec,
           for (int c = 0; c < 2; ++c)
             if (roff[j] >= 0 && sx[c] >= 0) va[j][c] = src[roff[j] + sx[c]];
       }
+    }
+    // SEG: the entries' values of plane t+1 into its slot of the entry
+    // ring, by cp.async, landing before this step's barrier
+    if (SEG != 0 && ne > 0 && loading && have) {
+      T* const ev = s_ev + (slot_in / PL) * EP;
+      const int YP = P.Y + 2 * PY, ZP = P.Z + 2 * PZ;
+      // the thread's copies of the plane's ne * 4 rows (entry, value) of
+      // EW places, as cw says
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int row = (int)(cw >> (16 * n)) & 0xff;
+        const int w = (int)(cw >> (16 * n + 8)) & 0xff;
+        if (row >= 4 * ne) continue;
+        const int e = row >> 2, k = row & 3;
+        int o;
+        if (s_ent[MAXE + e] == 1) {     // an x layer: the window's rows
+          const int gy = y0 - HY + w;
+          if (w >= G::WY || gy < 0 || gy >= P.Y) continue;
+          o = (pin + PZ) * YP + (gy + PY) + k * (ZP * YP);
+        } else {                        // a y layer: the window's columns
+          if (w >= 2 * CX) continue;
+          int g = x0 - HX + w;
+          if (g < 0 || g >= P.X) g = wrap_idx(g, P.X);
+          o = (pin + PZ) * P.X + g + k * (ZP * P.X);
+        }
+        if (sv)
+          wide_cp_async<16>(ev + row * EW + w, s_pl[s_ent[e]] + o, true);
+        else
+          wide_cp_async<sizeof(T)>(ev + row * EW + w, s_pl[s_ent[e]] + o,
+                                   true);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
 
     // ---- A'. rhs for step t+1: half-sweep s on plane t-2s, residual on
@@ -296,8 +609,10 @@ wide_kernel(LevelParams P, int cz, int vec,
         }
       }
     };
+    // (SEG: late, as the down-leg, into the registers stage B has done
+    // with: its line work and substitutions need the registers)
     T qn[NS][R] = {}, qrn[R][2] = {};
-    if (!DOWN) fetch_rhs(qn, qrn);
+    if (!DOWN && SEG == 0) fetch_rhs(qn, qrn);
 
     // ---- B. half-sweep s on plane t-1-2s, all s at once ----
 #pragma unroll
@@ -313,7 +628,7 @@ wide_kernel(LevelParams P, int cz, int vec,
       const int c = B ^ (sw & 1);       // x cell updated in even rows
       const int sc = slot(2 + 2 * sw), sm = slot(3 + 2 * sw),
                 sp = slot(1 + 2 * sw);
-      const bool zface = SLAB != 0
+      const bool zface = SEG != 0 ? false : SLAB != 0
           ? (zsyn_lo && p == 0) || (zsyn_hi && p == P.Z - 1)
           : !P.per[2] && (p == 0 || p == P.Z - 1);
       // ring offsets, relative to a row's cell 0: the updated cell, and
@@ -343,7 +658,7 @@ wide_kernel(LevelParams P, int cz, int vec,
         ys[j] = a[j] + a[j + 2];
         zs[j] = zl[j] + zh[j];
       }
-      if (face || zface) {
+      if (SEG == 0 && (face || zface)) {
         // a cell on a face: stream_kernel.cuh's BC synthesis
         const int sz = SLAB != 0 ? p : src_idx(p, P.Z, P.per[2]);
 #pragma unroll
@@ -369,13 +684,44 @@ wide_kernel(LevelParams P, int cz, int vec,
           zs[j] = lo + hi;
         }
       }
+      if constexpr (SEG != 0) {
+        // the buffered lines' sums: one predicated shared-memory load per
+        // row and dim, no branch
+        const T* const gb = s_gb + (t & 1) * G::SEG_GB;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int cu = (j & 1) ^ c;
+          const unsigned xb = seg_byte(gw, cu), yb = seg_byte(gw, 2 + j);
+          if (xb < 0xfeu) xs[j] = gb[(sw * NL + xb) * G::WY + ly0 + j];
+          if (yb < 0xfeu)
+            ys[j] = gb[G::SEG_GX + (sw * NL + yb) * 2 * CX + 2 * hx + cu];
+        }
+        // the rest, lines beyond SEG_NL and z layers, substituted from
+        // device memory behind one branch, out of line
+        const int zw = s_lz[p - (zb - H)];
+        if (inl || zw != 0xffff) {
+          T sums[3 * R];
+          const unsigned set = wide_seg_rare<T, R>(
+              s, s_pl, WS, bc, bm, bp, ue, uo, xe, xo, c, gy0, sx[0], sx[1],
+              rows, gw, jxs, jys, zw, p, P.X, P.Y + 2 * PY, P.Z + 2 * PZ,
+              sums);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            if (set >> (3 * j) & 1u) xs[j] = sums[3 * j];
+            if (set >> (3 * j + 1) & 1u) ys[j] = sums[3 * j + 1];
+            if (set >> (3 * j + 2) & 1u) zs[j] = sums[3 * j + 2];
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         T acc = -q[sw][j];
         acc = acc + idx2 * xs[j];
         acc = acc + idy2 * ys[j];
         acc = acc + idz2 * zs[j];
-        s[bc + j * WS + ((j & 1) ? uo : ue)] = acc * inv_den;
+        // SEG: a row outside the canvas stays 0, as the pads read
+        if (SEG == 0 || roff[j] >= 0)
+          s[bc + j * WS + ((j & 1) ? uo : ue)] = acc * inv_den;
       }
     }
 
@@ -485,7 +831,55 @@ wide_kernel(LevelParams P, int cz, int vec,
       }
     }
 
-    if (DOWN) {
+    // ---- C'. SEG: the buffered lines' sums for the half-sweeps of step
+    // t + 1, on planes t - 2s that step t does not write ----
+    if (SEG != 0 && item >= 0) {
+      const int sw = item >> 16, k = (item >> 8) & 0x7f, m = item & 0xff;
+      const bool xline = !(item & (1 << 15));
+      const int pp = t - 2 * sw;               // its plane
+      const int cs = ((t & 1) ^ P.red_parity) ^ (sw & 1);  // x parity
+      // updated in even rows by half-sweep sw of step t + 1
+      const int sc = slot(1 + 2 * sw);
+      const T* const ev = s_ev + (sc / PL) * EP;
+      const int YP = P.Y + 2 * PY, ZP = P.Z + 2 * PZ;
+      auto at = [&](int r_, int c_) {
+        return s[sc + r_ * WS + (c_ >> 1) + (c_ & 1) * CX];
+      };
+      const int wc = xline ? s_line[k] : 0, wr0 = xline ? 0 : s_line[2 * NL + k];
+      const int wcol = xline ? wc : 2 * m + (cs ^ (wr0 & 1));
+      const int wrow = xline ? 2 * m + (cs ^ (wc & 1)) : wr0;
+      const int gy = y0 - HY + wrow;
+      const bool ok = pp >= 0 && pp < P.Z &&
+          (xline ? wcol >= 1 && wcol <= 2 * CX - 2 && gy >= 0 && gy < P.Y
+                 : wrow >= 1 && wrow <= G::WY - 2);
+      if (ok) {
+        const int dw = s_line[(xline ? NL : 3 * NL) + k];   // side codes
+        T lo = xline ? at(wrow, wcol - 1) : at(wrow - 1, wcol);
+        T hi = xline ? at(wrow, wcol + 1) : at(wrow + 1, wcol);
+        const int w = xline ? wrow : wcol;
+        const T v = at(wrow, wcol), lo_raw = lo, hi_raw = hi;
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          const int me = (dw >> (8 * side)) & 0xff;
+          if (me == 0xff) continue;
+          T& out = side ? hi : lo;
+          const T x2 = side ? lo_raw : hi_raw;
+          if (me < 0x80) {
+            seg_side_staged<T>(ev + me * 4 * EW + w, EW, v, x2, out);
+          } else {
+            const int o = xline ? (pp + PZ) * YP + (gy + PY)
+                : (pp + PZ) * P.X + wrap_idx(x0 - HX + wcol, P.X);
+            seg_side<T>(s_pl[me - 0x80] + o, xline ? ZP * YP : ZP * P.X, v,
+                        x2, out);
+          }
+        }
+        T* const gb = s_gb + ((t + 1) & 1) * G::SEG_GB;
+        gb[xline ? (sw * NL + k) * G::WY + wrow
+                 : G::SEG_GX + (sw * NL + k) * 2 * CX + wcol] = lo + hi;
+      }
+    }
+
+    if (DOWN || SEG != 0) {
       fetch_rhs(q, qr);
     } else {
 #pragma unroll
@@ -500,11 +894,15 @@ wide_kernel(LevelParams P, int cz, int vec,
     // ---- D. plane t+1 into its slot ----
     if (DOWN) {
       asm volatile("cp.async.wait_all;\n" ::: "memory");
-    } else if (loading) {
+    } else {
+      // SEG: plane t+1 and its entries land before the barrier
+      if (SEG != 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      if (SEG == 0 && loading) {
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        s[slot_in + i0 + j * WS] = va[j][0];
-        s[slot_in + i0 + j * WS + CX] = va[j][1];
+        for (int j = 0; j < R; ++j) {
+          s[slot_in + i0 + j * WS] = va[j][0];
+          s[slot_in + i0 + j * WS + CX] = va[j][1];
+        }
       }
     }
     __syncthreads();
@@ -565,21 +963,38 @@ static bool wide_slab_takes(const LevelParams& P) {
          2 * tiles * cdiv(P.Z, 8) >= (unsigned)wide_sms();
 }
 
+// Whether the wide design takes a segment double pair (SEG = 1, the dense
+// forest's fused canvases): float32, on the canvases wide_takes gives the
+// double pair (256^3 and up on an H100); smaller canvases and float64
+// keep stream_kernel.cuh.
+template <typename T>
+static bool wide_seg_takes(const LevelParams& P) {
+  return sizeof(T) == 4 && wide_takes<T, M_PAIRS>(P);
+}
+
 // The double pair (MODE M_PAIRS) or the fused down-leg with its fine
 // output (M_DOWN) of NS half-sweeps on a level that wide_takes; SLAB 1:
 // the double pair on a slab that wide_slab_takes, Zs its gates.
-template <typename T, int NS, int MODE, int SLAB = 0>
+template <typename T, int NS, int MODE, int SLAB = 0, int SEG = 0>
 static int launch_wide(const LevelParams& P, const void* phi, const void* rhs,
                        void* out, void* phic_out, void* iresc_out,
-                       cudaStream_t stream, const SlabParams* Zs = nullptr) {
+                       cudaStream_t stream, const SlabParams* Zs = nullptr,
+                       const SegParams* S = nullptr) {
   using G = WideGeo<T, NS, MODE>;
-  auto kernel = wide_kernel<T, NS, MODE, SLAB>;
-  const size_t smem = G::smem_bytes();
+  auto kernel = wide_kernel<T, NS, MODE, SLAB, SEG>;
+  const size_t smem = SEG != 0 ? G::seg_smem_bytes() : G::smem_bytes();
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const uintptr_t al = 2 * sizeof(T);
-  const int vec = P.X % 2 == 0 && (uintptr_t)phi % al == 0 &&
-                  (uintptr_t)out % al == 0;
+  int vec = P.X % 2 == 0 && (uintptr_t)phi % al == 0 &&
+            (uintptr_t)out % al == 0;
+  // SEG: the layers' values staged 16 bytes a copy (float32)
+  if (SEG != 0 && sizeof(T) == 4 && P.X % 4 == 0 && P.Y % 4 == 0) {
+    bool al16 = true;
+    for (int j = 0; j < S->n; ++j)
+      al16 = al16 && (uintptr_t)S->plane[j] % 16 == 0;
+    if (al16) vec |= 2;
+  }
   // stream_kernel.cuh's rule: chunks shorten until the launch has
   // MIN_BLOCKS_PER_SM blocks per SM
   int cz = WIDE_CHUNK_Z;
@@ -590,6 +1005,7 @@ static int launch_wide(const LevelParams& P, const void* phi, const void* rhs,
   kernel<<<grid, G::NT, smem, stream>>>(P, cz, vec, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
                                         (T*)iresc_out,
-                                        Zs ? *Zs : SlabParams{});
+                                        Zs ? *Zs : SlabParams{},
+                                        S ? *S : SegParams{});
   return (int)cudaGetLastError();
 }

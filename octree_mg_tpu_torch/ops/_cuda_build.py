@@ -67,16 +67,17 @@ def _digest(name: str, extra_flags) -> str:
     return h.hexdigest()[:16]
 
 
-def build_kernels(extra_flags=(), verbose: bool = False) -> Dict[str, str]:
-    """Compile every kernel source that has no cached library, all at
-    once, and return {name: library path}.  Raises with the compiler's
-    output if a source does not build."""
+def build_kernels(extra_flags=(), verbose: bool = False,
+                  sources=SOURCES) -> Dict[str, str]:
+    """Compile every kernel source of ``sources`` that has no cached
+    library, all at once, and return {name: library path}.  Raises with
+    the compiler's output if a source does not build."""
     global last_build_seconds
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     paths, procs = {}, {}
-    for name in SOURCES:
+    for name in sources:
         path = os.path.join(out_dir,
                             f"lib{name}-{_digest(name, extra_flags)}.so")
         paths[name] = path

@@ -35,7 +35,12 @@ canvas's ghost layers (``segs``/``seg_planes``, the fused-canvas path):
 then no physical-face synthesis runs, x wraps, a y or z read outside the
 canvas is zero, and a reader next to a ghost layer substitutes
 ``(a0 + a1*x1) + a2*x2`` from the layer's planes (``seg_sweep.cu``;
-launches counted under ``name[segs]``).
+launches counted under ``name[segs]``).  In float32 the double pair runs
+the wide design (csrc/stream_wide.cuh) on canvases of 256^3 and up, also
+counted under ``pair_sweep_dense[segs][wide]``, and the apply and the
+residual the face-plane apply (csrc/apply_faces.cuh) on every canvas,
+also counted under ``stencil_apply_dense[segs][faces]``; the rest runs
+csrc/stream_kernel.cuh.
 
 The first four also carry the variable-coefficient operators
 (``cfg.n_eps`` 1 for vlaplacian/vhelmholtz, 3 for ahelmholtz): they
@@ -113,6 +118,8 @@ _LAUNCHES = {"pair_sweep_dense": 0, "stencil_apply_dense": 0,
              "residual_df32_dense": 0,
              "half_sweep_dense": 0,
              "pair_sweep_dense[segs]": 0, "stencil_apply_dense[segs]": 0,
+             "pair_sweep_dense[segs][wide]": 0,
+             "stencil_apply_dense[segs][faces]": 0,
              "prolong_correct_dense[set]": 0,
              "prolong_correct_dense[corr_ready]": 0,
              "half_sweep_flat": 0,
@@ -802,7 +809,8 @@ _ARGTYPES = {
                             ctypes.POINTER(_LevelParams), _VP, _VP, _VP, _VP],
     "omg_seg_sweep": [ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(_LevelParams),
-                      ctypes.POINTER(_SegParams), _VP, _VP, _VP, _VP],
+                      ctypes.POINTER(_SegParams), _VP, _VP, _VP, _VP,
+                      ctypes.POINTER(ctypes.c_int)],
     "omg_stencil_slab": [ctypes.c_int, ctypes.c_int,
                          ctypes.POINTER(_LevelParams),
                          ctypes.POINTER(_EpsParams),
@@ -893,22 +901,32 @@ def _check_segs(cfg, segs, seg_planes, eps, device):
     return segs, seg_planes
 
 
+def _seg_params(segs: SegLayers, seg_planes) -> _SegParams:
+    """The ``SegParams`` of a segment launch: the table and the planes."""
+    S = _SegParams()
+    S.n = len(segs.segs)
+    S.lut = segs.lut.data_ptr()
+    for j, a in enumerate(seg_planes):
+        S.plane[j] = a.data_ptr()
+    return S
+
+
 def _seg_launch(name, cfg, mode, phi, rhs, lam, red_parity, n_sweeps, segs,
                 seg_planes):
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
-    S = _SegParams()
-    S.n = len(segs.segs)
-    S.lut = segs.lut.data_ptr()
     for j, ((d, _, _), a) in enumerate(zip(segs.segs, seg_planes)):
         _check_field(cfg, a, f"seg_planes[{j}]", _seg_plane_shape(cfg, d))
-        S.plane[j] = a.data_ptr()
+    S = _seg_params(segs, seg_planes)
     P = _params(cfg, lam, None, red_parity, n_sweeps, seg=True)
     out = torch.empty_like(phi)
+    design = ctypes.c_int(0)
     err = _fn("seg_sweep", "omg_seg_sweep")(
         _dt(cfg), mode, ctypes.byref(P), ctypes.byref(S), phi.data_ptr(),
-        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi))
+        rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
+        ctypes.byref(design))
     record_launch(err, name, name + "[segs]")
+    _count_design(name + "[segs]", 0, design.value)
     return out
 
 

@@ -375,6 +375,28 @@ def test_forest_kernels_on_card_are_checked():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [1, 4, 6])
+def test_seg_new_designs_equal_plain_and_old_design_bitwise(shape):
+    """The float32 segment pair (1 and 2 pairs), apply and residual on a
+    canvas of chip_smoke.SEG_WIDE_SHAPES (x, y and z tails; MAX_SEGS
+    layers; readers served on both sides), NaN pads: 0 ulp against the
+    plain version and against the old design (-DOMG_SEGWIDE=0), every
+    launch counted under the new design's counter."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    before = dk.launch_counts()
+    rows = chip_smoke.seg_wide_checks(dk, chip_smoke.old_seg_library(dk),
+                                      [chip_smoke.SEG_WIDE_SHAPES[shape]])
+    assert len(rows) == 4 and all(
+        r["max_ulp"] == 0 and r["new_design"] for r in rows), rows
+    after = dk.launch_counts()
+    assert after[chip_smoke.SEG_WIDE] - before[chip_smoke.SEG_WIDE] == 2
+    assert after[chip_smoke.SEG_FACES] - before[chip_smoke.SEG_FACES] == 2
+
+
+@pytest.mark.cuda
 def test_flat_half_sweep_kernel_equals_plain_version_bitwise():
     """The boxed solver's half-sweep kernel against its plain version:
     float32/float64, D = 1, 2, 3, nc 2 to 16, 1 to 4096 boxes, lam 0 and

@@ -30,7 +30,7 @@ from octree_mg_tpu_torch.core import tree as ptm
 from octree_mg_tpu_torch.ops import dense_kernels as dk
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import forest_tree  # noqa: E402
+from chip_smoke import forest_tree, seg_layer_set  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -120,14 +120,12 @@ def test_two_half_sweeps_are_one_pair():
     assert torch.equal(a[dk._ISL], b[dk._ISL])
 
 
-def seg_case(rng, dims, nan_pads):
-    """Ghost layers on a canvas: both canvas faces of each dim and two
-    layers inside, random coefficient planes, masks covering part of
-    each layer."""
-    X, Y, Z = dims
-    segs = []
-    for d, n in enumerate(dims):
-        segs += [(d, -1, 0), (d, n, 1), (d, n // 2 - 1, 0), (d, n // 2, 1)]
+def seg_case(rng, dims, nan_pads, layers="faces_and_middle"):
+    """Ghost layers on a canvas (chip_smoke.seg_layer_set: by default both
+    canvas faces of each dim and two layers inside; ``both_sides`` readers
+    served by a layer on each side; ``max`` MAX_SEGS layers), random
+    coefficient planes, masks covering part of each layer."""
+    segs = seg_layer_set(dims, layers)
     _, tc = configs(dims, (True,) * 3, [(1.0, 0.0, 0.0)] * 6, [0.0] * 6)
     planes = []
     for d, c, side in segs:
@@ -170,10 +168,21 @@ def ref_seg(dims, segs, planes, phi, rhs, lam, what, red_parity=0,
     return np.asarray(r - out if what == "residual" else out)
 
 
-@pytest.mark.parametrize("what", ["pairs1", "pairs2", "apply", "residual"])
-def test_seg_bodies_match_reference(what):
+SEG_KINDS = ("pairs1", "pairs2", "apply", "residual")
+
+
+@pytest.mark.parametrize("what,layers", [
+    pytest.param(w, "faces_and_middle", id=w) for w in SEG_KINDS] + [
+    pytest.param(w, k, id=f"{w}-{k}") for k in ("both_sides", "max")
+    for w in SEG_KINDS])
+def test_seg_bodies_match_reference(what, layers):
+    """The segment bodies against the JAX package's, bit for bit; also
+    with readers served by a layer on each side (each ghost takes the
+    other side's raw value) and with MAX_SEGS layers."""
     rng = np.random.default_rng(len(what))
-    tc, segs, planes, phi, rhs = seg_case(rng, DIMS, nan_pads=True)
+    tc, segs, planes, phi, rhs = seg_case(rng, DIMS, nan_pads=True,
+                                          layers=layers)
+    assert layers != "max" or len(segs) == dk.MAX_SEGS
     tp = [torch.from_numpy(a) for a in planes]
     lam = 0.6
     if what.startswith("pairs"):
@@ -197,17 +206,20 @@ def test_seg_bodies_match_reference(what):
 def test_seg_pairs_chain_exactly():
     """Pads read as zero before every half-sweep: two pairs in one call
     are two single calls, bit for bit (the forest chunks its pairs by
-    two on every device)."""
+    two on every device); with the default layers, with readers served
+    on both sides and with MAX_SEGS layers."""
     rng = np.random.default_rng(11)
-    tc, segs, planes, phi, rhs = seg_case(rng, DIMS, nan_pads=True)
-    tp = [torch.from_numpy(a) for a in planes]
-    args = (torch.from_numpy(rhs), 0.1, None, 0)
-    two = dk.pair_sweep_dense(tc, torch.from_numpy(phi), *args, n_pairs=2,
-                              segs=segs, seg_planes=tp)
-    one = dk.pair_sweep_dense(tc, torch.from_numpy(phi), *args, segs=segs,
-                              seg_planes=tp)
-    one = dk.pair_sweep_dense(tc, one, *args, segs=segs, seg_planes=tp)
-    assert torch.equal(two[dk._ISL], one[dk._ISL])
+    for layers in ("faces_and_middle", "both_sides", "max"):
+        tc, segs, planes, phi, rhs = seg_case(rng, DIMS, nan_pads=True,
+                                              layers=layers)
+        tp = [torch.from_numpy(a) for a in planes]
+        args = (torch.from_numpy(rhs), 0.1, None, 0)
+        two = dk.pair_sweep_dense(tc, torch.from_numpy(phi), *args,
+                                  n_pairs=2, segs=segs, seg_planes=tp)
+        one = dk.pair_sweep_dense(tc, torch.from_numpy(phi), *args,
+                                  segs=segs, seg_planes=tp)
+        one = dk.pair_sweep_dense(tc, one, *args, segs=segs, seg_planes=tp)
+        assert torch.equal(two[dk._ISL], one[dk._ISL]), layers
 
 
 def test_seg_descriptors_are_checked():
