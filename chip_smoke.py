@@ -53,7 +53,20 @@ object per line:
   tails, the smallest and the thinnest the pair's rule takes, 96 layers,
   readers at tile and chunk edges and readers served on both sides, NaN
   pads, each against its plain version and against the design before
-  (csrc/seg_sweep.cu built with -DOMG_SEGWIDE=0); the double-float
+  (csrc/seg_sweep.cu built with -DOMG_SEGWIDE=0); the slab apply,
+  residual and prolongation (add) (``SLAB_APPLY_SHAPES``: the apply and
+  the residual on csrc/apply_faces.cuh with SLAB = 1 on float32 slabs of
+  2^20 cells and more — the sharded 512^3 and 256^3 levels' slabs, the
+  thinnest in 4 and in 2 planes — and on stream_kernel.cuh on the slabs
+  its rule leaves — the 128^3 level's, float64 32^2 x 4, 2 planes just
+  below 2^20 cells; the prolongation on the pair kernel of
+  csrc/prolong_correct.cu on every one of them), every gate pair,
+  physical and periodic z, the four BC kinds, the pads of gated-off faces
+  random and every other pad NaN, each against its plain version and
+  against the designs before (csrc/stencil_sweep.cu and
+  csrc/prolong_correct.cu built with -DOMG_SLABAP=0), each counted under
+  its new design's counter exactly where the rule takes the slab; the
+  double-float
   residual on the same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
   variants of the four stencil entry points (n_eps 1 and 3, coefficients
@@ -144,8 +157,12 @@ object per line:
   and its place printed), ms per have-guess FMG of both, launches, the
   stage breakdown of both, the slab double pairs per timed FMG on the
   wide design (the 48 whole slabs of the 512^3 and 256^3 levels must
-  run it, the edge strips and smaller slabs not), and overlap_halo off
-  bitwise against on;
+  run it, the edge strips and smaller slabs not), the slab applies and
+  residuals per timed FMG on the face-plane apply (the 16 + 40 on the
+  512^2 x 64 and 256^2 x 32 slabs must run it, the smaller slabs not) and
+  the slab prolongations on the pair kernel (every one), the slab
+  launches by slab in one more untimed FMG, and overlap_halo off bitwise
+  against on;
 * ``sharded_periodic`` — fully periodic 128^3 over 8 slabs, sharded
   against single; ``sharded_refined`` — ``ShardedRefinedPoisson`` at
   512^3, n_outer=10, norms against ``RefinedPoisson``'s (1e-5
@@ -178,7 +195,10 @@ object per line:
   prolongation's coarse slab 32 planes), both gates off, their bound
   counting the pad planes they read (the pair's row names the wide
   design and its launches; the residual-restriction's row the
-  face-plane apply and its launches);
+  face-plane apply and its launches; the residual's and the
+  prolongation's rows their new designs, the old design's time on the
+  same inputs, and level by level the time as shipped and on the old
+  design, the bound and the launches per FMG);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -875,6 +895,13 @@ def phase_checks(dk, df, quick):
              f"{[r for r in sgw if not r['new_design']][:1]}")
     worst = max([worst] + [r["max_ulp"] for r in sgw])
     rows += sgw
+    sap = slab_apply_checks(dk, old_slab_library(dk))
+    if not all(r["new_design"] == r["want_new"] for r in sap):
+        fail("a slab apply, residual or prolongation ran another design "
+             "than its rule gives: "
+             f"{[r for r in sap if r['new_design'] != r['want_new']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in sap])
+    rows += sap
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
                       and "faces" not in r["kernel"] for r in rows)
@@ -903,6 +930,10 @@ def phase_checks(dk, df, quick):
                      "slab_wide_max_ulp": max(r["max_ulp"] for r in swide),
                      "seg_wide_cases": len(sgw),
                      "seg_wide_max_ulp": max(r["max_ulp"] for r in sgw),
+                     "slab_apply_cases": len(sap),
+                     "slab_apply_cases_on_the_new_designs": sum(
+                         r["new_design"] for r in sap),
+                     "slab_apply_max_ulp": max(r["max_ulp"] for r in sap),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -1187,6 +1218,173 @@ def slab_wide_checks(dk, shapes=SLAB_WIDE_SHAPES):
                              "lam": lam, "max_ulp": u if u >= 0 else 1 << 62,
                              "wide": wide})
                 del got, want
+            del phi, rhs
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: the slab launches of rows 5z and 7z (PERF.md): the apply and the
+#: residual on a slab, the prolongation (add) with the slab as the coarse
+#: one
+SLAB_KINDS = ("apply", "residual", "prolong")
+#: slabs of the slab apply, residual and prolongation checks: those the
+#: face-plane apply (csrc/apply_faces.cuh with SLAB = 1) takes by its rule
+#: (slab_faces_takes), the slabs of the sharded 512^3 and 256^3 levels
+#: over 8 (float32, the slab solver's) and the thinnest the rule takes
+#: (2^20 cells in 4 planes of 512^2, and in 2 planes with ragged tiles),
+#: and some it leaves to stream_kernel.cuh: the sharded 128^3 level's
+#: slab, 32^2 x 4 in float64 (cpu_agreement.sharded's) and 2 planes just
+#: below 2^20 cells; the pair prolongation of csrc/prolong_correct.cu
+#: takes every slab; (dims, (x, y) periodic, dtype, kinds).  The apply
+#: and the residual run on the slab, the prolongation with the slab as
+#: the coarse one (the 512^3 level is never a coarse slab).
+SLAB_APPLY_SHAPES = [
+    ((512, 512, 64), (False, False), torch.float32, SLAB_KINDS[:2]),
+    ((256, 256, 32), (True, True), torch.float32, SLAB_KINDS),
+    ((512, 512, 4), (False, True), torch.float32, SLAB_KINDS),
+    ((1032, 520, 2), (False, False), torch.float32, SLAB_KINDS),
+    ((128, 128, 16), (False, True), torch.float32, SLAB_KINDS),
+    ((32, 32, 4), (True, True), torch.float64, SLAB_KINDS),
+    ((1024, 510, 2), (True, False), torch.float32, SLAB_KINDS)]
+
+
+def slab_faces_takes(dims, dtype):
+    """Whether the face-plane apply takes a slab apply or residual:
+    af_slab_takes of csrc/apply_faces.cuh, float32 slabs of 2^20 cells
+    or more in two planes or more (the pair prolongation takes every
+    slab)."""
+    X, Y, Z = dims
+    return dtype == torch.float32 and Z >= 2 and X * Y * Z >= 1 << 20
+
+
+#: the counters of the slab launches on the new designs
+SLAB_FACES = "stencil_apply_dense[z_gates][faces]"
+SLAB_PAIR = "prolong_correct_dense[z_gates][pair]"
+
+
+def old_slab_library(dk):
+    """omg_stencil_slab and omg_prolong_slab of csrc/stencil_sweep.cu and
+    csrc/prolong_correct.cu built with -DOMG_SLABAP=0: the slab apply
+    and residual on csrc/stream_kernel.cuh and the slab prolongation on
+    its thread-per-coarse-cell kernel, the designs before, to hold the new
+    ones against."""
+    import ctypes
+    from octree_mg_tpu_torch.ops import _cuda_build
+    paths = _cuda_build.build_kernels(
+        ("-DOMG_SLABAP=0",), sources=("stencil_sweep", "prolong_correct"))
+    fns = {}
+    for src, sym in (("stencil_sweep", "omg_stencil_slab"),
+                     ("prolong_correct", "omg_prolong_slab")):
+        f = getattr(ctypes.CDLL(paths[src]), sym)
+        f.argtypes, f.restype = dk._ARGTYPES[sym], ctypes.c_int
+        fns[sym] = f
+    return fns
+
+
+def slab_runner(dk, fn, kind, cfg, phi, rhs, lam, planes, gates, iold=None,
+                out=None):
+    """A closure that launches one slab kernel of a library (fn: its
+    omg_stencil_slab, or omg_prolong_slab for ``prolong``) on fixed
+    arguments as the wrappers make them, into out (the apply and the
+    residual) or out = phi_f in place (the prolongation), and returns the
+    design the library reports; not counted (a comparison, not the path).
+    """
+    import ctypes
+    Zs = dk._slab_params(gates)
+    design = ctypes.c_int(-1)
+    st = dk.cuda_stream(phi)
+    P = dk._params(cfg, 0.0 if kind == "prolong" else lam, planes)
+    if kind == "prolong":
+        args = (dk._dt(cfg), ctypes.byref(P), ctypes.byref(Zs),
+                phi.data_ptr(), iold.data_ptr(), out.data_ptr(), st,
+                ctypes.byref(design))
+    else:
+        args = (dk._dt(cfg), 2 if kind == "residual" else 1, ctypes.byref(P),
+                None, ctypes.byref(Zs), phi.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), st, ctypes.byref(design))
+
+    def run():
+        err = fn(*args)
+        if err != 0:
+            fail(f"slab {kind}: launch error {err}")
+        return design.value
+    return run
+
+
+def old_slab_launch(dk, fns, kind, cfg, phi, rhs, lam, planes, gates,
+                    iold=None, phi_f=None):
+    """One launch of the old design (old_slab_library) into a new field
+    (the apply, the residual) or phi_f (the prolongation, in place)."""
+    out = phi_f if kind == "prolong" else torch.empty_like(phi)
+    fn = fns["omg_prolong_slab" if kind == "prolong" else "omg_stencil_slab"]
+    design = slab_runner(dk, fn, kind, cfg, phi, rhs, lam, planes, gates,
+                         iold, out)()
+    if design != 0:
+        fail(f"the old slab {kind} design reported design {design}")
+    return out
+
+
+def slab_apply_checks(dk, old_fns, shapes=SLAB_APPLY_SHAPES):
+    """The slab apply, residual and prolongation (add) on SLAB_APPLY_SHAPES:
+    every gate pair, physical and periodic z, the four BC kinds, the pads
+    of gated-off faces random and every other pad NaN: 0 ulp against the
+    plain version and against the old design (old_slab_library), and
+    counted under SLAB_FACES / SLAB_PAIR (``new_design``) exactly where
+    the rules take the slab (``want_new``: slab_faces_takes for the apply
+    and the residual, every prolongation)."""
+    rows, seed, isl = [], 1500, dk._ISL
+    for (dims, pxy, dtype, kinds), per_z, gates in itertools.product(
+            shapes, (False, True),
+            itertools.product((False, True), repeat=2)):
+        per = tuple(pxy) + (per_z,)
+        for bc_kind in ("dirichlet", "neumann", "continuous", "planes"):
+            lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+            seed += 1
+            cfg, field, planes = slab_case(dk, dims, per, bc_kind, dtype,
+                                           seed, gates)
+            phi, rhs = field(), field()
+            tag = f"[z_gates={int(gates[0])}{int(gates[1])}]"
+            for kind in kinds:
+                counter = SLAB_PAIR if kind == "prolong" else SLAB_FACES
+                before = dk.launch_counts()[counter]
+                if kind == "prolong":
+                    X, Y, Z = dims
+                    iold = field()
+                    phi_f = torch.randn(
+                        dk.padded_shape((2 * X, 2 * Y, 2 * Z)), dtype=dtype,
+                        device="cuda")
+                    got = dk.prolong_correct_dense(cfg, phi, iold,
+                                                   phi_f.clone(), planes,
+                                                   z_gates=gates)
+                    new = dk.launch_counts()[counter] == before + 1
+                    want = dk._prolong_correct_plain(
+                        cfg, phi, iold, phi_f.clone(), planes, "add", gates)
+                    old = old_slab_launch(dk, old_fns, kind, cfg, phi, None,
+                                          0.0, planes, gates, iold,
+                                          phi_f.clone())
+                    del iold, phi_f
+                else:
+                    res = kind == "residual"
+                    got = dk.stencil_apply_dense(cfg, phi, rhs, lam, planes,
+                                                 res, z_gates=gates)
+                    new = dk.launch_counts()[counter] == before + 1
+                    want = dk._apply_plain(cfg, phi, rhs, lam, planes, res,
+                                           (), gates)
+                    old = old_slab_launch(dk, old_fns, kind, cfg, phi, rhs,
+                                          lam, planes, gates)
+                torch.cuda.synchronize()
+                up = ulp_diff(got[isl], want[isl])
+                uo = ulp_diff(got[isl], old[isl])
+                u = max(up, uo) if min(up, uo) >= 0 else 1 << 62
+                rows.append({"kernel": f"{kind}{tag}[z_gates][new design]",
+                             "dims": dims, "periodic": per,
+                             "dtype": str(dtype)[6:], "bc": bc_kind,
+                             "lam": lam, "max_ulp": u,
+                             "max_ulp_vs_plain": up,
+                             "max_ulp_vs_old_design": uo, "new_design": new,
+                             "want_new": kind == "prolong"
+                             or slab_faces_takes(dims, dtype)})
+                del got, want, old
             del phi, rhs
     torch.cuda.empty_cache()
     return rows
@@ -3054,6 +3252,33 @@ def timed_fmgs(sv, st, n, lam=0.0):
                           if v}
 
 
+def slab_launches_by_slab(dk, sv, st, lam=0.0):
+    """The slab applies and residuals by slab, and the slab prolongations
+    by coarse slab, of one have-guess FMG (need_res False), untimed:
+    dense_kernels' stencil_apply_dense and prolong_correct_dense wrapped
+    for its length.  {"name[z_gates]": {"XxYxZ": launches}}."""
+    by, orig = {}, {}
+
+    def wrap(name, f):
+        def run(cfg, *args, **kw):
+            if kw.get("z_gates") is not None:
+                row = by.setdefault(dk.slab_name(name), {})
+                key = "x".join(map(str, cfg.dims))
+                row[key] = row.get(key, 0) + 1
+            return f(cfg, *args, **kw)
+        return run
+
+    try:
+        for name in ("stencil_apply_dense", "prolong_correct_dense"):
+            orig[name] = getattr(dk, name)
+            setattr(dk, name, wrap(name, orig[name]))
+        sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
+    finally:
+        for name, f in orig.items():
+            setattr(dk, name, f)
+    return by
+
+
 def sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s, what):
     """The slab solver against the single-device one on the same card:
     the largest difference of the top level's phi (with its place, z y
@@ -3113,6 +3338,24 @@ def phase_sharded_path(pkg, dk):
                             "sharded path")
     ms_single, per_single = timed_fmgs(sd, st_d, n_timed)
     ms, per_fmg = timed_fmgs(ss, st_s, n_timed)
+    # a have-guess FMG runs 16 slab applies and residuals on the 512^2 x 64
+    # slabs and 40 on the 256^2 x 32 ones, which the face-plane apply takes
+    # (smaller slabs keep stream_kernel.cuh), and every slab prolongation
+    # on the pair kernel
+    pro = dk.slab_name("prolong_correct_dense")
+    if per_fmg.get(SLAB_FACES, 0) != 16 + 40:
+        fail(f"sharded path: {per_fmg.get(SLAB_FACES, 0)} slab applies and "
+             "residuals per FMG on the face-plane apply, not the 56 on the "
+             "512^2 x 64 and 256^2 x 32 slabs")
+    if not 0 < per_fmg.get(SLAB_PAIR, 0) == per_fmg.get(pro, 0):
+        fail(f"sharded path: {per_fmg.get(SLAB_PAIR, 0)} of "
+             f"{per_fmg.get(pro, 0)} slab prolongations per FMG on the pair "
+             "kernel")
+    slab_by = slab_launches_by_slab(dk, ss, st_s)
+    for entry, by in slab_by.items():
+        if sum(by.values()) != per_fmg.get(entry, 0):
+            fail(f"sharded path: {entry} by slab {by} disagrees with the "
+                 f"{per_fmg.get(entry, 0)} per timed FMG")
     stages = {"sharded": fmg_stage_marks(ss, st_s),
               "single": fmg_stage_marks(sd, st_d)}
     # a have-guess FMG runs 2 (d + 1) overlapped pair groups on the level
@@ -3152,11 +3395,12 @@ def phase_sharded_path(pkg, dk):
         "single_device_launches_per_fmg": per_single,
         "stages": stages, "vs_single_device": cmp,
         "wide_slab_pairs_per_fmg": per_fmg.get(SLAB_WIDE, 0),
+        "slab_launches_per_fmg_by_slab": slab_by,
         "overlap_halo_off_bitwise": same,
         "peak_memory_bytes": peak}})
     del st_s, st_on, st_off, off
     torch.cuda.empty_cache()
-    return launches, per_fmg
+    return launches, per_fmg, slab_by
 
 
 def phase_sharded_periodic(pkg, dk):
@@ -3302,6 +3546,83 @@ def slab_work_model(name, zl, xy, item, halo, n_eps=0):
     return nbytes + n_eps * wide, flops
 
 
+def slab_level_times(dk, slab_by, n=512, K=8):
+    """Rows 5z and 7z level by level: the residual on an interior slab
+    of each sharded level (512^2 x 64 .. 32^2 x 4, gates off, float32,
+    Dirichlet 0) and the prolongation from each coarse slab (256^2 x 32
+    .. 32^2 x 4), as shipped (``design``: the face-plane apply where
+    slab_faces_takes the slab, the pair prolongation on every one) and on
+    the old design (old_slab_library) on the same inputs, each launched
+    straight from its library (as experiments/probe_torch_kernels.py
+    does), median ms (CUDA events), bound, launches per have-guess FMG of
+    sharded_path (slab_by: slab_launches_by_slab); the two must agree
+    bitwise.  Returns {"residual": extra, "prolong": extra} for the two
+    ``kernels`` rows."""
+    old_fns = old_slab_library(dk)
+    out = {}
+    for kind, design, counter, sizes in (
+            ("residual", "octree_mg_tpu_torch/csrc/apply_faces.cuh "
+             "(SLAB = 1)", SLAB_FACES, (n, n // 2, n // 4, n // 8, n // 16)),
+            ("prolong", "octree_mg_tpu_torch/csrc/prolong_correct.cu "
+             "(prolong_pair_kernel)", SLAB_PAIR,
+             (n // 2, n // 4, n // 8, n // 16))):
+        pro = kind == "prolong"
+        entry = dk.slab_name("prolong_correct_dense" if pro
+                             else "stencil_apply_dense")
+        sym = "omg_prolong_slab" if pro else "omg_stencil_slab"
+        new_fn = dk._fn("prolong_correct" if pro else "stencil_sweep", sym)
+        rows = []
+        for m in sizes:
+            dims, gates = (m, m, m // K), (False, False)
+            cfg, field, planes = slab_case(dk, dims, (False,) * 3,
+                                           "dirichlet", torch.float32, 90 + m,
+                                           gates)
+            cfg.b_const = [0.0] * 6          # the sharded path's faces
+            phi, rhs = field(), field()
+            iold = field() if pro else None
+            if pro:
+                f0 = torch.randn(dk.padded_shape((2 * m, 2 * m, m // 4)),
+                                 dtype=torch.float32, device="cuda")
+                outs = {"new": f0.clone(), "old": f0.clone()}
+                del f0
+            else:
+                outs = {"new": torch.empty_like(phi),
+                        "old": torch.empty_like(phi)}
+            runs = {t: slab_runner(dk, fn, kind, cfg, phi, rhs, 0.0, planes,
+                                   gates, iold, outs[t])
+                    for t, fn in (("new", new_fn), ("old", old_fns[sym]))}
+            got = {t: r() for t, r in runs.items()}
+            torch.cuda.synchronize()
+            want = 3 if pro else 2 if slab_faces_takes(
+                dims, torch.float32) else 0
+            if got != {"new": want, "old": 0}:
+                fail(f"{entry} on {dims}: designs {got}, not new {want}")
+            if not torch.equal(outs["new"][dk._ISL], outs["old"][dk._ISL]):
+                fail(f"{entry} on {dims}: the new design and the old one "
+                     "differ")
+            ms = {t: time_ms(r, 12) for t, r in runs.items()}
+            nbytes, _ = slab_work_model(entry, m // K, m * m, 4, 1)
+            rows.append({"slab": list(dims), "ms": ms["new"],
+                         "design": "new" if want else "old",
+                         "old_design_ms": ms["old"],
+                         "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                         "launches_per_fmg": slab_by.get(entry, {}).get(
+                             "x".join(map(str, dims)), 0)})
+            del phi, rhs, iold, outs, runs
+            torch.cuda.empty_cache()
+        # the row's "ms" goes through the wrapper, whose host work before
+        # the launch the events see on a kernel this short (0.175 against
+        # 0.102 ms launched straight from the library for the 512^2 x 64
+        # residual on an H100); ms_direct and old_design_ms launch
+        # straight from the libraries
+        out[kind] = {"design": design, "counter": counter,
+                     "old_design": "-DOMG_SLABAP=0",
+                     "ms_direct": rows[0]["ms"],
+                     "old_design_ms": rows[0]["old_design_ms"],
+                     "levels": rows}
+    return out
+
+
 def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
     """The slab variants at the shape of an interior slab of the 512^3
     sharded level (8 slabs: 64 planes; the prolongation's coarse slab 32
@@ -3321,7 +3642,8 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
         cfg.b_const = [0.0] * 6          # the sharded path's faces
         return cfg, field, planes
 
-    launches, per_fmg = path
+    launches, per_fmg, slab_by = path
+    levels = slab_level_times(dk, slab_by)
     for n_eps in (0, 1):
         cfg, field, planes = case((n, n, zl), n_eps, seed=70 + n_eps)
         phi, rhs = field(), field()
@@ -3347,7 +3669,9 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
                      "launches_on_the_wide_design": launches[SLAB_WIDE],
                      "launches_per_fmg_on_the_wide_design":
                          per_fmg.get(SLAB_WIDE, 0.0)}
-                    if name == SLAB_WIDE.rsplit("[", 1)[0] else None)
+                    if name == SLAB_WIDE.rsplit("[", 1)[0] else
+                    levels["residual"] if name == dk.slab_name(
+                        "stencil_apply_dense") else None)
             rows.append(timed_row(name, kern, plain, src[0][name],
                                   src[1].get(name, 0.0), (n, n, zl),
                                   nbytes, flops, extra=wide))
@@ -3367,7 +3691,7 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
         lambda: (dk._prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f,
                                            planes_c, "add", gates)[isl],),
         launches[name], per_fmg.get(name, 0.0), (n, n, zl), nbytes, flops,
-        inplace=phi_f))
+        extra=levels["prolong"], inplace=phi_f))
     del phi_c, iold_c, phi_f
     # the double-float residual of the refined outer
     cfg, field, _ = case((n, n, zl), equal_pow2=True, seed=73)
@@ -3439,12 +3763,12 @@ def main(argv) -> int:
              if vcoeff[int(k.split("=")[1][:-1])][0][k] == 0]
     if never:
         fail(f"the variable-coefficient paths never launched {never}")
-    sharded_launches, sharded_per_fmg = phase_sharded_path(pkg, dk)
+    sharded_launches, sharded_per_fmg, slab_by = phase_sharded_path(pkg, dk)
     phase_sharded_periodic(pkg, dk)
     launches_sharded_refined = phase_sharded_refined(pkg, dk, df)
     sharded_vcoeff = phase_sharded_vcoeff(pkg, dk)
     slab_rows = phase_slab_kernel_times(
-        dk, df, (sharded_launches, sharded_per_fmg),
+        dk, df, (sharded_launches, sharded_per_fmg, slab_by),
         launches_sharded_refined, sharded_vcoeff)
     torch.cuda.empty_cache()
     forest_rows, launches_forest = phase_forest_path(pkg, dk)

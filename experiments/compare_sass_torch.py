@@ -15,7 +15,8 @@ those arguments followed by a trailing 0: the template parameter a
 kernel gained since (the coefficient count NE = 0 of the streaming
 kernel against a tree before it; against a tree that has NE, the
 streaming kernel's SEG = 0 and the prolongation's MODE = 0, add; the
-wide kernel's and the face-plane apply's SEG = 0).
+wide kernel's and the face-plane apply's SEG = 0; the face-plane apply's
+SLAB = 0).
 Kernels here without a counterpart there (new variants: NE = 1 and 3,
 SEG = 1, the NS = 1 half-sweep, prolongation modes 1 and 2, the boxed
 solver's flat half-sweep) are listed as new.
@@ -49,8 +50,9 @@ LIB_ONLY = ("-shared", "-Xcompiler", "-fPIC")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _NAME = re.compile(r"^(?:void )?([\w:]+)(?:<(.*)>)?\(")
 #: the build of the designs the shipped ones replaced: every coefficient
-#: kernel and every segment launch on stream_kernel.cuh
-PROBE_FLAGS = ["-DOMG_FACES=0", "-DOMG_SEGWIDE=0"]
+#: kernel and every segment launch on stream_kernel.cuh, the slab
+#: prolongation on its thread-per-coarse-cell kernel
+PROBE_FLAGS = ["-DOMG_FACES=0", "-DOMG_SEGWIDE=0", "-DOMG_SLABAP=0"]
 
 
 def _tool(name):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [slab_apply] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
-(and ``seg_sweep.cu``) with other build-time constants (``-DOMG_WIDE``,
-``-DOMG_FACES``, ``-DOMG_SEGWIDE``,
+(and ``seg_sweep.cu``, ``prolong_correct.cu``) with other build-time
+constants (``-DOMG_WIDE``, ``-DOMG_FACES``, ``-DOMG_SEGWIDE``,
+``-DOMG_SLABAP``,
 ``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``)
 into ``build/probe`` and prints, one JSON object per line:
 
@@ -81,6 +82,21 @@ into ``build/probe`` and prints, one JSON object per line:
   each launch ran and the byte bound at 3.35 TB/s; old against new
   bitwise on every canvas and kind (``seg_bitwise``), and the registers
   and spills ptxas reports for both designs' instances (``seg_ptxas``);
+* ``slab_apply`` — rows 5z and 7z of the z-slab solver: the slab apply
+  and residual (constant coefficients) and the slab prolongation (add) as
+  shipped (the face-plane apply of csrc/apply_faces.cuh with SLAB = 1
+  where af_slab_takes, else stream_kernel.cuh; the pair kernel of
+  csrc/prolong_correct.cu on every slab) against the designs before them
+  (``-DOMG_SLABAP=0``: stream_kernel.cuh, the thread-per-coarse-cell
+  kernel) on an interior slab (gates off) of each sharded level over 8
+  slabs, 512^2 x 64 to 32^2 x 4 (the prolongation from each coarse slab,
+  256^2 x 32 to 32^2 x 4), float32, and 32^2 x 4 in float64, in turns
+  (old, new, new, old), median of 10 per turn, CUDA events, with the
+  design each launch ran and the byte bound at 3.35 TB/s (pad planes
+  included); then new against old bitwise, every gate pair
+  (``slab_apply_bitwise``: the apply and the residual on 512^2 x 64, the
+  prolongation from 256^2 x 32 and, in float64, from 32^2 x 4), and the
+  registers and spills ptxas reports (``slab_apply_ptxas``);
 * ``sass``   — static SASS instructions of the double pair's and the
   down-leg's main loop (the longest backward branch), old and new, and
   per cell a thread updates in one step of that loop (old: one per
@@ -1061,6 +1077,115 @@ def probe_seg():
     torch.cuda.empty_cache()
 
 
+#: rows 5z and 7z as shipped against the designs before them
+#: (OMG_SLABAP=0: the slab apply and residual on stream_kernel.cuh, the
+#: slab prolongation on its thread-per-coarse-cell kernel)
+SLAB_APPLY_VARIANTS = {"old": ["-DOMG_SLABAP=0"], "new": []}
+
+
+def slab_apply_call(fns, kind, cfg, f, gates=(False, False)):
+    """One slab launch (apply, residual or the prolongation with the slab
+    as the coarse one) of one build on the fields f; returns the design
+    the library ran."""
+    st = torch.cuda.current_stream().cuda_stream
+    P = dk._params(cfg, 0.0, [None] * 6)
+    Zs = dk._slab_params(gates)
+    d = ctypes.c_int(-1)
+    if kind == "prolong":
+        args = (dk._dt(cfg), ctypes.byref(P), ctypes.byref(Zs),
+                f["phi"].data_ptr(), f["rhs"].data_ptr(), f["fine"].data_ptr(),
+                st, ctypes.byref(d))
+        fn = fns["omg_prolong_slab"]
+    else:
+        args = (dk._dt(cfg), 2 if kind == "residual" else 1, ctypes.byref(P),
+                None, ctypes.byref(Zs), f["phi"].data_ptr(),
+                f["rhs"].data_ptr(), f["out"].data_ptr(), st, ctypes.byref(d))
+        fn = fns["omg_stencil_slab"]
+
+    def run():
+        e = fn(*args)
+        assert e == 0, e
+        return d.value
+    return run
+
+
+def probe_slab_apply(levels=(512, 256, 128, 64, 32), K=8):
+    fns, logs = build_many(
+        {k: v + ["-Xptxas", "-v"] for k, v in SLAB_APPLY_VARIANTS.items()},
+        {"stencil_sweep": "omg_stencil_slab",
+         "prolong_correct": "omg_prolong_slab"})
+
+    def fields(n, zl, dtype, fine=False):
+        cfg, f = slab_fields(n, zl, dtype)
+        if fine:
+            f["fine"] = torch.randn(dk.padded_shape((2 * n, 2 * n, 2 * zl)),
+                                    dtype=dtype, device="cuda")
+        return cfg, f
+
+    # 5z: the apply and the residual on an interior slab of each sharded
+    # level over K slabs; 7z: the prolongation from each coarse slab;
+    # float32, and float64 on the 32^2 x 4 slab
+    shapes = [(n, torch.float32) for n in levels] + [(32, torch.float64)]
+    for kind in ("residual", "apply", "prolong"):
+        for n, dtype in shapes:
+            if kind == "prolong" and n == levels[0]:
+                continue
+            zl = n // K
+            item = 4 if dtype == torch.float32 else 8
+            cfg, f = fields(n, zl, dtype, fine=kind == "prolong")
+            calls = {t: slab_apply_call(fn, kind, cfg, f)
+                     for t, fn in fns.items()}
+            design = {t: c() for t, c in calls.items()}
+            if kind == "prolong":
+                nbytes = (2 * (zl + 2) + 16 * zl) * n * n * item
+            else:
+                nbytes = ((zl + 2) + (2 if kind == "residual" else 1) * zl) \
+                    * n * n * item
+            print(json.dumps({"slab_apply": {
+                "kernel": kind, "slab": [n, n, zl],
+                "dtype": str(dtype)[6:], "ms": in_turns(calls),
+                "design": design, "bound_ms": 1e3 * nbytes / 3.35e12}}),
+                flush=True)
+            del f, calls
+            torch.cuda.empty_cache()
+    # new against old, bitwise, every gate pair: 5z on a 512^2 x 64 slab,
+    # 7z from a 256^2 x 32 one and, in float64, from 32^2 x 4
+    checks = []
+    for kind, n, dtype in (("apply", 512, torch.float32),
+                           ("residual", 512, torch.float32),
+                           ("prolong", 256, torch.float32),
+                           ("prolong", 32, torch.float64)):
+        cfg, f = fields(n, n // K, dtype, fine=kind == "prolong")
+        keep = f["fine"].clone() if kind == "prolong" else None
+        for gates in ((False, False), (True, False), (False, True),
+                      (True, True)):
+            got = {}
+            for t, fn in fns.items():
+                if keep is not None:
+                    f["fine"].copy_(keep)
+                else:
+                    f["out"].fill_(float("nan"))
+                slab_apply_call(fn, kind, cfg, f, gates)()
+                got[t] = f["fine" if keep is not None else "out"][
+                    dk._ISL].clone()
+            torch.cuda.synchronize()
+            checks.append({"kernel": kind, "slab": [n, n, n // K],
+                           "dtype": str(dtype)[6:], "gates": gates,
+                           "bitwise": torch.equal(got["old"], got["new"])})
+            del got
+        del f, keep
+        torch.cuda.empty_cache()
+    print(json.dumps({"slab_apply_bitwise": checks}), flush=True)
+    i = r"(?:\(int\))?"
+    pick = re.compile(rf"void (apply_faces_kernel<\w+, {i}[12], {i}0, {i}0, "
+                      rf"{i}1>|stream_kernel<\w+, {i}0, {i}[12], {i}0, {i}0, "
+                      rf"{i}1>|prolong_pair_kernel<\w+>|"
+                      rf"prolong_correct_kernel<\w+, {i}0, {i}1>)")
+    print(json.dumps({"slab_apply_ptxas": {
+        t: ptxas_resources(g, pick.match) for t, g in logs.items()}}),
+        flush=True)
+
+
 def vcoeff_solver(op, n=512):
     """The vcoeff_path solver of chip_smoke.py (512^3 float32, lam 1.5,
     Dirichlet 0, smooth coefficients, seeded rhs) after three FMGs."""
@@ -1124,6 +1249,7 @@ if __name__ == "__main__":
                         ("apply_faces", probe_apply_faces),
                         ("rr_slab", probe_rr_slab),
                         ("seg", probe_seg),
+                        ("slab_apply", probe_slab_apply),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

@@ -46,12 +46,16 @@ per line:
   (``MGSolver``) on the fully periodic sparse tree at base 256, box 16,
   the flat half-sweep kernel on; with the kernel launches and the
   coarse loop's host reads per FMG;
-* ``profile_sharded``, ``profile_sharded_vcoeff`` (``--sharded``
-  only) — the same pass for ``chip_smoke.py``'s ``sharded_path`` solver
-  (512^3 float32 over 8 slabs on one card) and its ``sharded_vcoeff``
-  one (vhelmholtz at 128^3 over 8 slabs): the device time per FMG by
-  kernel name shows the slab kernels' share, which the stage clocks of
-  a launch-bound FMG do not.
+* ``profile_sharded``, ``profile_sharded_refined``,
+  ``profile_sharded_vcoeff`` (``--sharded`` only) — the same pass for
+  ``chip_smoke.py``'s ``sharded_path`` solver (512^3 float32 over 8 slabs
+  on one card), for its refined solve (``ShardedRefinedPoisson``, the
+  ``sharded_refined`` phase's float64 rhs, per outer) and for its
+  ``sharded_vcoeff`` one (vhelmholtz at 128^3 over 8 slabs): the device
+  time per FMG (per outer) of every kernel by name, and summed by the
+  port's kernel rows (``by_row``: ``PERF.md`` section 6's 1z, 5z, 7z,
+  8z ... and the copies and other PyTorch kernels), shows the slab
+  kernels' share, which the stage clocks of a launch-bound FMG do not.
 
 Needs a CUDA device and nvcc.
 """
@@ -101,10 +105,11 @@ def loop_ms(ps, n, need_res):
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def profiled(run, n, unit):
+def profiled(run, n, unit, top=20):
     """``run()`` (returns wall ms per unit over n units) under
-    ``torch.profiler``: device time by kernel name per unit and the busy
-    share; ``run`` once more with the profiler off beside it."""
+    ``torch.profiler``: device time by kernel name per unit (the ``top``
+    largest; None: every kernel) and the busy share; ``run`` once more
+    with the profiler off beside it."""
     from torch.profiler import ProfilerActivity, profile
     run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -126,7 +131,7 @@ def profiled(run, n, unit):
         out.update({f"device_ms_per_{unit}": busy, "busy_share": busy / wall,
                     f"device_calls_per_{unit}": sum(
                         r[f"calls_per_{unit}"] for r in rows),
-                    "by_kernel": rows[:20]})
+                    "by_kernel": rows[:top]})
     else:
         out["device_time"] = "not measured: the profiler saw no device events"
     return out
@@ -325,14 +330,31 @@ def phase_profile_sharded(n=4):
             torch.cuda.synchronize()
             return 1e3 * (time.perf_counter() - t0) / n
 
-        return profiled(run, n, "fmg")
+        return by_row(profiled(run, n, "fmg", top=None), "fmg")
 
     _, ss = chip_smoke.dense_pair(pkg, N, 8)
     g = torch.Generator(device="cuda").manual_seed(0)
     st = chip_smoke.seeded_state(ss, torch.randn((N,) * 3, generator=g,
                                                  device="cuda"))
     emit({"profile_sharded": profile(ss, st, 0.0)})
-    del ss, st
+    del st
+    torch.cuda.empty_cache()
+    from octree_mg_tpu_torch.ops import df32 as df
+    rh, rl = df.split_f64(chip_smoke.seeded_rhs64(N, 1))
+    rp = pkg.ShardedRefinedPoisson(ss)
+    st = ss.allocate()
+    n_outer = 4
+
+    def outers():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp.solve(st, rh, rl, n_outer=n_outer)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n_outer
+
+    emit({"profile_sharded_refined": by_row(
+        profiled(outers, n_outer, "outer", top=None), "outer")})
+    del ss, st, rp, rh, rl
     torch.cuda.empty_cache()
     sd, ss = chip_smoke.dense_pair(pkg, 128, 8, operator="vhelmholtz")
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -340,6 +362,49 @@ def phase_profile_sharded(n=4):
     st = chip_smoke.seeded_state(
         ss, rhs, (chip_smoke.smooth_eps(sd, 0, torch.float32),))
     emit({"profile_sharded_vcoeff": profile(ss, st, 1.5)})
+    del sd, ss, st
+
+
+#: kernel names (demangled, as the profiler gives them) by the row of
+#: PERF.md section 6 they run: (row, a pattern of the name), first match
+ROW_PATTERNS = [
+    ("1z wide", r"wide_kernel<float, [24], 0, 1"),
+    ("1z", r"stream_kernel<\w+, [24], 0, 0, 0, 1>"),
+    ("1ze", r"stream_kernel<\w+, [24], 0, [13], 0, 1>"),
+    ("5z face-plane", r"apply_faces_kernel<\w+, [12], 0, 0, 1>"),
+    ("5z", r"stream_kernel<\w+, 0, [12], 0, 0, 1>"),
+    ("5ze", r"stream_kernel<\w+, 0, [12], [13], 0, 1>"),
+    ("7z pair", r"prolong_pair_kernel<"),
+    ("7z", r"prolong_correct_kernel<\w+, 0, 1>"),
+    ("8z", r"residual_df32_kernel<1>"),
+    ("8", r"residual_df32_kernel<0>"),
+    ("1/3 wide", r"wide_kernel<"),
+    ("1e/3e face-plane", r"face_kernel<"),
+    ("4/4e/5e face-plane", r"apply_faces_kernel<"),
+    ("7", r"prolong_correct_kernel<"),
+    ("6", r"restrict_kernel<"),
+    ("1-5 stream", r"stream_kernel<"),
+    ("copies", r"[Cc]opy|memcpy|Memcpy"),
+]
+
+
+def by_row(out, unit):
+    """``profiled``'s result with the device time per unit summed by the
+    kernel row each kernel runs (ROW_PATTERNS; the rest under
+    ``other``)."""
+    import re
+    rows = {}
+    for r in out.get("by_kernel", []):
+        name = r["kernel"].replace("(int)", "")
+        row = next((k for k, pat in ROW_PATTERNS if re.search(pat, name)),
+                   "other")
+        agg = rows.setdefault(row, {f"calls_per_{unit}": 0.0,
+                                    f"device_ms_per_{unit}": 0.0})
+        agg[f"calls_per_{unit}"] += r[f"calls_per_{unit}"]
+        agg[f"device_ms_per_{unit}"] += r[f"device_ms_per_{unit}"]
+    out["by_row"] = dict(sorted(rows.items(),
+                                key=lambda kv: -kv[1][f"device_ms_per_{unit}"]))
+    return out
 
 
 def phase_profile_boxed(n=4):

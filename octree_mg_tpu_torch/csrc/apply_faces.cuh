@@ -2,10 +2,12 @@
 // stencil_sweep.cu) with coefficients, n_eps 1 or 3, and the
 // residual-restriction without a fine output (residual_restrict_dense,
 // K2, downsweep.cu) with and without coefficients (NE 0, 1 or 3); float32
-// and float64, no slabs; and the float32 segment apply and residual of a
-// dense-forest canvas (SEG = 1, NE = 0, seg_sweep.cu).  Every other apply
-// and residual of the three sources (constant coefficients, the slabs,
-// the float64 segments) runs stream_kernel.cuh.
+// and float64; the float32 segment apply and residual of a dense-forest
+// canvas (SEG = 1, NE = 0, seg_sweep.cu); and the constant-coefficient
+// apply and residual of a large float32 z-slab (SLAB = 1, NE = 0,
+// stencil_sweep.cu, where af_slab_takes).  Every other apply and residual of the three
+// sources (constant coefficients unsharded, the coefficient slabs, the
+// float64 segments) runs stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the eps bodies of the Pallas entry
 // points stencil_apply_dense and residual_restrict_dense of the JAX
@@ -68,13 +70,22 @@
 // looked up once per thread (x, y) or plane (z), the layers' plane
 // pointers staged in shared memory.
 //
+// SLAB = 1 (NE = 0's apply and residual on one slab of the z-slab
+// solver, SlabParams of stencil_common.cuh): a z plane beyond a face the
+// slab does not own is its pad plane (-1 or Z of the padded layout, the
+// halo exchange's copy of the neighbour slab's plane), copied into the
+// ring by the same cp.async as every other plane; a face the gates give
+// the slab synthesizes its ghost (slab_syn, slab_z_pair), and its plane
+// beyond is copied in as zeros.  x and y as without slabs.
+//
 // NE = 0 (apply_from, no faces: no face arrays and no coefficient rings)
 // runs the constant-coefficient residual-restriction, row 4 of PERF.md,
 // with its own planes ahead and register cap (AF0_*, below): 0.55
 // against 0.85 ms for stream_kernel.cuh at 512^3 float32 on an H100
 // (experiments/probe_torch_kernels.py rr_slab).  The constant apply and
-// residual stay on stream_kernel.cuh; OMG_FACES 2 sends them here too,
-// for the probe (experiments/probe_torch_kernels.py apply_faces).
+// residual of an unsharded level stay on stream_kernel.cuh; OMG_FACES 2
+// sends them here too, for the probe (experiments/probe_torch_kernels.py
+// apply_faces).
 #pragma once
 #include "stream_faces.cuh"
 
@@ -165,29 +176,6 @@ __device__ __forceinline__ void af_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four consecutive values at a 16-byte aligned address
-template <typename T>
-__device__ __forceinline__ void af_ld4(const T* p, T (&v)[4]) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 w = *reinterpret_cast<const float4*>(p);
-    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
-  } else {
-    const double2 a = reinterpret_cast<const double2*>(p)[0];
-    const double2 b = reinterpret_cast<const double2*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void af_st4(T* p, const T (&v)[4]) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
-    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
-  }
-}
-
 // Copy the four cells gx0 .. gx0+3 of one source row into dst (16-byte
 // aligned).  row: the row in the field, or null where the row has no
 // source (zero-filled); base, any address of the field, stands in for
@@ -221,15 +209,17 @@ __device__ __forceinline__ void af_cell(T* dst, const T* base, const T* row,
   wide_cp_async<sizeof(T)>(dst, ok ? row + x : base, ok);
 }
 
-template <typename T, int MODE, int NE, int SEG = 0>
+template <typename T, int MODE, int NE, int SEG = 0, int SLAB = 0>
 __global__ void __launch_bounds__(AfGeo<T, MODE, NE>::NT,
                                   AfGeo<T, MODE, NE>::MINB)
 apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
                    const T* __restrict__ phi, const T* __restrict__ rhs,
                    T* __restrict__ out, T* __restrict__ phic_out,
-                   T* __restrict__ iresc_out, SegParams S) {
+                   T* __restrict__ iresc_out, SegParams S, SlabParams Zs) {
   static_assert(SEG == 0 || (NE == 0 && MODE != M_DOWN),
                 "segment variant: constant coefficients, apply or residual");
+  static_assert(SLAB == 0 || (NE == 0 && SEG == 0 && MODE != M_DOWN),
+                "slab variant: constant coefficients, apply or residual");
   using G = AfGeo<T, MODE, NE>;
   constexpr int C = G::C, TX = G::TX, TY = G::TY, HT = G::HT;
   constexpr int SX = G::SX, PL = G::PL, FS = G::FS, FP = G::FP;
@@ -268,6 +258,9 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
   const int ey = face_src(gy, Y, P.per[1]);
   const long long gplane = (long long)(Y + 2 * PY) * X;
   const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
+  // SLAB: the z faces this slab synthesizes (else it reads their pads)
+  const bool zsyn_lo = SLAB != 0 && slab_syn(P, Zs, 0);
+  const bool zsyn_hi = SLAB != 0 && slab_syn(P, Zs, 1);
   // SEG: the descriptors serving the thread's cells, a byte each (-1:
   // none): x per cell and side (byte 2c + side of jxs[c / 2]), y per side;
   // their planes' pointers, staged in shared memory after the rings
@@ -297,11 +290,17 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
   // halo (first and last row) where a neighbour or a face reads it ----
   auto load = [&](int q, int k) {
     const int px = P.per[0], py = P.per[1];
-    const int sq = src_idx(q, Z, P.per[2]);
+    // SLAB: plane q is its local plane, a pad plane beyond the slab too;
+    // it has no source (zq) beyond a face that synthesizes
+    const int sq = SLAB != 0 ? q : src_idx(q, Z, P.per[2]);
+    const bool zq = SLAB != 0
+                        ? !((q < 0 && zsyn_lo) || (q >= Z && zsyn_hi))
+                        : sq >= 0;
     {
-      const T* pz = phi + (long long)((sq < 0 ? 0 : sq) + PZ) * gplane;
+      const T* pz =
+          phi + (long long)((SLAB != 0 ? sq : sq < 0 ? 0 : sq) + PZ) * gplane;
       auto row = [&](int s) {
-        return sq >= 0 && s >= 0 ? pz + (s + PY) * X : nullptr;
+        return zq && s >= 0 ? pz + (s + PY) * X : nullptr;
       };
       T* d = s_phi + (k % NP) * PL + io;
       af_row<T>(d, phi, row(sy), gx0, X, px, false, ovec);
@@ -341,8 +340,10 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
     }
     if constexpr (G::RHS) {
       const T* rz = rhs + (long long)((sq < 0 ? 0 : sq) + PZ) * gplane;
+      // SLAB: the rhs of a pad plane is never read
+      const bool rq = SLAB != 0 ? q >= 0 && q < Z : sq >= 0;
       af_row<T>(s_rhs + (k % NR) * TX * TY + ir, rhs,
-                sq >= 0 && sy >= 0 ? rz + (sy + PY) * X : nullptr, gx0, X,
+                rq && sy >= 0 ? rz + (sy + PY) * X : nullptr, gx0, X,
                 px, false, ovec);
     }
   };
@@ -435,7 +436,9 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
       T q[C] = {};
       if constexpr (G::RHS)
         af_ld4<T>(s_rhs + ((k + NR - 1) % NR) * TX * TY + ir, q);
-      const bool zf = SEG == 0 && !P.per[2] && (r == 0 || r == Z - 1);
+      const bool zf = SLAB != 0
+                          ? (zsyn_lo && r == 0) || (zsyn_hi && r == Z - 1)
+                          : SEG == 0 && !P.per[2] && (r == 0 || r == Z - 1);
       // SEG: the z layers of plane r (every x and y one is the thread's)
       int jzl = -1, jzh = -1;
       if constexpr (SEG != 0) {
@@ -472,7 +475,11 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
           lo[0] = l; hi[0] = u;
           neighbor_pair<T>(P, 1, gy, Y, v, lo[1], hi[1], g, gy, r, l, u);
           lo[1] = l; hi[1] = u;
-          neighbor_pair<T>(P, 2, r, Z, v, lo[2], hi[2], g, gy, r, l, u);
+          if constexpr (SLAB != 0)
+            slab_z_pair<T>(P, zsyn_lo, zsyn_hi, r, v, lo[2], hi[2], g, gy,
+                           r, l, u);
+          else
+            neighbor_pair<T>(P, 2, r, Z, v, lo[2], hi[2], g, gy, r, l, u);
           lo[2] = l; hi[2] = u;
         }
         if constexpr (NE > 0) {
@@ -545,16 +552,29 @@ constexpr bool af_takes() {
 #endif
 }
 
+// Whether the face-plane apply (SLAB = 1) takes a constant-coefficient
+// float32 slab apply or residual: slabs of 2^20 cells or more in two
+// planes or more, the slabs of the sharded 512^3 and 256^3 levels over 8,
+// where it was faster than stream_kernel.cuh in every turn of
+// experiments/probe_torch_kernels.py slab_apply (PERF.md); smaller slabs
+// are latency-bound and keep stream_kernel.cuh, as does float64 (no slab
+// solve with large slabs uses it; not instantiated).
+inline bool af_slab_takes(const LevelParams& P) {
+  return P.Z >= 2 && (long long)P.X * P.Y * P.Z >= (1LL << 20);
+}
+
 // A(phi) (MODE M_APPLY), rhs - A(phi) (M_RESIDUAL) or the residual-
-// restriction without a fine output (M_DOWN) on the face-plane apply.
-template <typename T, int MODE, int NE, int SEG = 0>
+// restriction without a fine output (M_DOWN) on the face-plane apply; Zs
+// the gates of a slab (SLAB = 1).
+template <typename T, int MODE, int NE, int SEG = 0, int SLAB = 0>
 static int launch_apply_faces(const LevelParams& P, const EpsParams& E,
                               const void* phi, const void* rhs, void* out,
                               void* phic_out, void* iresc_out,
                               cudaStream_t stream,
-                              const SegParams* S = nullptr) {
+                              const SegParams* S = nullptr,
+                              const SlabParams* Zs = nullptr) {
   using G = AfGeo<T, MODE, NE>;
-  auto kernel = apply_faces_kernel<T, MODE, NE, SEG>;
+  auto kernel = apply_faces_kernel<T, MODE, NE, SEG, SLAB>;
   const size_t smem = SEG != 0 ? G::seg_smem_bytes() : G::smem_bytes();
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -573,6 +593,7 @@ static int launch_apply_faces(const LevelParams& P, const EpsParams& E,
   kernel<<<grid, G::NT, smem, stream>>>(P, E, cz, vec, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
                                         (T*)iresc_out,
-                                        S ? *S : SegParams{});
+                                        S ? *S : SegParams{},
+                                        Zs ? *Zs : SlabParams{});
   return (int)cudaGetLastError();
 }

@@ -87,6 +87,17 @@ struct SlabParams {
   int gate[2];        // (lo, hi): 1 where this slab owns the physical z face
 };
 
+// OMG_SLABAP (slab apply and prolongation) 0 builds the slab apply and
+// residual (constant coefficients) on stream_kernel.cuh and the slab
+// prolongation on its thread-per-coarse-cell kernel, the designs before
+// the face-plane apply (apply_faces.cuh with SLAB = 1) and the pair
+// prolongation (prolong_correct.cu), for
+// experiments/probe_torch_kernels.py slab_apply and chip_smoke.py to hold
+// the two against each other.
+#ifndef OMG_SLABAP
+#define OMG_SLABAP 1
+#endif
+
 // Whether the low / high z face of a slab synthesizes its BC ghost
 // (else its neighbours beyond the face are pad planes).
 __device__ __forceinline__ bool slab_syn(const LevelParams& P,
@@ -342,6 +353,29 @@ __device__ __forceinline__ unsigned seg_put(unsigned w, int k, int v) {
 // A descriptor of a packed byte: -1 for none.
 __device__ __forceinline__ int seg_desc(unsigned b) {
   return b == 0xffu ? -1 : (int)b;
+}
+
+// Four consecutive values at a 16-byte aligned address
+template <typename T>
+__device__ __forceinline__ void af_ld4(const T* p, T (&v)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void af_st4(T* p, const T (&v)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+  }
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

@@ -74,8 +74,15 @@
 // experiments/probe_torch_kernels.py rr_slab); float32 only, the dtype of
 // every slab solve that has such slabs.  The edge strips of an overlapped
 // pair group (2*n_pairs planes), smaller slabs, float64 and the
-// coefficient variants keep stream_kernel.cuh.  half_sweep_dense with z_gates has no
-// caller in the JAX package and is not instantiated.
+// coefficient variants keep stream_kernel.cuh.  The constant-coefficient
+// apply and residual on a float32 slab of at least 2^20 cells (the
+// sharded 512^3 and 256^3 levels over 8) run the face-plane apply
+// (apply_faces.cuh with SLAB = 1, af_slab_takes): no wavefront for halo
+// 1, the pad planes copied into its ring like every other plane; smaller
+// slabs (latency-bound), float64 and the coefficient variants keep
+// stream_kernel.cuh, whose slab apply and residual -DOMG_SLABAP=0
+// sends every slab to (the probe's old design).  half_sweep_dense with
+// z_gates has no caller in the JAX package and is not instantiated.
 #include "apply_faces.cuh"
 
 // n_sweeps half-sweeps of one or two pairs: constant coefficients on the
@@ -191,15 +198,34 @@ static int launch_slab_pairs(const LevelParams& P, const EpsParams& E,
   return launch_stream<T, NS, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
 }
 
+// The slab A(phi) or rhs - A(phi): constant coefficients on a float32
+// slab on the face-plane apply (apply_faces.cuh with SLAB = 1, *design =
+// 2) where af_slab_takes the slab, the rest (coefficients, float64, small
+// slabs) on stream_kernel.cuh.
+template <typename T, int MODE, int NE>
+static int launch_slab_apply(const LevelParams& P, const EpsParams& E,
+                             const SlabParams& Zs, const void* phi,
+                             const void* rhs, void* out, cudaStream_t s,
+                             int* design) {
+#if OMG_SLABAP
+  if constexpr (NE == 0 && sizeof(T) == 4)
+    if (af_slab_takes(P)) {
+      *design = 2;
+      return launch_apply_faces<T, MODE, 0, 0, 1>(P, E, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+    }
+#endif
+  return launch_stream<T, 0, MODE, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+}
+
 template <typename T, int NE>
 static int dispatch_slab(int mode, const LevelParams& P, const EpsParams& E,
                          const SlabParams& Zs, const void* phi,
                          const void* rhs, void* out, cudaStream_t s,
                          int* design) {
   if (mode == M_APPLY)
-    return launch_stream<T, 0, M_APPLY, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+    return launch_slab_apply<T, M_APPLY, NE>(P, E, Zs, phi, rhs, out, s, design);
   if (mode == M_RESIDUAL)
-    return launch_stream<T, 0, M_RESIDUAL, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+    return launch_slab_apply<T, M_RESIDUAL, NE>(P, E, Zs, phi, rhs, out, s, design);
   if (mode != M_PAIRS) return (int)cudaErrorInvalidValue;
   if (P.n_sweeps == 2)
     return launch_slab_pairs<T, 2, NE>(P, E, Zs, phi, rhs, out, s, design);
@@ -211,8 +237,8 @@ static int dispatch_slab(int mode, const LevelParams& P, const EpsParams& E,
 // The z-slab variants: as omg_stencil_sweep, on one slab whose z pads
 // hold the neighbour slabs' planes; Zs: the slab's (lo, hi) z-face gates.
 // mode 0 takes n_sweeps 2 or 4 (one or two pairs).  design, unless null,
-// receives 1 where the launch ran the wide design (stream_wide.cuh),
-// else 0.
+// receives 1 where the launch ran the wide design (stream_wide.cuh), 2
+// where it ran the face-plane apply (apply_faces.cuh), else 0.
 extern "C" int omg_stencil_slab(int dtype, int mode, const LevelParams* P,
                                 const EpsParams* E, const SlabParams* Zs,
                                 const void* phi, const void* rhs, void* out,

@@ -66,7 +66,11 @@ the card these calls launch the slab variants of the kernels
 (``SlabParams``, csrc/stencil_common.cuh), counted under
 ``name[z_gates]`` (``name[n_eps=k][z_gates]`` for the coefficient
 variants); a slab double pair on the wide design (below) is counted
-under ``pair_sweep_dense[z_gates][wide]`` as well.  ``half_sweep_dense``, ``downsweep_dense`` and
+under ``pair_sweep_dense[z_gates][wide]`` as well, a constant-coefficient
+slab apply or residual on the face-plane apply (below) under
+``stencil_apply_dense[z_gates][faces]``, and a slab prolongation on the
+pair kernel of csrc/prolong_correct.cu (every slab, both dtypes) under
+``prolong_correct_dense[z_gates][pair]``.  ``half_sweep_dense``, ``downsweep_dense`` and
 ``residual_restrict_dense`` take no gates: the JAX package never calls
 them with any.
 
@@ -77,7 +81,9 @@ the slab double pair on large slabs), csrc/stream_faces.cuh for the
 coefficient variants on every float32 level, csrc/stream_kernel.cuh for
 the rest.  The apply and the residual run one of two:
 csrc/apply_faces.cuh for the coefficient variants on every level in both
-dtypes, csrc/stream_kernel.cuh for the rest; ``residual_restrict_dense``
+dtypes and for the large float32 constant-coefficient slabs,
+csrc/stream_kernel.cuh for
+the rest; ``residual_restrict_dense``
 runs csrc/apply_faces.cuh on every launch, constant coefficients
 included.  Both face-plane designs build each harmonic-mean face once
 per plane, where stream_kernel.cuh builds a cell's six from the
@@ -172,6 +178,10 @@ for _n in (1, 3):
 _LAUNCHES[faces_name("residual_restrict_dense", 0)] = 0
 #: a slab double pair on the wide design (csrc/stream_wide.cuh)
 _LAUNCHES[slab_name("pair_sweep_dense") + "[wide]"] = 0
+#: a slab apply or residual on the face-plane apply (csrc/apply_faces.cuh)
+_LAUNCHES[faces_name(slab_name("stencil_apply_dense"), 0)] = 0
+#: a slab prolongation on the pair kernel (csrc/prolong_correct.cu)
+_LAUNCHES[slab_name("prolong_correct_dense") + "[pair]"] = 0
 
 
 def launch_counts() -> dict:
@@ -774,12 +784,15 @@ def cuda_stream(t: torch.Tensor) -> int:
 
 
 def _count_design(name: str, n_eps: int, design: int) -> None:
-    """Count a launch of a stencil entry point under the design the
-    library reports it ran (1 wide, 2 face-plane, 0 neither)."""
+    """Count a launch of a kernel entry point under the design the
+    library reports it ran (1 wide, 2 face-plane, 3 the pair
+    prolongation, 0 none of them)."""
     if design == 1:
         _LAUNCHES[name + "[wide]"] += 1
     elif design == 2:
         _LAUNCHES[faces_name(name, n_eps)] += 1
+    elif design == 3:
+        _LAUNCHES[name + "[pair]"] += 1
 
 
 def record_launch(err: int, what: str,
@@ -817,7 +830,8 @@ _ARGTYPES = {
                          ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP,
                          ctypes.POINTER(ctypes.c_int)],
     "omg_prolong_slab": [ctypes.c_int, ctypes.POINTER(_LevelParams),
-                         ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP],
+                         ctypes.POINTER(_SlabParams), _VP, _VP, _VP, _VP,
+                         ctypes.POINTER(ctypes.c_int)],
 }
 _fns = {}
 
@@ -1221,11 +1235,13 @@ def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
         _check_field(cfg_c, iold_c, "iold_c")
     _check_field(cfg_c, phi_f, "phi_f", shape_f)
     P = _params(cfg_c, 0.0, bplanes_c)
+    design = ctypes.c_int(0)
     if z_gates is not None:
         Zs = _slab_params(z_gates)
         err = _fn("prolong_correct", "omg_prolong_slab")(
             _dt(cfg_c), ctypes.byref(P), ctypes.byref(Zs), phi_c.data_ptr(),
-            iold_c.data_ptr(), phi_f.data_ptr(), cuda_stream(phi_c))
+            iold_c.data_ptr(), phi_f.data_ptr(), cuda_stream(phi_c),
+            ctypes.byref(design))
         counter = slab_name("prolong_correct_dense")
     else:
         err = _fn("prolong_correct", "omg_prolong_correct")(
@@ -1236,5 +1252,6 @@ def prolong_correct_dense(cfg_c: DenseStencilConfig, phi_c, iold_c, phi_f,
         counter = ("prolong_correct_dense" if mode == "add"
                    else f"prolong_correct_dense[{mode}]")
     record_launch(err, "prolong_correct_dense", counter)
+    _count_design(counter, 0, design.value)
     torch.autograd.graph.increment_version(phi_f)
     return phi_f

@@ -397,6 +397,73 @@ def test_seg_new_designs_equal_plain_and_old_design_bitwise(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [1, 3, 4, 5])
+def test_slab_new_designs_equal_plain_and_old_design_bitwise(shape):
+    """The slab apply, residual and prolongation on a slab of
+    chip_smoke.SLAB_APPLY_SHAPES (the sharded 256^3 level's slab and the
+    thinnest the face-plane apply's rule takes, 2 planes with ragged
+    tiles; the sharded 128^3 level's slab and float64 32^2 x 4, which it
+    leaves to stream_kernel.cuh; the pair prolongation takes all four):
+    every gate pair, physical and periodic z, the four BC kinds, the pads
+    of gated-off faces random and every other pad NaN: 0 ulp against the
+    plain version and against the old designs (-DOMG_SLABAP=0), counted
+    under the new designs' counters exactly where the rules take the
+    slab."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    before = dk.launch_counts()
+    rows = chip_smoke.slab_apply_checks(
+        dk, chip_smoke.old_slab_library(dk),
+        [chip_smoke.SLAB_APPLY_SHAPES[shape]])
+    # 2 z axes x 4 gate pairs x 4 BC kinds x 3 kinds
+    assert len(rows) == 96 and all(
+        r["max_ulp"] == 0 and r["new_design"] == r["want_new"]
+        for r in rows), [r for r in rows if r["max_ulp"]
+                         or r["new_design"] != r["want_new"]][:5]
+    faces = chip_smoke.slab_faces_takes(*chip_smoke.SLAB_APPLY_SHAPES[shape][
+        ::2])
+    after = dk.launch_counts()
+    assert after[chip_smoke.SLAB_FACES] - before[chip_smoke.SLAB_FACES] == \
+        (64 if faces else 0)
+    assert after[chip_smoke.SLAB_PAIR] - before[chip_smoke.SLAB_PAIR] == 32
+
+
+@pytest.mark.cuda
+def test_sharded_solver_runs_the_new_slab_designs():
+    """256^3 over 8 slabs (levels 256 to 32 sharded), float32: the 16 slab
+    applies and residuals of a have-guess FMG on the 256^2 x 32 slabs run
+    the face-plane apply and those on the smaller slabs stream_kernel.cuh
+    (chip_smoke.slab_faces_takes), every slab prolongation (coarse slabs
+    128^2 x 16 to 32^2 x 4) runs the pair kernel, and two FMGs stay
+    bitwise the single-device solver's."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    rhs = torch.from_numpy(np.random.default_rng(4).normal(size=(256,) * 3))
+    sd, ss = chip_smoke.dense_pair(port, 256, 8)
+    st_d = chip_smoke.seeded_state(sd, rhs.float().cuda())
+    st_s = chip_smoke.seeded_state(ss, rhs.float().cuda())
+    hist_d = chip_smoke.run_fmgs(sd, st_d, 2)
+    hist_s = chip_smoke.run_fmgs(ss, st_s, 2)
+    assert chip_smoke.sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s,
+                                        "sharded 256^3")["bitwise"]
+    _, per_fmg = chip_smoke.timed_fmgs(ss, st_s, 1)
+    by = chip_smoke.slab_launches_by_slab(dk, ss, st_s)
+    apply_by = by["stencil_apply_dense[z_gates]"]
+    assert per_fmg[chip_smoke.SLAB_FACES] == sum(
+        n for c, n in apply_by.items() if chip_smoke.slab_faces_takes(
+            tuple(int(v) for v in c.split("x")), torch.float32)) == \
+        apply_by["256x256x32"] == 16, (per_fmg, by)
+    pro = dk.slab_name("prolong_correct_dense")
+    assert per_fmg[chip_smoke.SLAB_PAIR] == per_fmg[pro] == sum(
+        by[pro].values()) > 0, (per_fmg, by)
+
+
+@pytest.mark.cuda
 def test_flat_half_sweep_kernel_equals_plain_version_bitwise():
     """The boxed solver's half-sweep kernel against its plain version:
     float32/float64, D = 1, 2, 3, nc 2 to 16, 1 to 4096 boxes, lam 0 and

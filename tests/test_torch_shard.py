@@ -227,13 +227,47 @@ def test_gated_pair_matches_reference_kernel(n_pairs, gates, per_z):
                                atol=64 * EPS * np.abs(want).max())
 
 
+@pytest.mark.parametrize("residual,gates", [(False, (True, False)),
+                                            (True, (False, True))])
+def test_gated_apply_matches_reference_kernel(residual, gates):
+    """The gated apply and residual on one aligned slab against the JAX
+    package's Pallas body (interpret mode): the face a gate turns off
+    reads the pads 1 deep, the other synthesizes its ghost."""
+    rng = np.random.default_rng(41 + residual)
+    dims = (256, 16, 8)
+    dr = 1.0 / 256
+    bc = [tuple(ref_bc_coeffs(ref.BCType.DIRICHLET, dr, nb))
+          for nb in range(6)]
+    per = (False, False, False)
+    idr2 = (1.0 / dr ** 2,) * 3
+    jcfg = jdk.DenseStencilConfig(dims, idr2, bc, per, jnp.float64,
+                                  b_const=[None] * 6, interpret=True)
+    assert jcfg.use_kernel
+    tcfg = dk.DenseStencilConfig(dims, idr2, bc, per, torch.float64,
+                                 b_const=[None] * 6)
+    phi, rhs = (rng.normal(size=dk.padded_shape(dims)) for _ in range(2))
+    planes = [rng.normal(size=tcfg.plane_shape(nb)) for nb in range(6)]
+    want = np.asarray(jdk.stencil_apply_dense(
+        jcfg, jnp.asarray(phi), jnp.asarray(rhs), 0.3,
+        [jnp.asarray(p) for p in planes], residual,
+        z_gates=gates))[dk._ISL]
+    got = dk.stencil_apply_dense(
+        tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.3,
+        [torch.from_numpy(p) for p in planes], residual,
+        z_gates=gates)[dk._ISL]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=64 * EPS * np.abs(want).max())
+
+
 @pytest.mark.parametrize("counter", ["pair_sweep_dense[z_gates][wide]",
-                                     "residual_restrict_dense[faces]"])
+                                     "residual_restrict_dense[faces]",
+                                     "stencil_apply_dense[z_gates][faces]",
+                                     "prolong_correct_dense[z_gates][pair]"])
 def test_design_counters_exist_and_cpu_tensors_never_count(counter):
-    """The counters of the wide slab double pair and of the
-    constant-coefficient residual-restriction on the face-plane apply
-    exist, and calls on CPU tensors (the plain versions) count under no
-    counter."""
+    """The counters of the wide slab double pair, of the
+    constant-coefficient residual-restriction and the slab apply on the
+    face-plane apply, and of the pair slab prolongation exist, and calls
+    on CPU tensors (the plain versions) count under no counter."""
     assert counter in dk.launch_counts()
     _, tcfg, (phi, rhs), _, planes = slab_case(False, 0, seed=2)
     args = (tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.3,
@@ -241,6 +275,11 @@ def test_design_counters_exist_and_cpu_tensors_never_count(counter):
     before = dk.launch_counts()
     dk.pair_sweep_dense(*args, 0, n_pairs=2, z_gates=(False, True))
     dk.residual_restrict_dense(*args)
+    dk.stencil_apply_dense(*args, True, z_gates=(True, False))
+    X, Y, Z = tcfg.dims
+    dk.prolong_correct_dense(tcfg, args[1], args[2], torch.zeros(
+        dk.padded_shape((2 * X, 2 * Y, 2 * Z)), dtype=torch.float64),
+        args[4], z_gates=(False, True))
     assert dk.launch_counts() == before
 
 
