@@ -66,6 +66,15 @@ object per line:
   against the designs before (csrc/stencil_sweep.cu and
   csrc/prolong_correct.cu built with -DOMG_SLABAP=0), each counted under
   its new design's counter exactly where the rule takes the slab; the
+  float32 coefficient slab double pair (1 and 2 pairs), apply and
+  residual, n_eps 1 and 3 (``SLAB_EPS_SHAPES``: csrc/stream_faces.cuh and
+  csrc/apply_faces.cuh with SLAB = 1, which every case must run — the
+  slabs of sharded_vcoeff's 512^3 .. 32^3 levels over 8, the 4- and
+  2-plane edge strips of an overlapped pair group, ragged tiles, an odd
+  level), every gate pair, physical and periodic z, the four BC kinds,
+  the pads of gated-off faces random (the coefficients' too) and every
+  other pad NaN, each against its plain version and against the design
+  before (csrc/stencil_sweep.cu built with -DOMG_SLABEPS=0); the
   double-float
   residual on the same shapes (float32, equal power-of-two spacing, constant faces, with
   and without lam, with a boundary-value override); the coefficient
@@ -166,9 +175,13 @@ object per line:
 * ``sharded_periodic`` — fully periodic 128^3 over 8 slabs, sharded
   against single; ``sharded_refined`` — ``ShardedRefinedPoisson`` at
   512^3, n_outer=10, norms against ``RefinedPoisson``'s (1e-5
-  relative), ms per outer; ``sharded_vcoeff`` — vhelmholtz at 128^3 over
-  8 slabs against single; ``cpu_agreement.sharded`` — 32^3 over 8 slabs,
-  float64, card against CPU;
+  relative), ms per outer; ``sharded_vcoeff`` — vhelmholtz at 512^3 over
+  8 slabs (vcoeff_path's coefficients, lam 1.5), bitwise the single
+  device solver, and in four timed have-guess FMGs every coefficient slab
+  double pair, apply and residual on its face-plane design (those on the
+  512^2 x 64 and 256^2 x 32 slabs included, by slab from one more FMG);
+  ``cpu_agreement.sharded`` — 32^3 over 8 slabs, float64, card against
+  CPU;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
   shape, and per coefficient variant ``name[n_eps=k]``: launches on its
   path (the float32 solve for the six stencil kernels, the refined solve
@@ -198,7 +211,10 @@ object per line:
   face-plane apply and its launches; the residual's and the
   prolongation's rows their new designs, the old design's time on the
   same inputs, and level by level the time as shipped and on the old
-  design, the bound and the launches per FMG);
+  design, the bound and the launches per FMG; so do the coefficient
+  pair's and residual's ``[n_eps=1][z_gates]`` rows, the pair's levels
+  with the 4-plane edge strips, their launches per FMG from
+  sharded_vcoeff);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -902,6 +918,13 @@ def phase_checks(dk, df, quick):
              f"{[r for r in sap if r['new_design'] != r['want_new']][:1]}")
     worst = max([worst] + [r["max_ulp"] for r in sap])
     rows += sap
+    sep = slab_eps_checks(dk, old_slab_library(dk, "-DOMG_SLABEPS=0"))
+    if not all(r["new_design"] == r["want_new"] for r in sep):
+        fail("a coefficient slab launch ran another design than its rule "
+             "gives: "
+             f"{[r for r in sep if r['new_design'] != r['want_new']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in sep])
+    rows += sep
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
                       and "faces" not in r["kernel"] for r in rows)
@@ -934,6 +957,10 @@ def phase_checks(dk, df, quick):
                      "slab_apply_cases_on_the_new_designs": sum(
                          r["new_design"] for r in sap),
                      "slab_apply_max_ulp": max(r["max_ulp"] for r in sap),
+                     "slab_eps_cases": len(sep),
+                     "slab_eps_cases_on_the_face_designs": sum(
+                         r["new_design"] for r in sep),
+                     "slab_eps_max_ulp": max(r["max_ulp"] for r in sep),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -1262,16 +1289,18 @@ SLAB_FACES = "stencil_apply_dense[z_gates][faces]"
 SLAB_PAIR = "prolong_correct_dense[z_gates][pair]"
 
 
-def old_slab_library(dk):
+def old_slab_library(dk, flag="-DOMG_SLABAP=0"):
     """omg_stencil_slab and omg_prolong_slab of csrc/stencil_sweep.cu and
-    csrc/prolong_correct.cu built with -DOMG_SLABAP=0: the slab apply
-    and residual on csrc/stream_kernel.cuh and the slab prolongation on
-    its thread-per-coarse-cell kernel, the designs before, to hold the new
-    ones against."""
+    csrc/prolong_correct.cu built with a design flag, to hold the new
+    designs against the ones before: -DOMG_SLABAP=0, the constant-
+    coefficient slab apply and residual on csrc/stream_kernel.cuh and
+    the slab prolongation on its thread-per-coarse-cell kernel;
+    -DOMG_SLABEPS=0, every float32 coefficient slab double pair, apply
+    and residual on csrc/stream_kernel.cuh."""
     import ctypes
     from octree_mg_tpu_torch.ops import _cuda_build
     paths = _cuda_build.build_kernels(
-        ("-DOMG_SLABAP=0",), sources=("stencil_sweep", "prolong_correct"))
+        (flag,), sources=("stencil_sweep", "prolong_correct"))
     fns = {}
     for src, sym in (("stencil_sweep", "omg_stencil_slab"),
                      ("prolong_correct", "omg_prolong_slab")):
@@ -1282,25 +1311,29 @@ def old_slab_library(dk):
 
 
 def slab_runner(dk, fn, kind, cfg, phi, rhs, lam, planes, gates, iold=None,
-                out=None):
+                out=None, eps=(), n_pairs=2):
     """A closure that launches one slab kernel of a library (fn: its
     omg_stencil_slab, or omg_prolong_slab for ``prolong``) on fixed
-    arguments as the wrappers make them, into out (the apply and the
-    residual) or out = phi_f in place (the prolongation), and returns the
+    arguments as the wrappers make them, into out (the double pair of
+    ``pairs``, the apply and the residual, with the coefficient fields
+    eps) or out = phi_f in place (the prolongation), and returns the
     design the library reports; not counted (a comparison, not the path).
     """
     import ctypes
     Zs = dk._slab_params(gates)
     design = ctypes.c_int(-1)
     st = dk.cuda_stream(phi)
-    P = dk._params(cfg, 0.0 if kind == "prolong" else lam, planes)
+    P = dk._params(cfg, 0.0 if kind == "prolong" else lam, planes, 0,
+                   2 * n_pairs if kind == "pairs" else 0)
+    E = dk._eps_params(cfg, eps) if eps else None
     if kind == "prolong":
         args = (dk._dt(cfg), ctypes.byref(P), ctypes.byref(Zs),
                 phi.data_ptr(), iold.data_ptr(), out.data_ptr(), st,
                 ctypes.byref(design))
     else:
-        args = (dk._dt(cfg), 2 if kind == "residual" else 1, ctypes.byref(P),
-                None, ctypes.byref(Zs), phi.data_ptr(), rhs.data_ptr(),
+        args = (dk._dt(cfg), ("pairs", "apply", "residual").index(kind),
+                ctypes.byref(P), ctypes.byref(E) if eps else None,
+                ctypes.byref(Zs), phi.data_ptr(), rhs.data_ptr(),
                 out.data_ptr(), st, ctypes.byref(design))
 
     def run():
@@ -1386,6 +1419,117 @@ def slab_apply_checks(dk, old_fns, shapes=SLAB_APPLY_SHAPES):
                              or slab_faces_takes(dims, dtype)})
                 del got, want, old
             del phi, rhs
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: the coefficient slab launches of rows 1ze and 5ze (PERF.md): the double
+#: pair (one and two pairs), the apply and the residual on a slab
+SLAB_EPS_KINDS = ("pairs1", "pairs2", "apply", "residual")
+#: slabs of the coefficient slab checks, n_eps 1 and 3, float32: the rules
+#: send every float32 coefficient slab double pair to csrc/stream_faces.cuh
+#: and the apply and residual on slabs of 2^15 cells and more to
+#: csrc/apply_faces.cuh (SLAB = 1; slab_eps_apply_takes): the slabs of
+#: sharded_vcoeff's 512^3 .. 32^3 levels over 8 (the 64^2 x 8 one the
+#: smallest the apply's rule takes, the 32^2 x 4 one left to
+#: stream_kernel.cuh), 64 x 62 x 8 just below the rule, the 4-plane edge
+#: strip of a 512^3 slab's overlapped double pair group, the 2-plane one
+#: of a single pair (the thinnest slab the solver launches), ragged tiles
+#: (8 of the pair's 32 x 24 tile and 4 of the apply's 64 x 16 one, three
+#: z chunks of the apply) and an odd level (unaligned rows); (dims, (x, y)
+#: periodic)
+SLAB_EPS_SHAPES = [((512, 512, 64), (False, False)),
+                   ((256, 256, 32), (True, True)),
+                   ((128, 128, 16), (False, True)),
+                   ((64, 64, 8), (True, False)),
+                   ((32, 32, 4), (False, False)),
+                   ((64, 62, 8), (False, True)),
+                   ((512, 512, 4), (False, False)),
+                   ((256, 256, 2), (True, True)),
+                   ((520, 260, 6), (False, True)),
+                   ((13, 7, 4), (False, False))]
+
+
+def slab_eps_apply_takes(dims):
+    """Whether the face-plane apply takes a float32 coefficient slab apply
+    or residual: af_eps_slab_takes of csrc/apply_faces.cuh, slabs of 2^15
+    cells or more (the face-plane double pair takes every slab)."""
+    X, Y, Z = dims
+    return X * Y * Z >= 1 << 15
+
+
+def slab_eps_counter(dk, kind, n_eps):
+    """The counter of a coefficient slab launch on its face-plane design."""
+    base = "pair_sweep_dense" if kind.startswith("pairs") \
+        else "stencil_apply_dense"
+    return dk.slab_name(base, n_eps) + "[faces]"
+
+
+def slab_eps_checks(dk, old_fns, shapes=SLAB_EPS_SHAPES):
+    """The float32 coefficient slab double pair (1 and 2 pairs), apply and
+    residual, n_eps 1 and 3, on SLAB_EPS_SHAPES: every gate pair, physical
+    and periodic z, the four BC kinds, coefficients 0.5 + U[0,1), the pads
+    of gated-off faces random (the coefficients' too) and every other pad
+    NaN: 0 ulp against the plain version and against the old design
+    (old_slab_library with -DOMG_SLABEPS=0), and counted under the
+    face-plane counter (slab_eps_counter, ``new_design``) exactly where
+    the rules take the slab (``want_new``: every double pair,
+    slab_eps_apply_takes for the apply and the residual)."""
+    rows, seed, isl, dtype = [], 1900, dk._ISL, torch.float32
+    for (dims, pxy), per_z, gates in itertools.product(
+            shapes, (False, True),
+            itertools.product((False, True), repeat=2)):
+        per = tuple(pxy) + (per_z,)
+        for bc_kind, n_eps in itertools.product(
+                ("dirichlet", "neumann", "continuous", "planes"), (1, 3)):
+            lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+            seed += 1
+            cfg, field, planes = slab_case(dk, dims, per, bc_kind, dtype,
+                                           seed, gates, n_eps=n_eps)
+            phi, rhs = field(), field()
+            eps = tuple(field(coef=True) for _ in range(n_eps))
+            tag = f"[n_eps={n_eps}][z_gates={int(gates[0])}{int(gates[1])}]"
+            for kind in SLAB_EPS_KINDS:
+                k = int(kind[-1]) if kind.startswith("pairs") else 0
+                if k == 2 and not cfg.periodic_even:
+                    continue
+                counter = slab_eps_counter(dk, kind, n_eps)
+                before = dk.launch_counts()[counter]
+                if k:
+                    got = dk.pair_sweep_dense(cfg, phi, rhs, lam, planes, 0,
+                                              n_pairs=k, eps=eps,
+                                              z_gates=gates)
+                    new = dk.launch_counts()[counter] == before + 1
+                    want = dk._pairs_plain(cfg, phi, rhs, lam, planes, 0, k,
+                                           eps, gates)
+                else:
+                    res = kind == "residual"
+                    got = dk.stencil_apply_dense(cfg, phi, rhs, lam, planes,
+                                                 res, eps=eps, z_gates=gates)
+                    new = dk.launch_counts()[counter] == before + 1
+                    want = dk._apply_plain(cfg, phi, rhs, lam, planes, res,
+                                           eps, gates)
+                old = torch.empty_like(phi)
+                design = slab_runner(dk, old_fns["omg_stencil_slab"],
+                                     "pairs" if k else kind,
+                                     cfg, phi, rhs, lam, planes, gates,
+                                     out=old, eps=eps, n_pairs=k)()
+                if design != 0:
+                    fail(f"the old coefficient slab design reported design "
+                         f"{design}")
+                torch.cuda.synchronize()
+                up = ulp_diff(got[isl], want[isl])
+                uo = ulp_diff(got[isl], old[isl])
+                u = max(up, uo) if min(up, uo) >= 0 else 1 << 62
+                rows.append({"kernel": f"{kind}{tag}[z_gates][new design]",
+                             "dims": dims, "periodic": per,
+                             "dtype": "float32", "bc": bc_kind, "lam": lam,
+                             "max_ulp": u, "max_ulp_vs_plain": up,
+                             "max_ulp_vs_old_design": uo, "new_design": new,
+                             "want_new": bool(k) or slab_eps_apply_takes(
+                                 dims)})
+                del got, want, old
+            del phi, rhs, eps
     torch.cuda.empty_cache()
     return rows
 
@@ -3253,23 +3397,29 @@ def timed_fmgs(sv, st, n, lam=0.0):
 
 
 def slab_launches_by_slab(dk, sv, st, lam=0.0):
-    """The slab applies and residuals by slab, and the slab prolongations
-    by coarse slab, of one have-guess FMG (need_res False), untimed:
-    dense_kernels' stencil_apply_dense and prolong_correct_dense wrapped
-    for its length.  {"name[z_gates]": {"XxYxZ": launches}}."""
+    """The slab double pairs, applies and residuals by slab (an edge strip
+    by its own extent), and the slab prolongations by coarse slab, of one
+    have-guess FMG (need_res False), untimed: dense_kernels'
+    pair_sweep_dense, stencil_apply_dense and prolong_correct_dense
+    wrapped for its length.  {"name[z_gates]": {"XxYxZ": launches}}
+    (``name[n_eps=k][z_gates]`` for coefficients)."""
     by, orig = {}, {}
 
     def wrap(name, f):
         def run(cfg, *args, **kw):
             if kw.get("z_gates") is not None:
-                row = by.setdefault(dk.slab_name(name), {})
+                # the prolongation has no coefficient variant
+                row = by.setdefault(dk.slab_name(
+                    name, 0 if name == "prolong_correct_dense"
+                    else cfg.n_eps), {})
                 key = "x".join(map(str, cfg.dims))
                 row[key] = row.get(key, 0) + 1
             return f(cfg, *args, **kw)
         return run
 
     try:
-        for name in ("stencil_apply_dense", "prolong_correct_dense"):
+        for name in ("pair_sweep_dense", "stencil_apply_dense",
+                     "prolong_correct_dense"):
             orig[name] = getattr(dk, name)
             setattr(dk, name, wrap(name, orig[name]))
         sv.fas_fmg(st, lam=lam, have_guess=True, need_res=False)
@@ -3475,9 +3625,15 @@ def phase_sharded_refined(pkg, dk, df):
 
 
 def phase_sharded_vcoeff(pkg, dk):
-    """vhelmholtz (lam 1.5, the coefficients of vcoeff_path) at 128^3 over
-    8 slabs, three FMGs, sharded against single."""
-    n, K, lam = 128, 8, 1.5
+    """vhelmholtz (lam 1.5, the coefficients of vcoeff_path) at 512^3 over
+    8 slabs (levels 512 .. 32 sharded, Zl 64 .. 4), three FMGs, sharded
+    against single (bitwise: Dirichlet faces); four timed have-guess FMGs,
+    whose every coefficient slab double pair, apply and residual must run
+    its face-plane design (csrc/stream_faces.cuh, csrc/apply_faces.cuh
+    with SLAB = 1), those on the 512^2 x 64 and 256^2 x 32 slabs included
+    (by slab from one more, untimed FMG)."""
+    n, K, lam = 512, 8, 1.5
+    torch.cuda.empty_cache()
     sd, ss = dense_pair(pkg, n, K, operator="vhelmholtz")
     g = torch.Generator(device="cuda").manual_seed(5)
     rhs = torch.randn((n,) * 3, generator=g, dtype=torch.float32,
@@ -3495,14 +3651,45 @@ def phase_sharded_vcoeff(pkg, dk):
         fail(f"sharded vcoeff launched no kernel for {missing}")
     cmp = sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s,
                             "sharded vcoeff")
+    if not cmp["bitwise"]:
+        fail("sharded vcoeff: not bitwise the single-device solver")
+    del st_d, sd
+    torch.cuda.empty_cache()
     ms, per_fmg = timed_fmgs(ss, st_s, 4, lam)
+    slab_by = slab_launches_by_slab(dk, ss, st_s, lam)
+    faces = {}
+    for base in ("pair_sweep_dense", "stencil_apply_dense"):
+        entry = dk.slab_name(base, 1)
+        by = slab_by.get(entry, {})
+        if sum(by.values()) != per_fmg.get(entry, 0) or not all(
+                by.get(k) for k in ("512x512x64", "256x256x32")):
+            fail(f"sharded vcoeff: {entry} by slab {by} disagrees with the "
+                 f"{per_fmg.get(entry, 0)} per timed FMG or misses the "
+                 "512^2 x 64 and 256^2 x 32 slabs")
+        # every double pair, and every apply and residual on a slab the
+        # rule takes, on the face-plane design
+        want = sum(v for k, v in by.items() if base == "pair_sweep_dense"
+                   or slab_eps_apply_takes(tuple(map(int, k.split("x")))))
+        faces[entry + "[faces]"] = per_fmg.get(entry + "[faces]", 0)
+        if faces[entry + "[faces]"] != want:
+            fail(f"sharded vcoeff: {faces[entry + '[faces]']} {entry} per "
+                 f"timed FMG on the face-plane design, not the {want} its "
+                 f"rule takes (by slab {by})")
     emit({"sharded_vcoeff": {
-        "model": "ShardedDenseMGSolver(128^3, box 16, vhelmholtz, float32, "
+        "model": "ShardedDenseMGSolver(512^3, box 16, vhelmholtz, float32, "
                  "n_shards=8), lam 1.5, eps 1 + 0.5 cos(2 pi (x + 0.1 d))",
+        "levels": [list(ss.dims[l]) for l in ss.levels],
+        "slab_planes": {str(l): ss._zl(l) for l in ss.levels
+                        if ss.sharded[l]},
         "vs_single_device": cmp,
         "ms_per_fmg": ms,
+        "launches_per_fmg": per_fmg,
+        "face_plane_launches_per_fmg": faces,
+        "slab_launches_per_fmg_by_slab": slab_by,
         "launches": {k: v for k, v in launches.items() if v}}})
-    return launches, per_fmg
+    del st_s, ss
+    torch.cuda.empty_cache()
+    return launches, per_fmg, slab_by
 
 
 def sharded_cpu_agreement(pkg, n=32, k=8):
@@ -3546,80 +3733,106 @@ def slab_work_model(name, zl, xy, item, halo, n_eps=0):
     return nbytes + n_eps * wide, flops
 
 
-def slab_level_times(dk, slab_by, n=512, K=8):
-    """Rows 5z and 7z level by level: the residual on an interior slab
-    of each sharded level (512^2 x 64 .. 32^2 x 4, gates off, float32,
-    Dirichlet 0) and the prolongation from each coarse slab (256^2 x 32
-    .. 32^2 x 4), as shipped (``design``: the face-plane apply where
-    slab_faces_takes the slab, the pair prolongation on every one) and on
-    the old design (old_slab_library) on the same inputs, each launched
-    straight from its library (as experiments/probe_torch_kernels.py
-    does), median ms (CUDA events), bound, launches per have-guess FMG of
-    sharded_path (slab_by: slab_launches_by_slab); the two must agree
-    bitwise.  Returns {"residual": extra, "prolong": extra} for the two
-    ``kernels`` rows."""
-    old_fns = old_slab_library(dk)
+#: the slab kernels timed level by level (slab_level_times): (kind, entry
+#: point, n_eps, design as shipped, the old design's build flag)
+SLAB_LEVEL_ROWS = (
+    ("residual", "stencil_apply_dense", 0,
+     "octree_mg_tpu_torch/csrc/apply_faces.cuh (SLAB = 1)", "-DOMG_SLABAP=0"),
+    ("prolong", "prolong_correct_dense", 0,
+     "octree_mg_tpu_torch/csrc/prolong_correct.cu (prolong_pair_kernel)",
+     "-DOMG_SLABAP=0"),
+    ("pairs", "pair_sweep_dense", 1,
+     "octree_mg_tpu_torch/csrc/stream_faces.cuh (SLAB = 1)",
+     "-DOMG_SLABEPS=0"),
+    ("residual", "stencil_apply_dense", 1,
+     "octree_mg_tpu_torch/csrc/apply_faces.cuh (SLAB = 1)",
+     "-DOMG_SLABEPS=0"))
+
+
+def slab_level_times(dk, slab_by, eps_by, n=512, K=8):
+    """Rows 5z, 7z, 1ze and 5ze level by level: the residual (n_eps 0
+    and 1) on an interior slab of each sharded level (512^2 x 64 .. 32^2
+    x 4, gates off), the prolongation from each coarse slab (256^2 x 32
+    .. 32^2 x 4), the coefficient double pair (two pairs, n_eps 1) on the
+    slabs and on the 4-plane edge strips of the overlapped levels (512^2
+    .. 64^2); float32, Dirichlet 0 (lam 0; the coefficient rows lam 1.5,
+    coefficients 0.5 + U[0,1)): as shipped (``design``: the row's new
+    design where its rule takes the slab) and on the old design
+    (old_slab_library) on the same inputs, each launched straight from
+    its library (as experiments/probe_torch_kernels.py does), median ms
+    (CUDA events), bound, launches per have-guess FMG of sharded_path
+    (slab_by) or, for n_eps 1, sharded_vcoeff (eps_by; both from
+    slab_launches_by_slab); the two designs must agree bitwise.  Returns
+    {row name: extra} for the ``kernels`` rows."""
+    old = {flag: old_slab_library(dk, flag)
+           for flag in {r[4] for r in SLAB_LEVEL_ROWS}}
+    slabs = [(m, m, m // K) for m in (n, n // 2, n // 4, n // 8, n // 16)]
     out = {}
-    for kind, design, counter, sizes in (
-            ("residual", "octree_mg_tpu_torch/csrc/apply_faces.cuh "
-             "(SLAB = 1)", SLAB_FACES, (n, n // 2, n // 4, n // 8, n // 16)),
-            ("prolong", "octree_mg_tpu_torch/csrc/prolong_correct.cu "
-             "(prolong_pair_kernel)", SLAB_PAIR,
-             (n // 2, n // 4, n // 8, n // 16))):
+    for kind, base, n_eps, design, flag in SLAB_LEVEL_ROWS:
         pro = kind == "prolong"
-        entry = dk.slab_name("prolong_correct_dense" if pro
-                             else "stencil_apply_dense")
+        entry = dk.slab_name(base, n_eps)
         sym = "omg_prolong_slab" if pro else "omg_stencil_slab"
         new_fn = dk._fn("prolong_correct" if pro else "stencil_sweep", sym)
+        dims_list = slabs[1:] if pro else slabs
+        if kind == "pairs":
+            dims_list = dims_list + [(m, m, 4) for m, _, z in slabs if z >= 8]
+        lam = 1.5 if n_eps else 0.0
+        by = (eps_by if n_eps else slab_by).get(entry, {})
         rows = []
-        for m in sizes:
-            dims, gates = (m, m, m // K), (False, False)
-            cfg, field, planes = slab_case(dk, dims, (False,) * 3,
-                                           "dirichlet", torch.float32, 90 + m,
-                                           gates)
+        for dims in dims_list:
+            cfg, field, planes = slab_case(
+                dk, dims, (False,) * 3, "dirichlet", torch.float32,
+                90 + dims[0] + dims[2] + n_eps, (False, False), n_eps=n_eps)
             cfg.b_const = [0.0] * 6          # the sharded path's faces
             phi, rhs = field(), field()
+            eps = tuple(field(coef=True) for _ in range(n_eps))
             iold = field() if pro else None
             if pro:
-                f0 = torch.randn(dk.padded_shape((2 * m, 2 * m, m // 4)),
+                X, Y, Z = dims
+                f0 = torch.randn(dk.padded_shape((2 * X, 2 * Y, 2 * Z)),
                                  dtype=torch.float32, device="cuda")
                 outs = {"new": f0.clone(), "old": f0.clone()}
                 del f0
             else:
                 outs = {"new": torch.empty_like(phi),
                         "old": torch.empty_like(phi)}
-            runs = {t: slab_runner(dk, fn, kind, cfg, phi, rhs, 0.0, planes,
-                                   gates, iold, outs[t])
-                    for t, fn in (("new", new_fn), ("old", old_fns[sym]))}
+            runs = {t: slab_runner(dk, fn, kind, cfg, phi, rhs, lam, planes,
+                                   (False, False), iold, outs[t], eps)
+                    for t, fn in (("new", new_fn), ("old", old[flag][sym]))}
             got = {t: r() for t, r in runs.items()}
             torch.cuda.synchronize()
-            want = 3 if pro else 2 if slab_faces_takes(
-                dims, torch.float32) else 0
+            want = (3 if pro else 2 if kind == "pairs" else
+                    2 if (slab_eps_apply_takes(dims) if n_eps else
+                          slab_faces_takes(dims, torch.float32)) else 0)
             if got != {"new": want, "old": 0}:
-                fail(f"{entry} on {dims}: designs {got}, not new {want}")
+                fail(f"{entry} on {dims}: designs {got}, not new {want}, "
+                     "old 0")
             if not torch.equal(outs["new"][dk._ISL], outs["old"][dk._ISL]):
                 fail(f"{entry} on {dims}: the new design and the old one "
                      "differ")
             ms = {t: time_ms(r, 12) for t, r in runs.items()}
-            nbytes, _ = slab_work_model(entry, m // K, m * m, 4, 1)
+            nbytes, flops = slab_work_model(entry, dims[2], dims[0] * dims[1],
+                                            4, 4 if kind == "pairs" else 1,
+                                            n_eps)
             rows.append({"slab": list(dims), "ms": ms["new"],
                          "design": "new" if want else "old",
                          "old_design_ms": ms["old"],
-                         "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                         "launches_per_fmg": slab_by.get(entry, {}).get(
+                         "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                               flops / F32_FLOP_PER_S),
+                         "launches_per_fmg": by.get(
                              "x".join(map(str, dims)), 0)})
-            del phi, rhs, iold, outs, runs
+            del phi, rhs, eps, iold, outs, runs
             torch.cuda.empty_cache()
         # the row's "ms" goes through the wrapper, whose host work before
         # the launch the events see on a kernel this short (0.175 against
         # 0.102 ms launched straight from the library for the 512^2 x 64
         # residual on an H100); ms_direct and old_design_ms launch
         # straight from the libraries
-        out[kind] = {"design": design, "counter": counter,
-                     "old_design": "-DOMG_SLABAP=0",
-                     "ms_direct": rows[0]["ms"],
-                     "old_design_ms": rows[0]["old_design_ms"],
-                     "levels": rows}
+        out[entry] = {"design": design,
+                      "counter": entry + ("[pair]" if pro else "[faces]"),
+                      "old_design": flag, "ms_direct": rows[0]["ms"],
+                      "old_design_ms": rows[0]["old_design_ms"],
+                      "levels": rows}
     return out
 
 
@@ -3630,7 +3843,7 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
     its plain version (0 required), kernel and plain ms, bound.  path:
     (launches in the sharded solve, per have-guess FMG); refined:
     launches of the sharded refined solve; vcoeff: (launches of the
-    vhelmholtz slab path, per FMG)."""
+    vhelmholtz slab path, per FMG, by slab)."""
     n, K, dtype = 512, 8, torch.float32
     zl, gates, isl = n // K, (False, False), dk._ISL
     rows = []
@@ -3643,7 +3856,7 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
         return cfg, field, planes
 
     launches, per_fmg, slab_by = path
-    levels = slab_level_times(dk, slab_by)
+    levels = slab_level_times(dk, slab_by, vcoeff[2])
     for n_eps in (0, 1):
         cfg, field, planes = case((n, n, zl), n_eps, seed=70 + n_eps)
         phi, rhs = field(), field()
@@ -3669,9 +3882,7 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
                      "launches_on_the_wide_design": launches[SLAB_WIDE],
                      "launches_per_fmg_on_the_wide_design":
                          per_fmg.get(SLAB_WIDE, 0.0)}
-                    if name == SLAB_WIDE.rsplit("[", 1)[0] else
-                    levels["residual"] if name == dk.slab_name(
-                        "stencil_apply_dense") else None)
+                    if name == SLAB_WIDE.rsplit("[", 1)[0] else levels[name])
             rows.append(timed_row(name, kern, plain, src[0][name],
                                   src[1].get(name, 0.0), (n, n, zl),
                                   nbytes, flops, extra=wide))
@@ -3691,7 +3902,7 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
         lambda: (dk._prolong_correct_plain(cfg_c, phi_c, iold_c, phi_f,
                                            planes_c, "add", gates)[isl],),
         launches[name], per_fmg.get(name, 0.0), (n, n, zl), nbytes, flops,
-        extra=levels["prolong"], inplace=phi_f))
+        extra=levels[name], inplace=phi_f))
     del phi_c, iold_c, phi_f
     # the double-float residual of the refined outer
     cfg, field, _ = case((n, n, zl), equal_pow2=True, seed=73)

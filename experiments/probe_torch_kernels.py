@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [slab_apply] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [slab_apply] [slab_eps] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
 (and ``seg_sweep.cu``, ``prolong_correct.cu``) with other build-time
 constants (``-DOMG_WIDE``, ``-DOMG_FACES``, ``-DOMG_SEGWIDE``,
-``-DOMG_SLABAP``,
+``-DOMG_SLABAP``, ``-DOMG_SLABEPS``,
 ``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``)
 into ``build/probe`` and prints, one JSON object per line:
 
@@ -97,6 +97,21 @@ into ``build/probe`` and prints, one JSON object per line:
   (``slab_apply_bitwise``: the apply and the residual on 512^2 x 64, the
   prolongation from 256^2 x 32 and, in float64, from 32^2 x 4), and the
   registers and spills ptxas reports (``slab_apply_ptxas``);
+* ``slab_eps`` — rows 1ze and 5ze of the z-slab solver: the float32
+  coefficient slab double pair (two pairs, and one pair on the 512^2 x
+  64 slab), residual and apply, n_eps 1 and 3 (coefficients 0.5 +
+  U[0,1), lam 1.5, Dirichlet faces), as shipped (the face-plane designs:
+  csrc/stream_faces.cuh and csrc/apply_faces.cuh with SLAB = 1) against
+  the design before them (``-DOMG_SLABEPS=0``: stream_kernel.cuh) on an
+  interior slab (gates off) of each sharded level over 8 slabs, 512^2 x
+  64 to 32^2 x 4, and the double pair also on the 4-plane edge strips of
+  the overlapped levels (512^2 .. 64^2), in turns (old, new, new, old),
+  median of 10 per turn, CUDA events, with the design each launch ran
+  and the byte bound at 3.35 TB/s (pad planes included); row 8z, the
+  slab double-float residual, on the 512^2 x 64 slab from its library
+  beside it; then new against old bitwise on the 512^2 x 64 slab, every
+  gate pair, each kind and n_eps (``slab_eps_bitwise``), and the
+  registers and spills ptxas reports (``slab_eps_ptxas``);
 * ``sass``   — static SASS instructions of the double pair's and the
   down-leg's main loop (the longest backward branch), old and new, and
   per cell a thread updates in one step of that loop (old: one per
@@ -859,15 +874,18 @@ def rr_call(fns, cfg, f):
     return run
 
 
-def slab_fields(n, zl, dtype, seed=3):
+def slab_fields(n, zl, dtype, seed=3, n_eps=0):
     """One z-slab of n^2 x zl cells (Dirichlet 0 faces), phi and rhs
-    random in the core and in the pads (the neighbour slabs' planes)."""
+    random in the core and in the pads (the neighbour slabs' planes), and
+    n_eps coefficient fields 0.5 + U[0,1), pads included."""
     cfg = dk.DenseStencilConfig((n, n, zl), (float(n * n),) * 3,
                                 [(2.0, -1.0, 0.0)] * 6, (False,) * 3,
-                                dtype, b_const=[0.0] * 6)
+                                dtype, b_const=[0.0] * 6, n_eps=n_eps)
     g = torch.Generator(device="cuda").manual_seed(seed)
     f = {k: torch.randn(cfg.pshape, generator=g, dtype=dtype, device="cuda")
          for k in ("phi", "rhs")}
+    f["eps"] = tuple(0.5 + torch.rand(cfg.pshape, generator=g, dtype=dtype,
+                                      device="cuda") for _ in range(n_eps))
     f["out"] = torch.empty_like(f["phi"])
     return cfg, f
 
@@ -1083,12 +1101,15 @@ def probe_seg():
 SLAB_APPLY_VARIANTS = {"old": ["-DOMG_SLABAP=0"], "new": []}
 
 
-def slab_apply_call(fns, kind, cfg, f, gates=(False, False)):
-    """One slab launch (apply, residual or the prolongation with the slab
-    as the coarse one) of one build on the fields f; returns the design
-    the library ran."""
+def slab_apply_call(fns, kind, cfg, f, gates=(False, False), n_pairs=2,
+                    lam=0.0):
+    """One slab launch (the double pair of ``pairs``, apply, residual, with
+    the coefficient fields f["eps"], or the prolongation with the slab as
+    the coarse one) of one build on the fields f; returns the design the
+    library ran."""
     st = torch.cuda.current_stream().cuda_stream
-    P = dk._params(cfg, 0.0, [None] * 6)
+    P = dk._params(cfg, lam, [None] * 6, 0,
+                   2 * n_pairs if kind == "pairs" else 0)
     Zs = dk._slab_params(gates)
     d = ctypes.c_int(-1)
     if kind == "prolong":
@@ -1097,9 +1118,11 @@ def slab_apply_call(fns, kind, cfg, f, gates=(False, False)):
                 st, ctypes.byref(d))
         fn = fns["omg_prolong_slab"]
     else:
-        args = (dk._dt(cfg), 2 if kind == "residual" else 1, ctypes.byref(P),
-                None, ctypes.byref(Zs), f["phi"].data_ptr(),
-                f["rhs"].data_ptr(), f["out"].data_ptr(), st, ctypes.byref(d))
+        E = dk._eps_params(cfg, f["eps"]) if cfg.n_eps else None
+        args = (dk._dt(cfg), ("pairs", "apply", "residual").index(kind),
+                ctypes.byref(P), None if E is None else ctypes.byref(E),
+                ctypes.byref(Zs), f["phi"].data_ptr(), f["rhs"].data_ptr(),
+                f["out"].data_ptr(), st, ctypes.byref(d))
         fn = fns["omg_stencil_slab"]
 
     def run():
@@ -1186,6 +1209,111 @@ def probe_slab_apply(levels=(512, 256, 128, 64, 32), K=8):
         flush=True)
 
 
+#: rows 1ze and 5ze as shipped against the design before them
+#: (OMG_SLABEPS=0: the coefficient slab launches on stream_kernel.cuh)
+SLAB_EPS_VARIANTS = {"old": ["-DOMG_SLABEPS=0"], "new": []}
+
+
+def probe_slab_eps(levels=(512, 256, 128, 64, 32), K=8):
+    from octree_mg_tpu_torch.ops import df32 as df
+    fns, logs = build_many(
+        {k: v + ["-Xptxas", "-v"] for k, v in SLAB_EPS_VARIANTS.items()},
+        {"stencil_sweep": "omg_stencil_slab"})
+    # whole slabs of every sharded level, the double pair also on the
+    # 4-plane edge strips of the overlapped levels (Zl >= 8) and with one
+    # pair on the largest slab
+    shapes = [("pairs", n, n // K, 2) for n in levels]
+    shapes += [("pairs", n, 4, 2) for n in levels if n // K >= 8]
+    shapes += [("pairs", levels[0], levels[0] // K, 1)]
+    shapes += [(kind, n, n // K, 0) for kind in ("residual", "apply")
+               for n in levels]
+    for (kind, n, zl, k), n_eps in ((sh, e) for sh in shapes for e in (1, 3)):
+        cfg, f = slab_fields(n, zl, torch.float32, 7, n_eps)
+        calls = {t: slab_apply_call(fn, kind, cfg, f, n_pairs=k, lam=1.5)
+                 for t, fn in fns.items()}
+        design = {t: c() for t, c in calls.items()}
+        h = 2 * k if kind == "pairs" else 1
+        # phi (and rhs) with the pad planes read, the coefficients with
+        # theirs, the output's core
+        reads = (2 if kind != "apply" else 1) + n_eps
+        nbytes = (reads * (zl + 2 * h) + zl) * n * n * 4
+        print(json.dumps({"slab_eps": {
+            "kernel": kind, "n_pairs": k or None, "n_eps": n_eps,
+            "slab": [n, n, zl], "ms": in_turns(calls), "design": design,
+            "bound_ms": 1e3 * nbytes / 3.35e12}}), flush=True)
+        del f, calls
+        torch.cuda.empty_cache()
+    # row 8z beside them: the slab double-float residual on the 512^2 x 64
+    # slab from its library (the shipped build), equal power-of-two
+    # spacing, Dirichlet 0
+    n, zl = levels[0], levels[0] // K
+    cfg = dk.DenseStencilConfig((n, n, zl), (float(n * n),) * 3,
+                                [(2.0, -1.0, 0.0)] * 6, (False,) * 3,
+                                torch.float32, b_const=[0.0] * 6)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    xhi, rhi = (torch.randn(cfg.pshape, generator=g, device="cuda")
+                for _ in range(2))
+    xlo, rlo = xhi * 2.0 ** -25, rhi * 2.0 ** -25
+    out = torch.empty_like(xhi)
+    P = dk._params(cfg, 0.0, [None] * 6)
+    Q = df._Df32Params()
+    for nb, (hi, lo) in enumerate(df._cb_pairs(cfg)):
+        Q.cb_hi[nb], Q.cb_lo[nb] = hi, lo
+    Zs = dk._slab_params((False, False))
+    fn = dk._fn("residual_df32", "omg_residual_df32_slab")
+    st = torch.cuda.current_stream().cuda_stream
+
+    def r8z():
+        e = fn(ctypes.byref(P), ctypes.byref(Q), ctypes.byref(Zs),
+               xhi.data_ptr(), xlo.data_ptr(), rhi.data_ptr(),
+               rlo.data_ptr(), out.data_ptr(), st)
+        assert e == 0, e
+
+    r8z()
+    torch.cuda.synchronize()
+    want = df.residual_df32_dense(cfg, xhi, xlo, rhi, rlo,
+                                  z_gates=(False, False))
+    print(json.dumps({"slab_eps_8z": {
+        "kernel": "residual_df32_dense[z_gates]", "slab": [n, n, zl],
+        "ms": [time_ms(r8z, reps=10) for _ in range(2)],
+        "bitwise_the_wrapper": torch.equal(out[dk._ISL], want[dk._ISL]),
+        "bound_ms": 1e3 * (2 * (zl + 2) + 3 * zl) * n * n * 4 / 3.35e12}}),
+        flush=True)
+    del xhi, xlo, rhi, rlo, out, want
+    torch.cuda.empty_cache()
+    # new against old, bitwise, every gate pair, on the 512^2 x 64 slab
+    checks = []
+    for n_eps in (1, 3):
+        cfg, f = slab_fields(levels[0], levels[0] // K, torch.float32, 7,
+                             n_eps)
+        for (kind, k), gates in (
+                (kk, gg) for kk in (("pairs", 2), ("pairs", 1),
+                                    ("residual", 0), ("apply", 0))
+                for gg in ((False, False), (True, False), (False, True),
+                           (True, True))):
+            got = {}
+            for t, fn in fns.items():
+                f["out"].fill_(float("nan"))
+                slab_apply_call(fn, kind, cfg, f, gates, k, 1.5)()
+                got[t] = f["out"][dk._ISL].clone()
+            torch.cuda.synchronize()
+            checks.append({"kernel": kind, "n_pairs": k or None,
+                           "n_eps": n_eps, "gates": gates,
+                           "bitwise": torch.equal(got["old"], got["new"])})
+            del got
+        del f
+        torch.cuda.empty_cache()
+    print(json.dumps({"slab_eps_bitwise": checks}), flush=True)
+    i = r"(?:\(int\))?"
+    pick = re.compile(rf"void (face_kernel<\w+, {i}[24], {i}0, {i}[13], "
+                      rf"{i}1>|apply_faces_kernel<\w+, {i}[12], {i}[13], "
+                      rf"{i}0, {i}1>|stream_kernel<\w+, {i}\d, {i}[012], "
+                      rf"{i}[13], {i}0, {i}1>)")
+    print(json.dumps({"slab_eps_ptxas": {
+        t: ptxas_resources(g, pick.match) for t, g in logs.items()}}),
+        flush=True)
+
+
 def vcoeff_solver(op, n=512):
     """The vcoeff_path solver of chip_smoke.py (512^3 float32, lam 1.5,
     Dirichlet 0, smooth coefficients, seeded rhs) after three FMGs."""
@@ -1250,6 +1378,7 @@ if __name__ == "__main__":
                         ("rr_slab", probe_rr_slab),
                         ("seg", probe_seg),
                         ("slab_apply", probe_slab_apply),
+                        ("slab_eps", probe_slab_eps),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

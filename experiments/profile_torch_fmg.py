@@ -51,10 +51,10 @@ per line:
   ``chip_smoke.py``'s ``sharded_path`` solver (512^3 float32 over 8 slabs
   on one card), for its refined solve (``ShardedRefinedPoisson``, the
   ``sharded_refined`` phase's float64 rhs, per outer) and for its
-  ``sharded_vcoeff`` one (vhelmholtz at 128^3 over 8 slabs): the device
+  ``sharded_vcoeff`` one (vhelmholtz at 512^3 over 8 slabs): the device
   time per FMG (per outer) of every kernel by name, and summed by the
-  port's kernel rows (``by_row``: ``PERF.md`` section 6's 1z, 5z, 7z,
-  8z ... and the copies and other PyTorch kernels), shows the slab
+  port's kernel rows (``by_row``: ``PERF.md`` section 6's 1z, 1ze, 5z,
+  5ze, 7z, 8z ... and the copies and other PyTorch kernels), shows the slab
   kernels' share, which the stage clocks of a launch-bound FMG do not.
 
 Needs a CUDA device and nvcc.
@@ -315,7 +315,7 @@ def phase_profile_sharded(n=4):
     """The ``profile`` pass for the slab solver: chip_smoke.py's
     ``sharded_path`` problem (the main path's 512^3 level and rhs over 8
     slabs on the card) and its ``sharded_vcoeff`` one (vhelmholtz at
-    128^3 over 8 slabs, lam 1.5, smooth coefficients), each after three
+    512^3 over 8 slabs, lam 1.5, smooth coefficients), each after three
     FMGs."""
     import chip_smoke
 
@@ -356,13 +356,14 @@ def phase_profile_sharded(n=4):
         profiled(outers, n_outer, "outer", top=None), "outer")})
     del ss, st, rp, rh, rl
     torch.cuda.empty_cache()
-    sd, ss = chip_smoke.dense_pair(pkg, 128, 8, operator="vhelmholtz")
+    sd, ss = chip_smoke.dense_pair(pkg, N, 8, operator="vhelmholtz")
     g = torch.Generator(device="cuda").manual_seed(5)
-    rhs = torch.randn((128,) * 3, generator=g, device="cuda")
+    rhs = torch.randn((N,) * 3, generator=g, device="cuda")
     st = chip_smoke.seeded_state(
         ss, rhs, (chip_smoke.smooth_eps(sd, 0, torch.float32),))
+    del sd, rhs
     emit({"profile_sharded_vcoeff": profile(ss, st, 1.5)})
-    del sd, ss, st
+    del ss, st
 
 
 #: kernel names (demangled, as the profiler gives them) by the row of
@@ -370,8 +371,10 @@ def phase_profile_sharded(n=4):
 ROW_PATTERNS = [
     ("1z wide", r"wide_kernel<float, [24], 0, 1"),
     ("1z", r"stream_kernel<\w+, [24], 0, 0, 0, 1>"),
+    ("1ze face-plane", r"face_kernel<float, [24], 0, [13], 1>"),
     ("1ze", r"stream_kernel<\w+, [24], 0, [13], 0, 1>"),
     ("5z face-plane", r"apply_faces_kernel<\w+, [12], 0, 0, 1>"),
+    ("5ze face-plane", r"apply_faces_kernel<\w+, [12], [13], 0, 1>"),
     ("5z", r"stream_kernel<\w+, 0, [12], 0, 0, 1>"),
     ("5ze", r"stream_kernel<\w+, 0, [12], [13], 0, 1>"),
     ("7z pair", r"prolong_pair_kernel<"),

@@ -3,10 +3,12 @@
 // residual-restriction without a fine output (residual_restrict_dense,
 // K2, downsweep.cu) with and without coefficients (NE 0, 1 or 3); float32
 // and float64; the float32 segment apply and residual of a dense-forest
-// canvas (SEG = 1, NE = 0, seg_sweep.cu); and the constant-coefficient
+// canvas (SEG = 1, NE = 0, seg_sweep.cu); the constant-coefficient
 // apply and residual of a large float32 z-slab (SLAB = 1, NE = 0,
-// stencil_sweep.cu, where af_slab_takes).  Every other apply and residual of the three
-// sources (constant coefficients unsharded, the coefficient slabs, the
+// stencil_sweep.cu, where af_slab_takes); and the coefficient apply and
+// residual of a float32 z-slab (SLAB = 1, NE 1 or 3, where
+// af_eps_slab_takes).  Every other apply and residual of the three
+// sources (constant coefficients unsharded, small or float64 slabs, the
 // float64 segments) runs stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the eps bodies of the Pallas entry
@@ -70,13 +72,17 @@
 // looked up once per thread (x, y) or plane (z), the layers' plane
 // pointers staged in shared memory.
 //
-// SLAB = 1 (NE = 0's apply and residual on one slab of the z-slab
-// solver, SlabParams of stencil_common.cuh): a z plane beyond a face the
-// slab does not own is its pad plane (-1 or Z of the padded layout, the
-// halo exchange's copy of the neighbour slab's plane), copied into the
-// ring by the same cp.async as every other plane; a face the gates give
-// the slab synthesizes its ghost (slab_syn, slab_z_pair), and its plane
-// beyond is copied in as zeros.  x and y as without slabs.
+// SLAB = 1 (the apply and residual on one slab of the z-slab solver,
+// SlabParams of stencil_common.cuh; NE 0, 1 or 3): a z plane beyond a face
+// the slab does not own is its pad plane (-1 or Z of the padded layout,
+// the halo exchange's copy of the neighbour slab's plane), copied into
+// the ring by the same cp.async as every other plane, its coefficient
+// planes too, so the z face of a core cell next to it pairs the cell with
+// the pad plane's coefficient; a face the gates give the slab synthesizes
+// its ghost (slab_syn, slab_z_pair), its phi plane beyond is copied in as
+// zeros and its coefficient planes beyond are the clamped source, the
+// cell itself (slab_eps_src, stream_faces.cuh).  x and y as without
+// slabs.
 //
 // NE = 0 (apply_from, no faces: no face arrays and no coefficient rings)
 // runs the constant-coefficient residual-restriction, row 4 of PERF.md,
@@ -218,8 +224,8 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
                    T* __restrict__ iresc_out, SegParams S, SlabParams Zs) {
   static_assert(SEG == 0 || (NE == 0 && MODE != M_DOWN),
                 "segment variant: constant coefficients, apply or residual");
-  static_assert(SLAB == 0 || (NE == 0 && SEG == 0 && MODE != M_DOWN),
-                "slab variant: constant coefficients, apply or residual");
+  static_assert(SLAB == 0 || (SEG == 0 && MODE != M_DOWN),
+                "slab variant: apply or residual");
   using G = AfGeo<T, MODE, NE>;
   constexpr int C = G::C, TX = G::TX, TY = G::TY, HT = G::HT;
   constexpr int SX = G::SX, PL = G::PL, FS = G::FS, FP = G::FP;
@@ -316,7 +322,8 @@ apply_faces_kernel(LevelParams P, EpsParams E, int cz, int vec,
     }
     if constexpr (NE > 0) {
       const long long eo =
-          (long long)(face_src(q, Z, P.per[2]) + PZ) * gplane;
+          (long long)((SLAB != 0 ? slab_eps_src(q, Z, zsyn_lo, zsyn_hi)
+                                 : face_src(q, Z, P.per[2])) + PZ) * gplane;
 #pragma unroll
       for (int f = 0; f < NE; ++f) {
         const T* ez = (const T*)E.f[f] + eo;
@@ -561,6 +568,18 @@ constexpr bool af_takes() {
 // solve with large slabs uses it; not instantiated).
 inline bool af_slab_takes(const LevelParams& P) {
   return P.Z >= 2 && (long long)P.X * P.Y * P.Z >= (1LL << 20);
+}
+
+// Whether the face-plane apply (SLAB = 1) takes a float32 coefficient
+// slab apply or residual (n_eps 1 or 3): slabs of 2^15 cells or more, the
+// slabs of the sharded 512^3 .. 64^3 levels over 8, where it was faster
+// than stream_kernel.cuh in both turns of
+// experiments/probe_torch_kernels.py slab_eps (PERF.md); on the 32^2 x 4
+// slab of the 32^3 level it was slower in both (latency-bound, by 1-3
+// us), and such slabs keep stream_kernel.cuh, as does float64 (no slab
+// solve with coefficients uses it; not instantiated).
+inline bool af_eps_slab_takes(const LevelParams& P) {
+  return (long long)P.X * P.Y * P.Z >= (1LL << 15);
 }
 
 // A(phi) (MODE M_APPLY), rhs - A(phi) (M_RESIDUAL) or the residual-

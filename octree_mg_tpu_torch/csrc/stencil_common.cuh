@@ -98,6 +98,15 @@ struct SlabParams {
 #define OMG_SLABAP 1
 #endif
 
+// OMG_SLABEPS (coefficient slabs) 0 builds the float32 coefficient slab
+// double pair, apply and residual (n_eps 1 and 3) on stream_kernel.cuh,
+// the design before the face-plane ones (stream_faces.cuh and
+// apply_faces.cuh with SLAB = 1), for experiments/probe_torch_kernels.py
+// slab_eps and chip_smoke.py to hold the two against each other.
+#ifndef OMG_SLABEPS
+#define OMG_SLABEPS 1
+#endif
+
 // Whether the low / high z face of a slab synthesizes its BC ghost
 // (else its neighbours beyond the face are pad planes).
 __device__ __forceinline__ bool slab_syn(const LevelParams& P,

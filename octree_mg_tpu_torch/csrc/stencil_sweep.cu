@@ -51,11 +51,11 @@
 //   per plane.  Building a cell's six faces from seven or nine
 //   scattered reads and six divisions, as the kernel below does, was
 //   what the apply lost its time to, not a deep ring;
-// * the double pair in float64 and the slab variants: stream_kernel.cuh's
-//   ring and wavefront, which build the six harmonic means of a cell at
-//   every update from the coefficients of the cell and its six
-//   neighbours, read from device memory (L1/L2 serve the reuse), so
-//   shared memory stays what the NE = 0 kernel needs.  In float64 the
+// * the double pair in float64 and the float64 slab variants:
+//   stream_kernel.cuh's ring and wavefront, which build the six harmonic
+//   means of a cell at every update from the coefficients of the cell and
+//   its six neighbours, read from device memory (L1/L2 serve the reuse),
+//   so shared memory stays what the NE = 0 kernel needs.  In float64 the
 //   face rings of the double pair would not fit a block's 227 KB.
 //
 // The z-slab variants (omg_stencil_slab, SLAB = 1) replace the same
@@ -73,16 +73,24 @@
 // against 0.084 on a 256^2 x 32 one (two pairs, float32, H100, PERF.md,
 // experiments/probe_torch_kernels.py rr_slab); float32 only, the dtype of
 // every slab solve that has such slabs.  The edge strips of an overlapped
-// pair group (2*n_pairs planes), smaller slabs, float64 and the
-// coefficient variants keep stream_kernel.cuh.  The constant-coefficient
-// apply and residual on a float32 slab of at least 2^20 cells (the
-// sharded 512^3 and 256^3 levels over 8) run the face-plane apply
-// (apply_faces.cuh with SLAB = 1, af_slab_takes): no wavefront for halo
-// 1, the pad planes copied into its ring like every other plane; smaller
-// slabs (latency-bound), float64 and the coefficient variants keep
-// stream_kernel.cuh, whose slab apply and residual -DOMG_SLABAP=0
-// sends every slab to (the probe's old design).  half_sweep_dense with
-// z_gates has no caller in the JAX package and is not instantiated.
+// pair group (2*n_pairs planes), smaller slabs and float64 keep
+// stream_kernel.cuh.  The constant-coefficient apply and residual on a
+// float32 slab of at least 2^20 cells (the sharded 512^3 and 256^3 levels
+// over 8) run the face-plane apply (apply_faces.cuh with SLAB = 1,
+// af_slab_takes): no wavefront for halo 1, the pad planes copied into its
+// ring like every other plane; smaller slabs (latency-bound) and float64
+// keep stream_kernel.cuh, whose slab apply and residual -DOMG_SLABAP=0
+// sends every slab to (the probe's old design).  The float32 coefficient
+// slab variants (n_eps 1 and 3) run the face-plane designs, each face
+// built once per plane, the pad planes' coefficients with the rest: the
+// double pair stream_faces.cuh with SLAB = 1 on every slab and edge strip
+// (0.61 against 0.86 ms on a 512^2 x 64 slab, two pairs, n_eps 1), the
+// apply and the residual apply_faces.cuh with SLAB = 1 on slabs of 2^15
+// cells and more (af_eps_slab_takes; 0.20 against 0.34 ms for the
+// residual on 512^2 x 64; H100, PERF.md,
+// experiments/probe_torch_kernels.py slab_eps); -DOMG_SLABEPS=0 sends them
+// all to stream_kernel.cuh (the probe's old design).  half_sweep_dense
+// with z_gates has no caller in the JAX package and is not instantiated.
 #include "apply_faces.cuh"
 
 // n_sweeps half-sweeps of one or two pairs: constant coefficients on the
@@ -180,9 +188,11 @@ extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
 
 // The slab double pair of NS half-sweeps: constant coefficients on the
 // wide design (stream_wide.cuh with SLAB = 1, *design = 1) where it takes
-// the slab, the rest (coefficients, float64, the edge strips of an
-// overlapped pair group, small slabs) on stream_kernel.cuh.  float64 stays
-// there: no slab solve runs a float64 slab large enough for the rule.
+// the slab, float32 coefficients on the face-plane design
+// (stream_faces.cuh with SLAB = 1, *design = 2), the rest (float64, the
+// constant-coefficient edge strips of an overlapped pair group and small
+// slabs) on stream_kernel.cuh.  float64 stays there: no slab solve runs a
+// float64 slab large enough for the wide rule, nor any with coefficients.
 template <typename T, int NS, int NE>
 static int launch_slab_pairs(const LevelParams& P, const EpsParams& E,
                              const SlabParams& Zs, const void* phi,
@@ -195,13 +205,20 @@ static int launch_slab_pairs(const LevelParams& P, const EpsParams& E,
       return launch_wide<T, NS, M_PAIRS, 1>(P, phi, rhs, out, nullptr, nullptr, s, &Zs);
     }
 #endif
-  return launch_stream<T, NS, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+#if OMG_SLABEPS
+  if constexpr (NE != 0 && sizeof(T) == 4) {
+    *design = 2;
+    return launch_faces<T, NS, M_PAIRS, NE, 1>(P, E, phi, rhs, out, nullptr, nullptr, s, &Zs);
+  } else
+#endif
+    return launch_stream<T, NS, M_PAIRS, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
 }
 
-// The slab A(phi) or rhs - A(phi): constant coefficients on a float32
-// slab on the face-plane apply (apply_faces.cuh with SLAB = 1, *design =
-// 2) where af_slab_takes the slab, the rest (coefficients, float64, small
-// slabs) on stream_kernel.cuh.
+// The slab A(phi) or rhs - A(phi) on the face-plane apply
+// (apply_faces.cuh with SLAB = 1, *design = 2): constant coefficients on
+// a float32 slab where af_slab_takes the slab, float32 coefficients where
+// af_eps_slab_takes it; the rest (float64, small slabs) on
+// stream_kernel.cuh.
 template <typename T, int MODE, int NE>
 static int launch_slab_apply(const LevelParams& P, const EpsParams& E,
                              const SlabParams& Zs, const void* phi,
@@ -212,6 +229,13 @@ static int launch_slab_apply(const LevelParams& P, const EpsParams& E,
     if (af_slab_takes(P)) {
       *design = 2;
       return launch_apply_faces<T, MODE, 0, 0, 1>(P, E, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
+    }
+#endif
+#if OMG_SLABEPS
+  if constexpr (NE != 0 && sizeof(T) == 4)
+    if (af_eps_slab_takes(P)) {
+      *design = 2;
+      return launch_apply_faces<T, MODE, NE, 0, 1>(P, E, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
     }
 #endif
   return launch_stream<T, 0, MODE, NE, 0, 1>(P, E, 0, phi, rhs, out, nullptr, nullptr, s, nullptr, &Zs);
@@ -238,7 +262,8 @@ static int dispatch_slab(int mode, const LevelParams& P, const EpsParams& E,
 // hold the neighbour slabs' planes; Zs: the slab's (lo, hi) z-face gates.
 // mode 0 takes n_sweeps 2 or 4 (one or two pairs).  design, unless null,
 // receives 1 where the launch ran the wide design (stream_wide.cuh), 2
-// where it ran the face-plane apply (apply_faces.cuh), else 0.
+// where it ran a face-plane design (stream_faces.cuh for pairs,
+// apply_faces.cuh for modes 1 and 2), else 0.
 extern "C" int omg_stencil_slab(int dtype, int mode, const LevelParams* P,
                                 const EpsParams* E, const SlabParams* Zs,
                                 const void* phi, const void* rhs, void* out,

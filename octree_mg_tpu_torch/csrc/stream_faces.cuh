@@ -1,11 +1,13 @@
 // The face-plane z-streaming kernel: the variable-coefficient double pair
 // (pair_sweep_dense with n_eps 1 or 3, n_pairs 1 or 2) of K1
 // (stencil_sweep.cu) and the fused down-leg (downsweep_dense with n_eps 1
-// or 3 and its fine output) of K2 (downsweep.cu), float32, no segments,
-// no slabs.  The coefficient apply, residual and residual_restrict_dense
-// run apply_faces.cuh, which builds its faces the same way without a
-// wavefront; every other coefficient launch of the two sources (the
-// float64 double pair and down-leg, the slabs) runs stream_kernel.cuh.
+// or 3 and its fine output) of K2 (downsweep.cu), float32, no segments;
+// and the double pair on one slab of the z-slab solver (SLAB = 1,
+// omg_stencil_slab of stencil_sweep.cu).  The coefficient apply, residual
+// and residual_restrict_dense run apply_faces.cuh, which builds its faces
+// the same way without a wavefront; every other coefficient launch of the
+// two sources (the float64 double pair and down-leg, float64 slabs) runs
+// stream_kernel.cuh.
 //
 // Replaces, with stream_kernel.cuh, the eps bodies of the Pallas entry
 // points pair_sweep_dense and downsweep_dense of the JAX package's
@@ -54,6 +56,21 @@
 // buys a 64x16 tile, not the L1 hits the reads need), and the updates'
 // shared-memory stores held back to the end of the step (more
 // registers, no gain).
+//
+// SLAB = 1 (the double pair, SlabParams of stencil_common.cuh) is
+// stream_kernel.cuh's z-slab variant on this march: a plane beyond a z
+// face that does not synthesize its ghost is loaded from the z pads, phi,
+// rhs and the coefficients alike, H = 2*n_pairs deep, and swept
+// redundantly like the halo planes between two chunks; only core planes
+// are written.  A halo plane's cells keep their local z (negative below
+// the slab), from which parity and BC-plane rows follow.  Its z faces are
+// built like every other from the coefficient planes as they come in, so
+// the low z face of plane 0 pairs the cell with the pad plane's
+// coefficient, and a halo plane's faces pair pad planes; only where the
+// gates give the slab a face (slab_syn) is the plane beyond it its
+// clamped source, the cell itself (slab_eps_src: face_coeffs' SLAB rule).
+// x and y, the rings and the tile are those of SLAB = 0, whose code paths
+// are selected by constants and unchanged.
 //
 // Arithmetic per cell is that of the plain PyTorch versions, operation by
 // operation (eps_update / eps_apply of stencil_common.cuh).
@@ -111,12 +128,24 @@ __device__ __forceinline__ int face_src(int g, int n, int per) {
   return g < 0 ? 0 : g < n ? g : n - 1;
 }
 
-template <typename T, int NS, int MODE, int NE>
+// The coefficient plane of local plane q of a slab of Z planes: q itself
+// (a pad plane beyond a face the slab does not own holds the neighbour
+// slab's), clamped into the slab only beyond a face that synthesizes
+// (syn_lo / syn_hi, slab_syn), whose coefficient ghost is the cell's own
+// value.
+__device__ __forceinline__ int slab_eps_src(int q, int Z, bool syn_lo,
+                                            bool syn_hi) {
+  return q < 0 && syn_lo ? 0 : q >= Z && syn_hi ? Z - 1 : q;
+}
+
+template <typename T, int NS, int MODE, int NE, int SLAB = 0>
 __global__ void __launch_bounds__(FaceGeo<NS, MODE>::NT)
 face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
             const T* __restrict__ rhs, T* __restrict__ out,
-            T* __restrict__ phic_out, T* __restrict__ iresc_out) {
+            T* __restrict__ phic_out, T* __restrict__ iresc_out,
+            SlabParams Zs) {
   static_assert(NE == 1 || NE == 3, "coefficient fields: 1 or 3");
+  static_assert(SLAB == 0 || MODE == M_PAIRS, "slab variant: the double pair");
   using G = FaceGeo<NS, MODE>;
   constexpr int H = G::H, WX = G::WX, PL = G::PL, NB = G::NB;
   constexpr int KR = G::KR, KZ = G::KZ;
@@ -171,6 +200,9 @@ face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
   const T* const e_z = (const T*)E.f[NE == 1 ? 0 : 2];
   const int pb = (gx + gy) & 1;                     // parity of cell a at z = 0
   const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
+  // SLAB: the z faces this slab synthesizes (else it reads their pads)
+  const bool zsyn_lo = SLAB != 0 && slab_syn(P, Zs, 0);
+  const bool zsyn_hi = SLAB != 0 && slab_syn(P, Zs, 1);
 
   // Ring slot (cell offset) of plane t+1-k in step t, 0 <= k < NB: the
   // slot of the incoming plane t+1 advances by one per step, so no step
@@ -188,15 +220,23 @@ face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
     const T xl = s_phi[sc + i - 1], xh = s_phi[sc + i + 1];
     const T yl = s_phi[sc + i - WX], yh = s_phi[sc + i + WX];
     const T zl = s_phi[sm + i], zh = s_phi[sp + i];
-    const bool zface = !P.per[2] && (p == 0 || p == P.Z - 1);
+    bool zface;
+    if constexpr (SLAB != 0)
+      zface = (zsyn_lo && p == 0) || (zsyn_hi && p == P.Z - 1);
+    else
+      zface = !P.per[2] && (p == 0 || p == P.Z - 1);
     if (!(xyface || zface)) {
       lo[0] = xl; hi[0] = xh; lo[1] = yl; hi[1] = yh; lo[2] = zl; hi[2] = zh;
       return;
     }
-    const int sz = src_idx(p, P.Z, P.per[2]);
+    const int sz = SLAB != 0 ? p : src_idx(p, P.Z, P.per[2]);
     neighbor_pair<T>(P, 0, g, P.X, v, xl, xh, sx, sy, sz, lo[0], hi[0]);
     neighbor_pair<T>(P, 1, gy, P.Y, v, yl, yh, sx, sy, sz, lo[1], hi[1]);
-    neighbor_pair<T>(P, 2, p, P.Z, v, zl, zh, sx, sy, sz, lo[2], hi[2]);
+    if constexpr (SLAB != 0)
+      slab_z_pair<T>(P, zsyn_lo, zsyn_hi, p, v, zl, zh, sx, sy, sz, lo[2],
+                     hi[2]);
+    else
+      neighbor_pair<T>(P, 2, p, P.Z, v, zl, zh, sx, sy, sz, lo[2], hi[2]);
   };
 
   // low z faces of the thread's two cells on plane t+1-k in step t,
@@ -238,8 +278,17 @@ face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
     T xa = (T)0, xb = (T)0, xm = (T)0, ya = (T)0, yb = (T)0, yma = (T)0,
       ymb = (T)0, za = (T)0, zbv = (T)0;
     if (loading) {
-      const int sz = src_idx(pin, P.Z, P.per[2]);
-      if (sz >= 0) {
+      // SLAB: a plane beyond a face that does not synthesize is its pad
+      int sz;
+      bool have;
+      if constexpr (SLAB != 0) {
+        sz = pin;
+        have = !((zsyn_lo && pin < 0) || (zsyn_hi && pin >= P.Z));
+      } else {
+        sz = src_idx(pin, P.Z, P.per[2]);
+        have = sz >= 0;
+      }
+      if (have) {
         const long long zo = (long long)(sz + PZ) * gplane;
 #pragma unroll
         for (int c = 0; c < 2; ++c)
@@ -248,8 +297,10 @@ face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
             qa[c] = rhs[zo + goff[c]];
           }
       }
-      const long long eo = (long long)(face_src(pin, P.Z, P.per[2]) + PZ) *
-                           gplane;
+      const long long eo =
+          (long long)((SLAB != 0 ? slab_eps_src(pin, P.Z, zsyn_lo, zsyn_hi)
+                                 : face_src(pin, P.Z, P.per[2])) + PZ) *
+          gplane;
       xa = __ldg(e_x + eo + ea);
       xb = __ldg(e_x + eo + eb);
       xm = __ldg(e_x + eo + exm);
@@ -271,7 +322,11 @@ face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
       const int p = t - 1 - 2 * s;
       // z range in which half-sweep s is still valid, and the plane exists
       if (p < zb - (H - 1 - s) || p > ze - 1 + (H - 1 - s)) continue;
-      if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      if constexpr (SLAB != 0) {
+        if ((zsyn_lo && p < 0) || (zsyn_hi && p >= P.Z)) continue;
+      } else {
+        if (!P.per[2] && (p < 0 || p >= P.Z)) continue;
+      }
       const int c = colour(s, p);                    // cell of that colour
       // selects, not indexing: c is only known at run time
       const int sxc = c ? sxs[1] : sxs[0];
@@ -360,16 +415,17 @@ face_kernel(LevelParams P, EpsParams E, int cz, const T* __restrict__ phi,
 }
 
 // The double pair (MODE M_PAIRS) or the fused down-leg with its fine
-// output (M_DOWN) of NS half-sweeps with NE coefficient fields, float32.
-template <typename T, int NS, int MODE, int NE>
+// output (M_DOWN) of NS half-sweeps with NE coefficient fields, float32;
+// SLAB 1: the double pair on a slab, Zs its gates.
+template <typename T, int NS, int MODE, int NE, int SLAB = 0>
 static int launch_faces(const LevelParams& P, const EpsParams& E,
                         const void* phi, const void* rhs, void* out,
                         void* phic_out, void* iresc_out,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, const SlabParams* Zs = nullptr) {
   using G = FaceGeo<NS, MODE>;
   static_assert(G::smem_bytes(sizeof(T)) <= 232448, "the rings must fit a "
                 "block's 227 KB of shared memory");
-  auto kernel = face_kernel<T, NS, MODE, NE>;
+  auto kernel = face_kernel<T, NS, MODE, NE, SLAB>;
   const size_t smem = G::smem_bytes(sizeof(T));
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -382,6 +438,7 @@ static int launch_faces(const LevelParams& P, const EpsParams& E,
   dim3 grid(cdiv(P.X, G::TX), cdiv(P.Y, G::TY), cdiv(P.Z, cz));
   kernel<<<grid, G::NT, smem, stream>>>(P, E, cz, (const T*)phi,
                                         (const T*)rhs, (T*)out, (T*)phic_out,
-                                        (T*)iresc_out);
+                                        (T*)iresc_out,
+                                        Zs ? *Zs : SlabParams{});
   return (int)cudaGetLastError();
 }

@@ -33,11 +33,15 @@
 // and the geometry are the same for every NE, and the NE = 0 code paths
 // are untouched.  These NE > 0 instantiations run the float64 double
 // pair and down-leg (whose face rings would not fit a block in float64)
-// and the slab variants.  The float32 double pair and down-leg with its
-// fine output run stream_faces.cuh, and the apply, the residual and
-// residual_restrict_dense apply_faces.cuh in both dtypes: both build
-// each face once per plane and were faster at every level they take
-// (PERF.md).  The NE > 0 apply, residual and residual-restriction here
+// and the float64 slab variants.  The float32 double pair and down-leg
+// with its fine output run stream_faces.cuh, and the apply, the residual
+// and residual_restrict_dense apply_faces.cuh in both dtypes, the float32
+// slab double pair, apply and residual the SLAB = 1 modes of the same
+// two: they build each face once per plane and were faster at every
+// level and slab they take (PERF.md).  The float32 NE > 0 slab double
+// pairs here are instantiated only in the probe's -DOMG_SLABEPS=0 build;
+// the float32 NE > 0 slab apply and residual run the slabs of fewer than
+// 2^15 cells (af_eps_slab_takes, apply_faces.cuh).  The NE > 0 apply, residual and residual-restriction here
 // are instantiated only in the probe's -DOMG_FACES=0 build, and so is the
 // NE = 0 residual-restriction (MODE M_DOWN with NS = 0), which
 // apply_faces.cuh runs too.
@@ -63,8 +67,9 @@
 // z (negative below the slab): parity, BC-plane rows and coefficient
 // reads follow from it.  The SLAB = 0 code paths are untouched.  The
 // constant-coefficient double pair on a large slab runs stream_wide.cuh's
-// SLAB = 1 instead (wide_slab_takes); the edge strips of an overlapped
-// pair group, smaller slabs and the coefficient pairs run this one.
+// SLAB = 1 instead (wide_slab_takes), and the float32 coefficient pair
+// stream_faces.cuh's; the constant-coefficient edge strips of an
+// overlapped pair group, smaller slabs and float64 run this one.
 #pragma once
 #include "stencil_common.cuh"
 

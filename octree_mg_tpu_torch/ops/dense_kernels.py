@@ -68,7 +68,9 @@ the card these calls launch the slab variants of the kernels
 variants); a slab double pair on the wide design (below) is counted
 under ``pair_sweep_dense[z_gates][wide]`` as well, a constant-coefficient
 slab apply or residual on the face-plane apply (below) under
-``stencil_apply_dense[z_gates][faces]``, and a slab prolongation on the
+``stencil_apply_dense[z_gates][faces]``, a coefficient slab launch on a
+face-plane design under ``name[n_eps=k][z_gates][faces]``, and a slab
+prolongation on the
 pair kernel of csrc/prolong_correct.cu (every slab, both dtypes) under
 ``prolong_correct_dense[z_gates][pair]``.  ``half_sweep_dense``, ``downsweep_dense`` and
 ``residual_restrict_dense`` take no gates: the JAX package never calls
@@ -78,11 +80,11 @@ The double pair and the down-leg run one of three kernel designs, which
 the library picks by level size, dtype, ``n_eps`` and SM count:
 csrc/stream_wide.cuh for constant coefficients on large levels (and for
 the slab double pair on large slabs), csrc/stream_faces.cuh for the
-coefficient variants on every float32 level, csrc/stream_kernel.cuh for
-the rest.  The apply and the residual run one of two:
-csrc/apply_faces.cuh for the coefficient variants on every level in both
-dtypes and for the large float32 constant-coefficient slabs,
-csrc/stream_kernel.cuh for
+coefficient variants on every float32 level and slab,
+csrc/stream_kernel.cuh for the rest.  The apply and the residual run one
+of two: csrc/apply_faces.cuh for the coefficient variants on every level
+in both dtypes and on every float32 slab, and for the large float32
+constant-coefficient slabs, csrc/stream_kernel.cuh for
 the rest; ``residual_restrict_dense``
 runs csrc/apply_faces.cuh on every launch, constant coefficients
 included.  Both face-plane designs build each harmonic-mean face once
@@ -178,8 +180,13 @@ for _n in (1, 3):
 _LAUNCHES[faces_name("residual_restrict_dense", 0)] = 0
 #: a slab double pair on the wide design (csrc/stream_wide.cuh)
 _LAUNCHES[slab_name("pair_sweep_dense") + "[wide]"] = 0
-#: a slab apply or residual on the face-plane apply (csrc/apply_faces.cuh)
-_LAUNCHES[faces_name(slab_name("stencil_apply_dense"), 0)] = 0
+#: a slab apply or residual on the face-plane apply (csrc/apply_faces.cuh),
+#: and a coefficient slab launch on a face-plane design (the double pair
+#: on csrc/stream_faces.cuh, the apply and residual on csrc/apply_faces.cuh)
+_LAUNCHES[slab_name("stencil_apply_dense") + "[faces]"] = 0
+for _n in (1, 3):
+    for _e in SLAB_ENTRIES[:2]:
+        _LAUNCHES[slab_name(_e, _n) + "[faces]"] = 0
 #: a slab prolongation on the pair kernel (csrc/prolong_correct.cu)
 _LAUNCHES[slab_name("prolong_correct_dense") + "[pair]"] = 0
 
@@ -786,7 +793,8 @@ def cuda_stream(t: torch.Tensor) -> int:
 def _count_design(name: str, n_eps: int, design: int) -> None:
     """Count a launch of a kernel entry point under the design the
     library reports it ran (1 wide, 2 face-plane, 3 the pair
-    prolongation, 0 none of them)."""
+    prolongation, 0 none of them).  name: the entry point, or a name
+    that already carries its variant (then n_eps 0)."""
     if design == 1:
         _LAUNCHES[name + "[wide]"] += 1
     elif design == 2:
@@ -967,7 +975,8 @@ def _slab_launch(name, cfg, mode, phi, rhs, lam, bplanes, red_parity,
         phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
         ctypes.byref(design))
     record_launch(err, name, slab_name(name, cfg.n_eps))
-    _count_design(slab_name(name, cfg.n_eps), cfg.n_eps, design.value)
+    # the slab name carries n_eps: name[n_eps=k][z_gates][faces]
+    _count_design(slab_name(name, cfg.n_eps), 0, design.value)
     return out
 
 

@@ -540,3 +540,70 @@ def test_sharded_solver_on_card_matches_single_device(periodic):
         phis[dev] = sv.interior(st, sv.levels[-1], "phi").cpu().numpy()
     np.testing.assert_allclose(phis["cuda"], phis["cpu"], rtol=0,
                                atol=1e-11 * np.abs(phis["cpu"]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [3, 4, 5, 7, 8, 9])
+def test_slab_eps_designs_equal_plain_and_old_design_bitwise(shape):
+    """The float32 coefficient slab double pair (1 and 2 pairs), apply and
+    residual, n_eps 1 and 3, on a slab of chip_smoke.SLAB_EPS_SHAPES (the
+    sharded 64^3 level's, the smallest the apply's rule takes; the 32^3
+    level's and 64 x 62 x 8, which it leaves to stream_kernel.cuh; a
+    single pair's 2-plane edge strip, ragged tiles, an odd level): every
+    gate pair, physical and periodic z, the four BC kinds, the pads of
+    gated-off faces random (the coefficients' too) and every other pad
+    NaN: 0 ulp against the plain version and against the old design
+    (-DOMG_SLABEPS=0), counted under the face-plane counters exactly
+    where the rules take the slab."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    dims = chip_smoke.SLAB_EPS_SHAPES[shape][0]
+    before = dk.launch_counts()
+    rows = chip_smoke.slab_eps_checks(
+        dk, chip_smoke.old_slab_library(dk, "-DOMG_SLABEPS=0"),
+        [chip_smoke.SLAB_EPS_SHAPES[shape]])
+    # 2 z axes x 4 gate pairs x 4 BC kinds x 2 n_eps x 4 kinds
+    assert len(rows) == 256 and all(
+        r["max_ulp"] == 0 and r["new_design"] == r["want_new"]
+        for r in rows), [r for r in rows if r["max_ulp"]
+                         or r["new_design"] != r["want_new"]][:5]
+    after = dk.launch_counts()
+    for kind, takes in (("pairs1", True),
+                        ("apply", chip_smoke.slab_eps_apply_takes(dims))):
+        for n_eps in (1, 3):
+            c = chip_smoke.slab_eps_counter(dk, kind, n_eps)
+            assert after[c] - before[c] == (64 if takes else 0)
+
+
+@pytest.mark.cuda
+def test_sharded_vcoeff_runs_the_face_plane_slab_designs():
+    """vhelmholtz at 128^3 over 8 slabs (levels 128 to 32 sharded),
+    float32: every coefficient slab double pair of a have-guess FMG, and
+    every apply and residual on the slabs of 128^3 and 64^3 (not on the
+    32^2 x 4 ones), runs its face-plane design, and two FMGs stay bitwise
+    the single-device solver's."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    rhs = torch.from_numpy(np.random.default_rng(5).normal(size=(128,) * 3))
+    sd, ss = chip_smoke.dense_pair(port, 128, 8, operator="vhelmholtz")
+    eps = (chip_smoke.smooth_eps(sd, 0, torch.float32),)
+    st_d = chip_smoke.seeded_state(sd, rhs.float().cuda(), eps)
+    st_s = chip_smoke.seeded_state(ss, rhs.float().cuda(), eps)
+    hist_d = chip_smoke.run_fmgs(sd, st_d, 2, 1.5)
+    hist_s = chip_smoke.run_fmgs(ss, st_s, 2, 1.5)
+    assert chip_smoke.sharded_vs_single(sd, st_d, hist_d, ss, st_s, hist_s,
+                                        "sharded vcoeff 128^3")["bitwise"]
+    _, per_fmg = chip_smoke.timed_fmgs(ss, st_s, 1, 1.5)
+    by = chip_smoke.slab_launches_by_slab(dk, ss, st_s, 1.5)
+    pair = dk.slab_name("pair_sweep_dense", 1)
+    assert 0 < per_fmg[pair + "[faces]"] == per_fmg[pair], per_fmg
+    app = dk.slab_name("stencil_apply_dense", 1)
+    assert 0 < per_fmg[app + "[faces]"] == sum(
+        n for c, n in by[app].items() if chip_smoke.slab_eps_apply_takes(
+            tuple(int(v) for v in c.split("x")))) < per_fmg[app], (per_fmg,
+                                                                  by)

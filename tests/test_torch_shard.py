@@ -259,19 +259,32 @@ def test_gated_apply_matches_reference_kernel(residual, gates):
                                atol=64 * EPS * np.abs(want).max())
 
 
-@pytest.mark.parametrize("counter", ["pair_sweep_dense[z_gates][wide]",
-                                     "residual_restrict_dense[faces]",
-                                     "stencil_apply_dense[z_gates][faces]",
-                                     "prolong_correct_dense[z_gates][pair]"])
+@pytest.mark.parametrize("counter", [
+    "pair_sweep_dense[z_gates][wide]", "residual_restrict_dense[faces]",
+    "stencil_apply_dense[z_gates][faces]",
+    "prolong_correct_dense[z_gates][pair]",
+    "pair_sweep_dense[n_eps=1][z_gates][faces]",
+    "stencil_apply_dense[n_eps=1][z_gates][faces]",
+    "pair_sweep_dense[n_eps=3][z_gates][faces]",
+    "stencil_apply_dense[n_eps=3][z_gates][faces]"])
 def test_design_counters_exist_and_cpu_tensors_never_count(counter):
     """The counters of the wide slab double pair, of the
     constant-coefficient residual-restriction and the slab apply on the
-    face-plane apply, and of the pair slab prolongation exist, and calls
-    on CPU tensors (the plain versions) count under no counter."""
-    assert counter in dk.launch_counts()
+    face-plane apply, of the pair slab prolongation and of the coefficient
+    slab double pair, apply and residual on the face-plane designs exist,
+    each once (a coefficient slab launch is named ``[n_eps=k]`` once), and
+    calls on CPU tensors (the plain versions) count under no counter."""
+    counts = dk.launch_counts()
+    assert counter in counts
+    assert all(k.count("[n_eps=") <= 1 for k in counts)
     _, tcfg, (phi, rhs), _, planes = slab_case(False, 0, seed=2)
     args = (tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.3,
             [torch.from_numpy(p) for p in planes])
+    n_eps = int(counter.split("=")[1][0]) if "n_eps" in counter else 0
+    _, ecfg, (ephi, erhs), eps, eplanes = slab_case(False, n_eps, seed=3)
+    eargs = (ecfg, torch.from_numpy(ephi), torch.from_numpy(erhs), 0.3,
+             [torch.from_numpy(p) for p in eplanes])
+    teps = tuple(torch.from_numpy(e) for e in eps)
     before = dk.launch_counts()
     dk.pair_sweep_dense(*args, 0, n_pairs=2, z_gates=(False, True))
     dk.residual_restrict_dense(*args)
@@ -280,7 +293,53 @@ def test_design_counters_exist_and_cpu_tensors_never_count(counter):
     dk.prolong_correct_dense(tcfg, args[1], args[2], torch.zeros(
         dk.padded_shape((2 * X, 2 * Y, 2 * Z)), dtype=torch.float64),
         args[4], z_gates=(False, True))
+    dk.pair_sweep_dense(*eargs, 0, n_pairs=2, eps=teps, z_gates=(True, False))
+    dk.stencil_apply_dense(*eargs, False, eps=teps, z_gates=(False, True))
     assert dk.launch_counts() == before
+
+
+@pytest.mark.parametrize("what,n_eps,gates", [
+    ("pair2", 1, (True, False)), ("residual", 3, (False, True))])
+def test_gated_eps_bodies_match_reference_kernel(what, n_eps, gates):
+    """The gated coefficient double pair and residual on one aligned slab
+    against the JAX package's Pallas eps bodies with z_gates (interpret
+    mode): the face a gate turns off reads the pads, phi's and the
+    coefficients' (2 * n_pairs deep for the pair), the other synthesizes
+    its ghost and pairs its cells' z faces with themselves."""
+    rng = np.random.default_rng(51 + n_eps)
+    dims = (256, 16, 8)
+    dr = 1.0 / 256
+    bc = [tuple(ref_bc_coeffs(ref.BCType.DIRICHLET, dr, nb))
+          for nb in range(6)]
+    per = (False, False, False)
+    idr2 = (1.0 / dr ** 2,) * 3
+    jcfg = jdk.DenseStencilConfig(dims, idr2, bc, per, jnp.float64,
+                                  b_const=[None] * 6, interpret=True,
+                                  n_eps=n_eps)
+    assert jcfg.use_kernel
+    tcfg = dk.DenseStencilConfig(dims, idr2, bc, per, torch.float64,
+                                 b_const=[None] * 6, n_eps=n_eps)
+    phi, rhs = (rng.normal(size=dk.padded_shape(dims)) for _ in range(2))
+    eps = [0.5 + rng.random(dk.padded_shape(dims)) for _ in range(n_eps)]
+    planes = [rng.normal(size=tcfg.plane_shape(nb)) for nb in range(6)]
+    jargs = (jcfg, jnp.asarray(phi), jnp.asarray(rhs), 0.3,
+             [jnp.asarray(p) for p in planes])
+    targs = (tcfg, torch.from_numpy(phi), torch.from_numpy(rhs), 0.3,
+             [torch.from_numpy(p) for p in planes])
+    jeps = tuple(jnp.asarray(e) for e in eps)
+    teps = tuple(torch.from_numpy(e) for e in eps)
+    if what == "pair2":
+        want = jdk.pair_sweep_dense(*jargs, 0, z_gates=gates, n_pairs=2,
+                                    eps=jeps)
+        got = dk.pair_sweep_dense(*targs, 0, n_pairs=2, eps=teps,
+                                  z_gates=gates)
+    else:
+        want = jdk.stencil_apply_dense(*jargs, True, z_gates=gates,
+                                       eps=jeps)
+        got = dk.stencil_apply_dense(*targs, True, eps=teps, z_gates=gates)
+    want = np.asarray(want)[dk._ISL]
+    np.testing.assert_allclose(got[dk._ISL].numpy(), want, rtol=0,
+                               atol=64 * EPS * np.abs(want).max())
 
 
 def test_gates_are_checked():
