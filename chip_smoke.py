@@ -925,6 +925,23 @@ def phase_checks(dk, df, quick):
              f"{[r for r in sep if r['new_design'] != r['want_new']][:1]}")
     worst = max([worst] + [r["max_ulp"] for r in sep])
     rows += sep
+    half = half_checks(dk, old_library(dk, "-DOMG_HALFAF=0", (
+        ("stencil_sweep", "omg_stencil_sweep"),))["omg_stencil_sweep"])
+    if not all(r["new_design"] for r in half):
+        fail("a half-sweep did not run the register march: "
+             f"{[r for r in half if not r['new_design']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in half])
+    rows += half
+    dfm = df32_march_checks(dk, df, old_df32_library(dk))
+    if not all(r["new_design"] == r["want_new"] for r in dfm):
+        fail("a double-float residual ran another design than its rule "
+             "gives: "
+             f"{[r for r in dfm if r['new_design'] != r['want_new']][:1]}")
+    if not all(r["within_float64_bound"] for r in dfm):
+        fail("a double-float residual is off the float64 one: "
+             f"{[r for r in dfm if not r['within_float64_bound']][:1]}")
+    worst = max([worst] + [r["max_ulp"] for r in dfm])
+    rows += dfm
     bad = [r for r in rows if r["max_ulp"] != 0]
     n_eps_cases = sum("n_eps" in r["kernel"] and "gates" not in r["kernel"]
                       and "faces" not in r["kernel"] for r in rows)
@@ -961,6 +978,17 @@ def phase_checks(dk, df, quick):
                      "slab_eps_cases_on_the_face_designs": sum(
                          r["new_design"] for r in sep),
                      "slab_eps_max_ulp": max(r["max_ulp"] for r in sep),
+                     "half_cases": len(half),
+                     "half_cases_on_the_new_design": sum(
+                         r["new_design"] for r in half),
+                     "half_max_ulp": max(r["max_ulp"] for r in half),
+                     "df32_march_cases": len(dfm),
+                     "df32_march_cases_on_the_new_design": sum(
+                         r["new_design"] for r in dfm),
+                     "df32_march_max_ulp": max(r["max_ulp"] for r in dfm),
+                     "df32_march_worst_float64_err_over_bound": max(
+                         r["float64_max_abs_err"] / r["float64_bound"]
+                         for r in dfm),
                      "max_ulp": worst, "expected_max_ulp": 0,
                      "nan_pads": True, "failed": bad[:20]}})
     if bad:
@@ -1289,6 +1317,31 @@ SLAB_FACES = "stencil_apply_dense[z_gates][faces]"
 SLAB_PAIR = "prolong_correct_dense[z_gates][pair]"
 
 
+#: the designs before this tree's, each behind a build flag, and the
+#: sources that flag rebuilds: the checks hold every new design against
+#: its old one (main() builds them all beside the shipped libraries)
+OLD_DESIGNS = {"-DOMG_SEGWIDE=0": ("seg_sweep",),
+               "-DOMG_SLABAP=0": ("stencil_sweep", "prolong_correct"),
+               "-DOMG_SLABEPS=0": ("stencil_sweep", "prolong_correct"),
+               "-DOMG_HALFAF=0": ("stencil_sweep",),
+               "-DOMG_DF32MARCH=0": ("residual_df32",)}
+
+
+def old_library(dk, flag, syms):
+    """{symbol: function} of the (source, symbol) pairs syms from the
+    sources built with a design flag (OLD_DESIGNS)."""
+    import ctypes
+    from octree_mg_tpu_torch.ops import _cuda_build
+    paths = _cuda_build.build_kernels(
+        (flag,), sources=tuple(dict.fromkeys(src for src, _ in syms)))
+    fns = {}
+    for src, sym in syms:
+        f = getattr(ctypes.CDLL(paths[src]), sym)
+        f.argtypes, f.restype = dk._ARGTYPES[sym], ctypes.c_int
+        fns[sym] = f
+    return fns
+
+
 def old_slab_library(dk, flag="-DOMG_SLABAP=0"):
     """omg_stencil_slab and omg_prolong_slab of csrc/stencil_sweep.cu and
     csrc/prolong_correct.cu built with a design flag, to hold the new
@@ -1297,17 +1350,8 @@ def old_slab_library(dk, flag="-DOMG_SLABAP=0"):
     the slab prolongation on its thread-per-coarse-cell kernel;
     -DOMG_SLABEPS=0, every float32 coefficient slab double pair, apply
     and residual on csrc/stream_kernel.cuh."""
-    import ctypes
-    from octree_mg_tpu_torch.ops import _cuda_build
-    paths = _cuda_build.build_kernels(
-        (flag,), sources=("stencil_sweep", "prolong_correct"))
-    fns = {}
-    for src, sym in (("stencil_sweep", "omg_stencil_slab"),
-                     ("prolong_correct", "omg_prolong_slab")):
-        f = getattr(ctypes.CDLL(paths[src]), sym)
-        f.argtypes, f.restype = dk._ARGTYPES[sym], ctypes.c_int
-        fns[sym] = f
-    return fns
+    return old_library(dk, flag, (("stencil_sweep", "omg_stencil_slab"),
+                                  ("prolong_correct", "omg_prolong_slab")))
 
 
 def slab_runner(dk, fn, kind, cfg, phi, rhs, lam, planes, gates, iold=None,
@@ -1559,13 +1603,8 @@ def old_seg_library(dk):
     """omg_seg_sweep of csrc/seg_sweep.cu built with -DOMG_SEGWIDE=0: every
     segment launch on csrc/stream_kernel.cuh, the design before the wide
     and face-plane ones, to hold the new designs against."""
-    import ctypes
-    from octree_mg_tpu_torch.ops import _cuda_build
-    path = _cuda_build.build_kernels(("-DOMG_SEGWIDE=0",),
-                                     sources=("seg_sweep",))["seg_sweep"]
-    fn = ctypes.CDLL(path).omg_seg_sweep
-    fn.argtypes, fn.restype = dk._ARGTYPES["omg_seg_sweep"], ctypes.c_int
-    return fn
+    return old_library(dk, "-DOMG_SEGWIDE=0", (
+        ("seg_sweep", "omg_seg_sweep"),))["omg_seg_sweep"]
 
 
 def old_seg_launch(dk, fn, cfg, mode, phi, rhs, lam, n_pairs, layers,
@@ -1628,6 +1667,242 @@ def seg_wide_checks(dk, old_fn, shapes=SEG_WIDE_SHAPES):
                          "max_ulp_vs_old_design": uo, "new_design": new})
             del got, want, old
         del cfg, planes, phi, rhs, layers
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: canvases of one half-sweep (row 2 of PERF.md; its register march of
+#: csrc/stencil_sweep.cu takes every launch): the forests' sequential
+#: levels (forest_periodic's full levels at base 256, 256^3 .. 16^3), a
+#: thin canvas with ragged tiles (2 planes: 8 of the 64 x 16 tile in x
+#: and y), ragged tiles in every dim and an odd canvas; (dims, periodic),
+#: each also fully non-periodic and fully periodic
+HALF_SHAPES = [((256, 256, 256), (False, False, False)),
+               ((128, 128, 128), (True, True, True)),
+               ((64, 64, 64), (False, True, False)),
+               ((32, 32, 32), (True, False, True)),
+               ((16, 16, 16), (False, False, True)),
+               ((1032, 520, 2), (True, False, False)),
+               ((72, 20, 10), (True, True, False)),
+               ((7, 5, 3), (False, True, True))]
+#: the counter of a half-sweep on the register march
+HALF_MARCH = "half_sweep_dense[march]"
+HALF_BC_KINDS = ("dirichlet", "neumann", "continuous", "planes", "forest")
+
+
+def old_half_launch(dk, fn, cfg, phi, rhs, lam, planes, parity):
+    """One half-sweep of the old design (-DOMG_HALFAF=0: stream_kernel.cuh's
+    wavefront) as the wrapper makes it; not counted."""
+    out = torch.empty_like(phi)
+    design = half_runner(dk, fn, cfg, phi, rhs, lam, planes, parity, out)()
+    if design != 0:
+        fail(f"the old half-sweep reported design {design}")
+    return out
+
+
+def half_checks(dk, old_fn, shapes=HALF_SHAPES):
+    """One half-sweep on HALF_SHAPES, each also non-periodic and fully
+    periodic: float32 and float64, the four BC kinds with constant faces
+    and plane-valued ones, and the forest's identity-coefficient planes,
+    both parities, NaN in every pad but the wrapped copies of a periodic
+    axis: 0 ulp against the plain version and against the old design
+    (old_fn: -DOMG_HALFAF=0), every launch counted under HALF_MARCH
+    (``new_design``)."""
+    rows, seed, isl = [], 2300, dk._ISL
+    for dims, per0 in shapes:
+        pers = list(dict.fromkeys([per0, (False,) * 3, (True,) * 3]))
+        for per, dtype, bc_kind in itertools.product(
+                pers, (torch.float32, torch.float64), HALF_BC_KINDS):
+            lam = 0.3 if bc_kind in ("neumann", "planes") else 0.0
+            seed += 1
+            cfg, field, planes = make_case(dk, dims, per, bc_kind, dtype,
+                                           seed)
+            phi, rhs = field(cfg), field(cfg)
+            for parity in (0, 1):
+                before = dk.launch_counts()[HALF_MARCH]
+                got = dk.half_sweep_dense(cfg, phi, rhs, lam, planes, parity)
+                new = dk.launch_counts()[HALF_MARCH] == before + 1
+                want = dk._half_plain(cfg, phi, rhs, lam, planes, parity)
+                old = old_half_launch(dk, old_fn, cfg, phi, rhs, lam, planes,
+                                      parity)
+                torch.cuda.synchronize()
+                up = ulp_diff(got[isl], want[isl])
+                uo = ulp_diff(got[isl], old[isl])
+                u = max(up, uo) if min(up, uo) >= 0 else 1 << 62
+                rows.append({"kernel": f"half_sweep{parity}[new design]",
+                             "dims": dims, "periodic": per,
+                             "dtype": str(dtype)[6:], "bc": bc_kind,
+                             "lam": lam, "max_ulp": u,
+                             "max_ulp_vs_plain": up,
+                             "max_ulp_vs_old_design": uo, "new_design": new})
+                del got, want, old
+            del phi, rhs, planes
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: levels and slabs of the double-float residual (rows 8 and 8z of
+#: PERF.md; df32_march_takes of csrc/residual_df32.cu sends levels and
+#: slabs of 2^24 cells and more in planes of 2^18 and more to the z-march,
+#: the rest to the thread-per-cell kernel): the slabs of the sharded
+#: 512^3 .. 32^3 levels over 8 (512^2 x 64 on the march), the thinnest
+#: slab the rule takes (2 planes, a ragged x tile) and one just below it
+#: (a ragged y tile), ragged tiles in every dim on the march and an odd
+#: slab (slab mode, every gate pair, physical and periodic z); the
+#: refined path's 256^3 level (refined_vs_f64, below the rule's planes),
+#: the ragged one as a level (on the march), a small level and an odd one
+#: (the level mode, as given and fully periodic); (dims, (x, y) periodic,
+#: "slab") or (dims, periodic, "level")
+DF32_MARCH_SHAPES = [((512, 512, 64), (False, False), "slab"),
+                     ((256, 256, 32), (True, True), "slab"),
+                     ((128, 128, 16), (False, True), "slab"),
+                     ((64, 64, 8), (True, False), "slab"),
+                     ((32, 32, 4), (False, False), "slab"),
+                     ((4104, 2048, 2), (False, True), "slab"),
+                     ((4096, 2047, 2), (True, False), "slab"),
+                     ((1032, 520, 32), (True, False), "slab"),
+                     ((13, 7, 4), (False, False), "slab"),
+                     ((256, 256, 256), (False, False, False), "level"),
+                     ((1032, 520, 32), (False, True, False), "level"),
+                     ((72, 40, 36), (False, True, False), "level"),
+                     ((13, 7, 5), (True, False, True), "level")]
+
+
+def df32_march_takes(dims):
+    """Whether the z-march takes a double-float residual: df32_march_takes
+    of csrc/residual_df32.cu, levels and slabs of 2^24 cells or more in
+    planes of 2^18 cells or more."""
+    X, Y, Z = dims
+    return X * Y >= 1 << 18 and X * Y * Z >= 1 << 24
+#: the counters of the double-float residual on its z-march
+DF32_MARCH = "residual_df32_dense[march]"
+DF32_SLAB_MARCH = "residual_df32_dense[z_gates][march]"
+
+
+def df32_runner(dk, df, fns, cfg, xhi, xlo, rhi, rlo, out, cbs, lam_pair,
+                gates=None):
+    """A closure that launches the double-float residual of a library
+    (fns: its omg_residual_df32 and omg_residual_df32_slab) into out as
+    the wrapper makes it, gates: the slab mode, and returns the design
+    the library reports; not counted."""
+    import ctypes
+    P = dk._params(cfg, 0.0, [None] * 6)
+    Q = df._Df32Params()
+    for nb in range(6):
+        Q.cb_hi[nb], Q.cb_lo[nb] = cbs[nb]
+    Q.has_lam = int(lam_pair is not None)
+    Q.lam_hi, Q.lam_lo = lam_pair if lam_pair is not None else (0.0, 0.0)
+    design = ctypes.c_int(-1)
+    ptrs = (xhi.data_ptr(), xlo.data_ptr(), rhi.data_ptr(), rlo.data_ptr(),
+            out.data_ptr(), dk.cuda_stream(xhi), ctypes.byref(design))
+    Zs = dk._slab_params(gates) if gates is not None else None
+
+    def run():
+        if gates is None:
+            err = fns["omg_residual_df32"](ctypes.byref(P), ctypes.byref(Q),
+                                           *ptrs)
+        else:
+            err = fns["omg_residual_df32_slab"](
+                ctypes.byref(P), ctypes.byref(Q), ctypes.byref(Zs), *ptrs)
+        if err != 0:
+            fail(f"residual_df32: launch error {err}")
+        return design.value
+    return run
+
+
+def old_df32_library(dk):
+    """The double-float residual of csrc/residual_df32.cu built with
+    -DOMG_DF32MARCH=0: a thread per cell, the design before the z-march."""
+    return old_library(dk, "-DOMG_DF32MARCH=0", (
+        ("residual_df32", "omg_residual_df32"),
+        ("residual_df32", "omg_residual_df32_slab")))
+
+
+def df32_march_checks(dk, df, old_fns, shapes=DF32_MARCH_SHAPES):
+    """The double-float residual on DF32_MARCH_SHAPES: slabs with every
+    gate pair, physical and periodic z, the z pads random beyond a
+    gated-off face (or a periodic z) and NaN elsewhere; levels as given
+    and fully periodic, NaN pads but the wrapped copies; Dirichlet,
+    Neumann and continuous faces, with and without lam, with a
+    boundary-value override (below 2^22 cells each face kind with all
+    three, above it one each): 0 ulp against the plain version and against
+    the old design (old_fns: -DOMG_DF32MARCH=0), counted under DF32_MARCH
+    / DF32_SLAB_MARCH (``new_design``) exactly where the rule takes it
+    (``want_new``: df32_march_takes), and within the
+    double-float bound of phase_df32_exactness (3e-7 max|r| + 1e-11 idr2
+    max|x|) of the native float64 residual of x_hi + x_lo (the plain
+    float64 version)."""
+    rows, seed, isl, f32 = [], 2700, dk._ISL, torch.float32
+    todo = []
+    for dims, per, mode in shapes:
+        if mode == "slab":
+            todo += [(dims, tuple(per) + (pz,), g) for pz in (False, True)
+                     for g in itertools.product((False, True), repeat=2)]
+        else:
+            todo += [(dims, p, None)
+                     for p in dict.fromkeys([tuple(per), (True,) * 3])]
+    for (dims, per, gates), (k, bc_kind) in itertools.product(
+            todo, enumerate(("dirichlet", "neumann", "continuous"))):
+        seed += 1
+        if gates is None:
+            cfg, field, _ = make_case(dk, dims, per, bc_kind, f32, seed,
+                                      equal_pow2=True)
+            fld = lambda: field(cfg)
+        else:
+            cfg, field, _ = slab_case(dk, dims, per, bc_kind, f32, seed,
+                                      gates, equal_pow2=True)
+            fld = field
+        if not df.df32_ok(cfg):
+            fail(f"df32 case {dims} {bc_kind} is outside df32_ok")
+        xhi, rhi = fld(), fld()
+        xlo, rlo = fld() * 2.0 ** -25, fld() * 2.0 ** -25
+        counter = DF32_MARCH if gates is None else DF32_SLAB_MARCH
+        override = [0.5, -0.25, 0.1, 0.3, 0.0, 1.0]
+        variants = ((0.0, None), (0.37, None), (0.0, override))
+        if int(np.prod(dims)) >= 1 << 22:
+            variants = variants[k:k + 1]
+        for lam, bvals in variants:
+            kw = dict(cbs=df._cb_pairs(cfg, bvals),
+                      lam_pair=df.split_lam(lam))
+            before = dk.launch_counts()[counter]
+            got = df.residual_df32_dense(cfg, xhi, xlo, rhi, rlo,
+                                         z_gates=gates, **kw)
+            new = dk.launch_counts()[counter] == before + 1
+            want = df.residual_df32(cfg, xhi, xlo, rhi, rlo, z_gates=gates,
+                                    **kw)
+            old = torch.empty_like(xhi)
+            if df32_runner(dk, df, old_fns, cfg, xhi, xlo, rhi, rlo, old,
+                           gates=gates, **kw)() != 0:
+                fail("the old double-float residual reported a new design")
+            # the native float64 residual of the represented x
+            b64 = bvals if bvals is not None else cfg.b_const
+            c64 = dk.DenseStencilConfig(cfg.dims, cfg.idr2, cfg.bc,
+                                        cfg.periodic, torch.float64,
+                                        b_const=b64)
+            x64 = xhi.double() + xlo.double()
+            r64 = dk._apply_plain(c64, x64, rhi.double() + rlo.double(), lam,
+                                  [None] * 6, True, (), gates)[isl]
+            torch.cuda.synchronize()
+            up = ulp_diff(got[isl], want[isl])
+            uo = ulp_diff(got[isl], old[isl])
+            u = max(up, uo) if min(up, uo) >= 0 else 1 << 62
+            err64 = float((got[isl].double() - r64).abs().max())
+            bound64 = (3e-7 * float(r64.abs().max()) +
+                       1e-11 * cfg.idr2[0] * float(x64[isl].abs().max()))
+            rows.append({"kernel": "residual_df32[new design]"
+                         + ("" if gates is None else
+                            f"[z_gates={int(gates[0])}{int(gates[1])}]"),
+                         "dims": dims, "periodic": per, "dtype": "float32",
+                         "bc": bc_kind, "lam": lam,
+                         "bc_values_override": bvals is not None,
+                         "max_ulp": u, "max_ulp_vs_plain": up,
+                         "max_ulp_vs_old_design": uo, "new_design": new,
+                         "want_new": df32_march_takes(dims),
+                         "float64_max_abs_err": err64,
+                         "float64_bound": bound64,
+                         "within_float64_bound": err64 <= bound64})
+            del got, want, old, x64, r64
+        del xhi, xlo, rhi, rlo
     torch.cuda.empty_cache()
     return rows
 
@@ -1783,6 +2058,30 @@ def timed_row(name, kern, plain, launches, per_fmg, shape, nbytes, flops,
             **(extra or {})}
 
 
+def df32_design(dk, df, cfg, xhi, xlo, rhi, rlo, cbs, launches, gates=None):
+    """The keys of rows 8 and 8z beside the wrapper's time: the design,
+    the launches on it (launches: the counts of the row's path), its time
+    from the library and the old design's (-DOMG_DF32MARCH=0) on the same
+    inputs."""
+    new = {s: dk._fn("residual_df32", s)
+           for s in ("omg_residual_df32", "omg_residual_df32_slab")}
+    out = torch.empty_like(xhi)
+    counter = DF32_MARCH if gates is None else DF32_SLAB_MARCH
+    row = {"design": "octree_mg_tpu_torch/csrc/residual_df32.cu "
+                     "(df32_march_kernel)",
+           "launches_on_the_new_design": launches[counter],
+           "ms_from_library": time_ms(df32_runner(
+               dk, df, new, cfg, xhi, xlo, rhi, rlo, out, cbs, None, gates),
+               12),
+           "old_design": "octree_mg_tpu_torch/csrc/residual_df32.cu "
+                         "(residual_df32_kernel, -DOMG_DF32MARCH=0)",
+           "old_design_ms": time_ms(df32_runner(
+               dk, df, old_df32_library(dk), cfg, xhi, xlo, rhi, rlo, out,
+               cbs, None, gates), 12)}
+    del out
+    return row
+
+
 def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
     """Every entry point at the main path's top-level shape.  launches:
     counts of the float32 solve; launches_refined: of the refined solve
@@ -1838,6 +2137,8 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
     xlo, rlo = phi * 2.0 ** -25, rhs * 2.0 ** -25
     cbs = df._cb_pairs(cfg)
     r_out = torch.empty_like(phi)
+    df32_extra = df32_design(dk, df, cfg, phi, xlo, rhs, rlo, cbs,
+                             launches_refined)
     cases.append((
         "residual_df32_dense",
         lambda: df.residual_df32_dense(cfg, phi, xlo, rhs, rlo, cbs=cbs,
@@ -1943,6 +2244,7 @@ def phase_kernel_times(dk, df, launches, launches_refined, vcoeff):
                if name == "residual_restrict_dense" else {}),
             **({"conv3d_core_ms": conv3d_ms}
                if name == "stencil_apply_dense" else {}),
+            **(df32_extra if name == "residual_df32_dense" else {}),
         })
         if err != 0.0:
             fail(f"{name}: differs from its plain version at 512^3 "
@@ -2129,9 +2431,11 @@ def phase_refined_path(ps, dk, df):
             not np.isfinite(phi).all():
         fail("refined path: phi has a wrong shape, dtype or values")
     check_refined_history(norms, "refined path")
-    if launches["residual_df32_dense"] != n_outer + 1:
+    if launches["residual_df32_dense"] != n_outer + 1 or \
+            launches[DF32_MARCH] != n_outer + 1:
         fail(f"refined path: the double-float residual kernel ran "
-             f"{launches['residual_df32_dense']} times, expected "
+             f"{launches['residual_df32_dense']} times, "
+             f"{launches[DF32_MARCH]} on the z-march, expected "
              f"{n_outer + 1}")
     missing = [k for k in REFINED_KERNELS if launches[k] == 0]
     if missing:
@@ -2731,33 +3035,40 @@ def footprint_finite(sv, state, lvl):
 
 
 class SegTally:
-    """Segment launches by entry point and canvas, and how many of them
-    ran the new design (the SEG_WIDE / SEG_FACES counter moved): a wrap
-    of dense_kernels._seg_launch, in place while the object is entered
-    (two counter reads per launch, ~1 us)."""
+    """Segment launches (attr "_seg_launch") or half-sweeps (attr
+    "half_sweep_dense") by entry point and canvas, and how many of them
+    ran the new design (the SEG_WIDE / SEG_FACES / HALF_MARCH counter
+    moved): a wrap of that function of dense_kernels, in place while the
+    object is entered (two counter reads per launch, ~1 us)."""
 
-    def __init__(self, dk):
-        self.dk, self.n = dk, {}
+    def __init__(self, dk, attr="_seg_launch"):
+        self.dk, self.n, self.attr = dk, {}, attr
 
     def __enter__(self):
-        dk, orig = self.dk, self.dk._seg_launch
+        dk, orig = self.dk, getattr(self.dk, self.attr)
 
-        def launch(name, cfg, *args):
-            key = SEG_WIDE if name == "pair_sweep_dense" else SEG_FACES
+        def launch(*args, **kw):
+            if self.attr == "_seg_launch":
+                name, cfg = args[0] + "[segs]", args[1]
+                key = SEG_WIDE if args[0] == "pair_sweep_dense" \
+                    else SEG_FACES
+            else:
+                name, cfg, key = self.attr, args[0], HALF_MARCH
             before = dk._LAUNCHES[key]
-            out = orig(name, cfg, *args)
-            row = self.n.setdefault(name + "[segs]", {}).setdefault(
+            out = orig(*args, **kw)
+            row = self.n.setdefault(name, {}).setdefault(
                 "x".join(map(str, cfg.dims)),
                 {"launches": 0, "on_the_new_design": 0})
             row["launches"] += 1
             row["on_the_new_design"] += dk._LAUNCHES[key] - before
             return out
 
-        self.orig, dk._seg_launch = orig, launch
+        self.orig = orig
+        setattr(dk, self.attr, launch)
         return self
 
     def __exit__(self, *exc):
-        self.dk._seg_launch = self.orig
+        setattr(self.dk, self.attr, self.orig)
 
     def per(self, n):
         """The tally divided by n (per FMG)."""
@@ -2804,7 +3115,7 @@ def phase_forest(pkg, dk, name, tree, box, rhs_top, need, dirichlet,
     sv.fas_fmg(state, have_guess=True, need_res=False)
     torch.cuda.synchronize()
     dk.reset_launch_counts()
-    with SegTally(dk) as tally:
+    with SegTally(dk) as tally, SegTally(dk, "half_sweep_dense") as halves:
         t1 = time.perf_counter()
         for _ in range(n_timed):
             sv.fas_fmg(state, have_guess=True, need_res=False)
@@ -2830,6 +3141,7 @@ def phase_forest(pkg, dk, name, tree, box, rhs_top, need, dirichlet,
            "launches_in_solve": {k: v for k, v in launches.items() if v},
            "launches_per_fmg": per_fmg,
            "seg_launches_per_fmg_by_canvas": tally.per(n_timed),
+           "half_launches_per_fmg_by_canvas": halves.per(n_timed),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     return sv, state, launches, per_fmg, rec
 
@@ -2949,13 +3261,40 @@ def phase_forest_path(pkg, dk, base=256):
     return rows, launches
 
 
-def phase_forest_periodic(pkg, dk, base=128):
-    """The fully periodic forest at base 128, box 16, one corner patch: its
-    full periodic levels carry wrap segments and run the sequential path
-    (ring writes, assembled face planes, ``half_sweep_dense`` between
-    refreshes), the patch the segment path.  rhs: seeded normal on the
-    top level (the solver removes its mean).  Then the half-sweep's kernel
-    row at level 1's 128^3 canvas with its assembled planes."""
+def half_runner(dk, fn, cfg, phi, rhs, lam, planes, parity, out):
+    """A closure that launches one half-sweep of a library (fn: its
+    omg_stencil_sweep) into out as the wrapper makes it and returns the
+    design the library reports; not counted."""
+    import ctypes
+    P = dk._params(cfg, lam, planes, parity, 1)
+    E = dk._eps_params(cfg, ())
+    design = ctypes.c_int(-1)
+    args = (dk._dt(cfg), 0, ctypes.byref(P), ctypes.byref(E),
+            phi.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+            dk.cuda_stream(phi), ctypes.byref(design))
+
+    def run():
+        err = fn(*args)
+        if err != 0:
+            fail(f"half_sweep: launch error {err}")
+        return design.value
+    return run
+
+
+def phase_forest_periodic(pkg, dk, base=256):
+    """The fully periodic forest at forest_path's base 256, box 16, one
+    corner patch: its full periodic levels (256^3 .. 16^3) carry wrap
+    segments and run the sequential path (ring writes, assembled face
+    planes, ``half_sweep_dense`` between refreshes), the patch the
+    segment path.  rhs: seeded normal on the top level (the solver
+    removes its mean).  The timed FMGs must run every half-sweep on the
+    register march of csrc/stencil_sweep.cu (it takes every launch).
+    Then the half-sweep's
+    kernel row at level 1's 256^3 canvas with its assembled planes, with
+    every sequential canvas beside it (``by_canvas``: 128^3 is the canvas
+    of the row before base 256): the wrapper's time, the library's, the
+    old design's (-DOMG_HALFAF=0, stream_kernel.cuh's wavefront), the
+    bound and the launches per FMG."""
     box = 16
     from octree_mg_tpu_torch.core import tree as tm
     tree = forest_tree(pkg, tm, "periodic", base, box)
@@ -2966,11 +3305,48 @@ def phase_forest_periodic(pkg, dk, base=128):
                                     dtype=torch.float32, device="cuda"),
         FOREST_PERIODIC_KERNELS, dirichlet=False)
     emit({"forest_periodic": rec})
+    by = rec["half_launches_per_fmg_by_canvas"].get("half_sweep_dense", {})
+    n_half = per_fmg.get("half_sweep_dense", 0)
+    if not n_half or per_fmg.get(HALF_MARCH, 0) != n_half or any(
+            r["on_the_new_design"] != r["launches"] for r in by.values()):
+        fail(f"forest_periodic: half-sweeps per FMG {n_half}, on the new "
+             f"design {per_fmg.get(HALF_MARCH, 0)}, by canvas {by}")
+    new_fn = dk._fn("stencil_sweep", "omg_stencil_sweep")
+    old_fn = old_library(dk, "-DOMG_HALFAF=0", (
+        ("stencil_sweep", "omg_stencil_sweep"),))["omg_stencil_sweep"]
+    canvases, isl = [], dk._ISL
+    seq = sorted((l for l in sv.levels if sv._seg_desc(l) is None and
+                  "x".join(map(str, sv.dims[l])) in by),
+                 key=lambda l: -int(np.prod(sv.dims[l])))
+    for lvl in seq:
+        cfg = sv._kcfgs[lvl]
+        ringed, planes, _ = sv._assemble(state, lvl, "phi")
+        rhs = state["rhs"][lvl]
+        out = torch.empty_like(ringed)
+        n = int(np.prod(sv.dims[lvl]))
+        nbytes, flops = forest_work_model(
+            "half_sweep_dense", n, 0, sum(p.numel() for p in planes) * 4, 4)
+        c = "x".join(map(str, sv.dims[lvl]))
+        canvases.append({
+            "level": lvl, "canvas": list(sv.dims[lvl]),
+            "ms": time_ms(lambda: dk.half_sweep_dense(
+                cfg, ringed, rhs, 0.0, planes, 0), 12),
+            "ms_from_library": time_ms(half_runner(
+                dk, new_fn, cfg, ringed, rhs, 0.0, planes, 0, out), 12),
+            "old_design_ms": time_ms(half_runner(
+                dk, old_fn, cfg, ringed, rhs, 0.0, planes, 0, out), 12),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  flops / F32_FLOP_PER_S),
+            "launches_per_fmg": by.get(c, {}).get("launches", 0),
+            "launches_per_fmg_on_the_new_design": by.get(c, {}).get(
+                "on_the_new_design", 0)})
+        del ringed, planes, out
     lvl = 1
     cfg = sv._kcfgs[lvl]
     ringed, planes, _ = sv._assemble(state, lvl, "phi")
-    rhs, isl = state["rhs"][lvl], dk._ISL
+    rhs = state["rhs"][lvl]
     n = int(np.prod(sv.dims[lvl]))
+    top = next(c for c in canvases if c["level"] == lvl)
     row = timed_row(
         "half_sweep_dense",
         lambda: (dk.half_sweep_dense(cfg, ringed, rhs, 0.0, planes, 0)[isl],),
@@ -2979,7 +3355,15 @@ def phase_forest_periodic(pkg, dk, base=128):
         list(sv.dims[lvl]),
         *forest_work_model("half_sweep_dense", n, 0,
                            sum(p.numel() for p in planes) * 4, 4),
-        {"level": lvl, "parity": 0})
+        {"level": lvl, "parity": 0,
+         "design": "octree_mg_tpu_torch/csrc/stencil_sweep.cu "
+                   "(half_march_kernel)",
+         "launches_on_the_new_design": launches[HALF_MARCH],
+         "launches_per_fmg_on_the_new_design": per_fmg.get(HALF_MARCH, 0),
+         "ms_from_library": top["ms_from_library"],
+         "old_design": "octree_mg_tpu_torch/csrc/stream_kernel.cuh (NS = 1, "
+                       "-DOMG_HALFAF=0)",
+         "old_design_ms": top["old_design_ms"], "by_canvas": canvases})
     del state, sv
     torch.cuda.empty_cache()
     return [row], launches
@@ -3599,10 +3983,11 @@ def phase_sharded_refined(pkg, dk, df):
     launches = dk.launch_counts()
     check_refined_history(norms, "sharded refined")
     want = (n_outer + 1) * K
-    if launches["residual_df32_dense[z_gates]"] != want:
+    if launches["residual_df32_dense[z_gates]"] != want or \
+            launches[DF32_SLAB_MARCH] != want:
         fail(f"sharded refined: the slab residual kernel ran "
-             f"{launches['residual_df32_dense[z_gates]']} times, expected "
-             f"{want}")
+             f"{launches['residual_df32_dense[z_gates]']} times, "
+             f"{launches[DF32_SLAB_MARCH]} on the z-march, expected {want}")
     rel = [abs(a - b) / b for a, b in zip(norms, norms_d)]
     if not max(rel) <= 1e-5:
         fail(f"sharded refined: norms {norms} against single {norms_d}")
@@ -3918,7 +4303,9 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
                                         **kw)[isl],),
         lambda: (df.residual_df32(cfg, xhi, xlo, rhi, rlo, **kw)[isl],),
         refined[name], None, (n, n, zl), nbytes, flops,
-        extra={"launches_per_outer": refined[name] / 11.0}))
+        extra={"launches_per_outer": refined[name] / 11.0,
+               **df32_design(dk, df, cfg, xhi, xlo, rhi, rlo, kw["cbs"],
+                             refined, gates)}))
     torch.cuda.empty_cache()
     return rows
 
@@ -3940,13 +4327,23 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    paths = _cuda_build.build_kernels(
-        extra_flags=("-Xptxas", "-v") if quick else (), verbose=quick)
+    # the shipped libraries and the old designs' (OLD_DESIGNS), every
+    # nvcc started at once
+    from concurrent.futures import ThreadPoolExecutor
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(len(OLD_DESIGNS)) as ex:
+        olds = [ex.submit(_cuda_build.build_kernels, (flag,), sources=srcs)
+                for flag, srcs in OLD_DESIGNS.items()]
+        paths = _cuda_build.build_kernels(
+            extra_flags=("-Xptxas", "-v") if quick else (), verbose=quick)
+        for f in olds:
+            f.result()
     emit({"setup": {"card": smi, "torch": torch.__version__,
                     "cuda": torch.version.cuda,
                     "python": sys.version.split()[0],
                     "sources_built": sorted(paths),
-                    "build_s": _cuda_build.last_build_seconds}})
+                    "old_designs_built": sorted(OLD_DESIGNS),
+                    "build_s": time.perf_counter() - t_build}})
     t0 = time.perf_counter()
     phase_checks(dk, df, quick)
     if quick:

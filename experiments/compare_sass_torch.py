@@ -50,10 +50,11 @@ LIB_ONLY = ("-shared", "-Xcompiler", "-fPIC")
 _ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
 _NAME = re.compile(r"^(?:void )?([\w:]+)(?:<(.*)>)?\(")
 #: the build of the designs the shipped ones replaced: every coefficient
-#: kernel (the slabs' too) and every segment launch on stream_kernel.cuh,
-#: the slab prolongation on its thread-per-coarse-cell kernel
+#: kernel (the slabs' too), every segment launch and one half-sweep on
+#: stream_kernel.cuh, the slab prolongation on its thread-per-coarse-cell
+#: kernel, the double-float residual as a thread per cell
 PROBE_FLAGS = ["-DOMG_FACES=0", "-DOMG_SEGWIDE=0", "-DOMG_SLABAP=0",
-               "-DOMG_SLABEPS=0"]
+               "-DOMG_SLABEPS=0", "-DOMG_HALFAF=0", "-DOMG_DF32MARCH=0"]
 
 
 def _tool(name):

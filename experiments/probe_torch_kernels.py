@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Probe of the PyTorch package's streaming stencil kernels on one GPU.
 
-    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [slab_apply] [slab_eps] [sass] [tiles] [df32_blocks] [chunk]
+    python3 experiments/probe_torch_kernels.py [wide] [wide_fmg] [faces] [faces_fmg] [apply_faces] [rr_slab] [seg] [slab_apply] [slab_eps] [half] [df32_march] [sass] [tiles] [df32_blocks] [chunk]
 
 Rebuilds ``stencil_sweep.cu``, ``downsweep.cu`` and ``residual_df32.cu``
 (and ``seg_sweep.cu``, ``prolong_correct.cu``) with other build-time
 constants (``-DOMG_WIDE``, ``-DOMG_FACES``, ``-DOMG_SEGWIDE``,
-``-DOMG_SLABAP``, ``-DOMG_SLABEPS``,
+``-DOMG_SLABAP``, ``-DOMG_SLABEPS``, ``-DOMG_HALFAF``, ``-DOMG_DF32MARCH``,
 ``-DOMG_TILE_X/Y``, ``-DOMG_CHUNK_Z``, ``-DOMG_MIN_BLOCKS_PER_SM``)
 into ``build/probe`` and prints, one JSON object per line:
 
@@ -127,10 +127,37 @@ into ``build/probe`` and prints, one JSON object per line:
 * ``tiles``  — double pair and downsweep at 512^3 float32 for a list of
   (tile x, tile y, chunk z) shapes of the old design, median of 8, CUDA
   events;
-* ``df32_blocks`` — the double-float residual kernel
-  (``residual_df32.cu``) at 512^3 for a list of thread-block shapes
-  (``-DOMG_DF32_BX/BY/BZ``), median of 8, CUDA events, the shipped shape
-  first and last;
+* ``half``   — row 2, one half-sweep (``half_sweep_dense``: the dense
+  forest's sequential smoother, constant coefficients, its identity
+  plane-valued faces, random planes, lam 0), as shipped (the register
+  march of csrc/stencil_sweep.cu) against the design before it
+  (``-DOMG_HALFAF=0``: stream_kernel.cuh's wavefront, NS = 1) on every
+  canvas the forests send, 256^3 to 16^3, float32 and float64, in turns
+  (old, new, new, old), from the library: ``ms`` CUDA events around one
+  call (median of 10; the host's launch work shows on small canvases),
+  ``device_ms`` 20 launches in one CUDA graph, its replay timed, over 20
+  (median of 10), with the design each launch ran and the byte bound at
+  3.35 TB/s; then old against new bitwise on every canvas, both parities
+  (``half_bitwise``), and the registers and spills ptxas reports
+  (``half_ptxas``);
+* ``df32_march`` — rows 8z and 8, the double-float residual, as shipped
+  (the z-march of csrc/residual_df32.cu on levels and slabs of 2^24
+  cells and more in planes of 2^18 and more, a thread per cell on the
+  rest) against the design
+  before it (``-DOMG_DF32MARCH=0``: a thread per cell everywhere) on an
+  interior slab (gates off) of each sharded level over 8 slabs, 512^2 x
+  64 to 32^2 x 4, and on the unsharded 512^3 and 256^3 levels (equal
+  power-of-two spacing, Dirichlet 0, lam 0), in turns (old, new, new,
+  old), ``ms`` and ``device_ms`` as for ``half``, with the design each
+  launch ran and the byte bound at 3.35 TB/s (pad planes included); then
+  old against new bitwise on the 512^2 x 64 slab, every gate pair,
+  physical and periodic z, lam 0 and 0.37, and at 512^3
+  (``df32_march_bitwise``), and the registers and spills ptxas reports
+  (``df32_march_ptxas``);
+* ``df32_blocks`` — the double-float residual's thread-per-cell kernel,
+  the design before the z-march (built with ``-DOMG_DF32MARCH=0``), at
+  512^3 for a list of thread-block shapes (``-DOMG_DF32_BX/BY/BZ``),
+  median of 8, CUDA events, the shipped shape first and last;
 * ``chunk``  — ms per have-guess FMG of the 512^3 float32 main path with
   the z chunk fixed at 64 against the shipped choice by level size,
   alternating inside one process (fixed, chosen, chosen, fixed, ...).
@@ -261,14 +288,14 @@ def probe_df32_blocks():
     rows = []
     for bx, by, bz in DF32_BLOCKS:
         fn = build(f"{bx}_{by}_{bz}",
-                   [f"-DOMG_DF32_BX={bx}", f"-DOMG_DF32_BY={by}",
-                    f"-DOMG_DF32_BZ={bz}"],
+                   ["-DOMG_DF32MARCH=0", f"-DOMG_DF32_BX={bx}",
+                    f"-DOMG_DF32_BY={by}", f"-DOMG_DF32_BZ={bz}"],
                    {"residual_df32": "omg_residual_df32"})["omg_residual_df32"]
 
         def run():
             e = fn(ctypes.byref(P), ctypes.byref(Q), xhi.data_ptr(),
                    xlo.data_ptr(), rhi.data_ptr(), rlo.data_ptr(),
-                   out.data_ptr(), st)
+                   out.data_ptr(), st, None)
             assert e == 0, e
 
         ms = time_ms(run)
@@ -916,6 +943,31 @@ def in_turns(calls, reps=10):
     return ms
 
 
+def graph_ms(run, n=20, reps=10):
+    """Device ms per launch: n launches of run (which must launch on the
+    current stream) captured in one CUDA graph, its replay timed with CUDA
+    events (median of reps), over n: no host work between launches."""
+    run()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            run()
+    ms = time_ms(g.replay, reps=reps) / n
+    del g
+    return ms
+
+
+def graph_turns(calls, n=20, reps=10):
+    """{tag: [ms, ms]}: graph_ms of each call in the turns t1 .. tn,
+    tn .. t1."""
+    tags = list(calls)
+    ms = {t: [] for t in tags}
+    for t in tags + tags[::-1]:
+        ms[t].append(graph_ms(calls[t], n, reps))
+    return ms
+
+
 def probe_rr_slab(levels=(512, 256, 128, 64, 32, 16)):
     rr_fns, rr_logs = build_many(
         {k: v + ["-Xptxas", "-v"] for k, v in RR_VARIANTS.items()},
@@ -1266,7 +1318,7 @@ def probe_slab_eps(levels=(512, 256, 128, 64, 32), K=8):
     def r8z():
         e = fn(ctypes.byref(P), ctypes.byref(Q), ctypes.byref(Zs),
                xhi.data_ptr(), xlo.data_ptr(), rhi.data_ptr(),
-               rlo.data_ptr(), out.data_ptr(), st)
+               rlo.data_ptr(), out.data_ptr(), st, None)
         assert e == 0, e
 
     r8z()
@@ -1310,6 +1362,204 @@ def probe_slab_eps(levels=(512, 256, 128, 64, 32), K=8):
                       rf"{i}0, {i}1>|stream_kernel<\w+, {i}\d, {i}[012], "
                       rf"{i}[13], {i}0, {i}1>)")
     print(json.dumps({"slab_eps_ptxas": {
+        t: ptxas_resources(g, pick.match) for t, g in logs.items()}}),
+        flush=True)
+
+
+HALF_VARIANTS = {"old": ["-DOMG_HALFAF=0"], "new": []}
+#: the canvases the forests send one half-sweep (forest_periodic's full
+#: levels at base 256)
+HALF_LEVELS = (256, 128, 64, 32, 16)
+
+
+def half_fields(n, dtype, seed=9):
+    """A forest level's half-sweep inputs on an n^3 canvas: the dense
+    forest's kernel config (identity coefficients, every face a plane),
+    phi, rhs and the six planes random."""
+    cfg = dk.DenseStencilConfig((n,) * 3, (float(n * n),) * 3,
+                                [(1.0, 0.0, 0.0)] * 6, (False,) * 3, dtype,
+                                b_const=[None] * 6)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f = {k: torch.randn(cfg.pshape, generator=g, dtype=dtype, device="cuda")
+         for k in ("phi", "rhs")}
+    f["planes"] = [torch.randn(cfg.plane_shape(nb), generator=g, dtype=dtype,
+                               device="cuda") for nb in range(6)]
+    f["out"] = torch.empty_like(f["phi"])
+    return cfg, f
+
+
+def half_call(fns, cfg, f, parity=0):
+    """One half-sweep of one build into f["out"], on the current stream;
+    returns the design."""
+    P = dk._params(cfg, 0.0, f["planes"], parity, 1)
+    E = dk._eps_params(cfg, ())
+    d = ctypes.c_int(-1)
+
+    def run():
+        st = torch.cuda.current_stream().cuda_stream
+        e = fns["omg_stencil_sweep"](dk._dt(cfg), 0, ctypes.byref(P),
+                                     ctypes.byref(E), f["phi"].data_ptr(),
+                                     f["rhs"].data_ptr(),
+                                     f["out"].data_ptr(), st,
+                                     ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+    return run
+
+
+def probe_half(levels=HALF_LEVELS):
+    fns, logs = build_many(
+        {k: v + ["-Xptxas", "-v"] for k, v in HALF_VARIANTS.items()},
+        {"stencil_sweep": "omg_stencil_sweep"})
+    checks = []
+    for dtype in (torch.float32, torch.float64):
+        item = 4 if dtype == torch.float32 else 8
+        for n in levels:
+            cfg, f = half_fields(n, dtype)
+            calls = {t: half_call(fn, cfg, f) for t, fn in fns.items()}
+            design = {t: c() for t, c in calls.items()}
+            # phi and rhs read, the output written, the six planes read
+            nbytes = 3 * n ** 3 * item + sum(p.numel() for p in
+                                             f["planes"]) * item
+            print(json.dumps({"half": {
+                "dims": [n] * 3, "dtype": str(dtype)[6:],
+                "ms": in_turns(calls), "device_ms": graph_turns(calls),
+                "design": design,
+                "bound_ms": 1e3 * nbytes / 3.35e12}}), flush=True)
+            for parity in (0, 1):
+                got = {}
+                for t, fn in fns.items():
+                    f["out"].fill_(float("nan"))
+                    half_call(fn, cfg, f, parity)()
+                    got[t] = f["out"][dk._ISL].clone()
+                torch.cuda.synchronize()
+                checks.append({"dims": [n] * 3, "dtype": str(dtype)[6:],
+                               "parity": parity,
+                               "bitwise": torch.equal(got["old"],
+                                                      got["new"])})
+                del got
+            del f, calls
+            torch.cuda.empty_cache()
+    print(json.dumps({"half_bitwise": checks}), flush=True)
+    i = r"(?:\(int\))?"
+    pick = re.compile(rf"void (apply_faces_kernel<\w+, {i}4, {i}0, {i}0, "
+                      rf"{i}0>|stream_kernel<\w+, {i}1, {i}0, {i}0, {i}0, "
+                      rf"{i}0>)")
+    print(json.dumps({"half_ptxas": {
+        t: ptxas_resources(g, pick.match) for t, g in logs.items()}}),
+        flush=True)
+
+
+DF32_VARIANTS = {"old": ["-DOMG_DF32MARCH=0"], "new": []}
+
+
+def df32_fields(dims, per=(False, False, False), gates=None, seed=8):
+    """The double-float residual's inputs on a level (or, with gates, a
+    slab whose z pads hold random neighbour planes): equal power-of-two
+    spacing, Dirichlet 0; x_hi and rhs_hi N(0,1), their lo parts 2^-25 of
+    that, pads random."""
+    n = max(dims) if gates is None else max(dims[:2])
+    h2 = float(2 ** (2 * int(math.ceil(math.log2(n)))))
+    cfg = dk.DenseStencilConfig(dims, (h2,) * 3, [(2.0, -1.0, 0.0)] * 6,
+                                per, torch.float32, b_const=[0.0] * 6)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f = {k: torch.randn(cfg.pshape, generator=g, device="cuda")
+         for k in ("xhi", "rhi")}
+    f["xlo"], f["rlo"] = f["xhi"] * 2.0 ** -25, f["rhi"] * 2.0 ** -25
+    f["out"] = torch.empty_like(f["xhi"])
+    return cfg, f
+
+
+def df32_call(fns, cfg, f, gates=None, lam=0.0):
+    """One double-float residual of one build into f["out"], on the
+    current stream; returns the design (gates: the slab mode)."""
+    from octree_mg_tpu_torch.ops import df32 as df
+    P = dk._params(cfg, 0.0, [None] * 6)
+    Q = df._Df32Params()
+    for nb, (hi, lo) in enumerate(df._cb_pairs(cfg)):
+        Q.cb_hi[nb], Q.cb_lo[nb] = hi, lo
+    lp = df.split_lam(lam)
+    Q.has_lam = int(lp is not None)
+    Q.lam_hi, Q.lam_lo = lp if lp is not None else (0.0, 0.0)
+    Zs = dk._slab_params(gates) if gates is not None else None
+    d = ctypes.c_int(-1)
+    ptrs = [f[k].data_ptr() for k in ("xhi", "xlo", "rhi", "rlo", "out")]
+
+    def run():
+        st = torch.cuda.current_stream().cuda_stream
+        if gates is None:
+            e = fns["omg_residual_df32"](ctypes.byref(P), ctypes.byref(Q),
+                                         *ptrs, st, ctypes.byref(d))
+        else:
+            e = fns["omg_residual_df32_slab"](
+                ctypes.byref(P), ctypes.byref(Q), ctypes.byref(Zs), *ptrs,
+                st, ctypes.byref(d))
+        assert e == 0, e
+        return d.value
+    return run
+
+
+def probe_df32_march(levels=(512, 256, 128, 64, 32), K=8):
+    fns, logs = build_many(
+        {k: v + ["-Xptxas", "-v"] for k, v in DF32_VARIANTS.items()},
+        {"residual_df32": "omg_residual_df32"})
+    for t in fns:       # the slab mode from the same library
+        f = ctypes.CDLL(os.path.join(OUT, f"residual_df32_{t}.so"))
+        f = f.omg_residual_df32_slab
+        f.argtypes = dk._ARGTYPES["omg_residual_df32_slab"]
+        f.restype = ctypes.c_int
+        fns[t]["omg_residual_df32_slab"] = f
+    shapes = [((n, n, n // K), (False, False)) for n in levels]
+    shapes += [((n, n, n), None) for n in levels[:2]]
+    for dims, gates in shapes:
+        cfg, f = df32_fields(dims, gates=gates)
+        calls = {t: df32_call(fn, cfg, f, gates) for t, fn in fns.items()}
+        design = {t: c() for t, c in calls.items()}
+        X, Y, Z = dims
+        # x_hi and x_lo with the pad planes a slab reads, rhs_hi, rhs_lo
+        # and the output
+        halo = 2 if gates is not None else 0
+        nbytes = (2 * (Z + halo) + 3 * Z) * X * Y * 4
+        print(json.dumps({"df32_march": {
+            "kernel": "residual_df32_dense" + ("[z_gates]" if gates else ""),
+            "dims": list(dims), "ms": in_turns(calls),
+            "device_ms": graph_turns(calls), "design": design,
+            "bound_ms": 1e3 * nbytes / 3.35e12}}), flush=True)
+        del f, calls
+        torch.cuda.empty_cache()
+    checks = []
+    n = levels[0]
+    for per_z, gates, lam in (
+            (pz, gg, lm) for pz in (False, True)
+            for gg in ((False, False), (True, False), (False, True),
+                       (True, True)) for lm in (0.0, 0.37)):
+        cfg, f = df32_fields((n, n, n // K), (False, False, per_z), gates)
+        got = {}
+        for t, fn in fns.items():
+            f["out"].fill_(float("nan"))
+            df32_call(fn, cfg, f, gates, lam)()
+            got[t] = f["out"][dk._ISL].clone()
+        torch.cuda.synchronize()
+        checks.append({"dims": [n, n, n // K], "periodic_z": per_z,
+                       "gates": gates, "lam": lam,
+                       "bitwise": torch.equal(got["old"], got["new"])})
+        del f, got
+    cfg, f = df32_fields((n,) * 3)
+    got = {}
+    for t, fn in fns.items():
+        f["out"].fill_(float("nan"))
+        df32_call(fn, cfg, f, None, 0.37)()
+        got[t] = f["out"][dk._ISL].clone()
+    torch.cuda.synchronize()
+    checks.append({"dims": [n] * 3, "lam": 0.37,
+                   "bitwise": torch.equal(got["old"], got["new"])})
+    del f, got
+    torch.cuda.empty_cache()
+    print(json.dumps({"df32_march_bitwise": checks}), flush=True)
+    i = r"(?:\(int\))?"
+    pick = re.compile(rf"void (df32_march_kernel<{i}[01]>|"
+                      rf"residual_df32_kernel<{i}[01]>)")
+    print(json.dumps({"df32_march_ptxas": {
         t: ptxas_resources(g, pick.match) for t, g in logs.items()}}),
         flush=True)
 
@@ -1379,6 +1629,8 @@ if __name__ == "__main__":
                         ("seg", probe_seg),
                         ("slab_apply", probe_slab_apply),
                         ("slab_eps", probe_slab_eps),
+                        ("half", probe_half),
+                        ("df32_march", probe_df32_march),
                         ("sass", probe_sass),
                         ("tiles", probe_tiles),
                         ("df32_blocks", probe_df32_blocks),

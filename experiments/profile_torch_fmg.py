@@ -4,6 +4,8 @@
     python3 experiments/profile_torch_fmg.py            # the uniform passes
     python3 experiments/profile_torch_fmg.py --vcoeff   # the coefficient ones
     python3 experiments/profile_torch_fmg.py --forest   # the forest ones
+    python3 experiments/profile_torch_fmg.py --forest-periodic  # one of them
+    python3 experiments/profile_torch_fmg.py --refined  # the refined outers
     python3 experiments/profile_torch_fmg.py --boxed    # the boxed solver
     python3 experiments/profile_torch_fmg.py --sharded  # the slab solver
 
@@ -36,16 +38,22 @@ per line:
   ahelmholtz refined solve (lam 0.31, three coefficient fields
   0.5 + U[0,1)): its outer is dominated by the plain-PyTorch
   ``residual_df32_vcoeff``, whose ~900 elementwise kernels show by name;
-* ``profile_forest`` (``--forest`` only) — the ``profile`` pass for the
-  dense forests of ``chip_smoke.py``: the L forest at base 256, box 16
-  (``forest_path``) and the periodic forest at base 128 (``forest_periodic``),
-  float32: the busy share says how much of an FMG is the card's and how
-  much the host's eager ghost assembly, the kernel names what runs;
+* ``profile_forest`` (``--forest`` only; ``--forest-periodic`` the
+  periodic one alone) — the ``profile`` pass for the dense forests of
+  ``chip_smoke.py``: the L forest at base 256, box 16 (``forest_path``)
+  and the fully periodic forest at base 256, box 16
+  (``forest_periodic``), float32: the busy share says how much of an FMG
+  is the card's and how much the host's eager ghost assembly, the kernel
+  names what runs, summed by the kernel rows of ``PERF.md`` section 6
+  (``by_row``: row 2, the half-sweep of the periodic forest's sequential
+  levels, the segment rows 1s and 5s, ...);
 * ``profile_boxed`` (``--boxed`` only) — the same pass for
   ``chip_smoke.py``'s ``boxed_path`` float64 solve: the boxed solver
   (``MGSolver``) on the fully periodic sparse tree at base 256, box 16,
   the flat half-sweep kernel on; with the kernel launches and the
   coarse loop's host reads per FMG;
+* ``--refined`` alone: ``profile_refined`` and ``profile_sharded_refined``
+  (below), each with its ``by_row`` (rows 8 and 8z);
 * ``profile_sharded``, ``profile_sharded_refined``,
   ``profile_sharded_vcoeff`` (``--sharded`` only) — the same pass for
   ``chip_smoke.py``'s ``sharded_path`` solver (512^3 float32 over 8 slabs
@@ -158,7 +166,8 @@ def phase_profile_refined(ps, n_outer=6):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n_outer
 
-    emit({"profile_refined": profiled(run, n_outer, "outer")})
+    emit({"profile_refined": by_row(profiled(run, n_outer, "outer",
+                                             top=None), "outer")})
 
 
 def phase_residual_cost(ps):
@@ -288,14 +297,14 @@ def phase_profile_refined_vcoeff(n_outer=2):
     emit({"profile_refined_vcoeff": profiled(run, n_outer, "outer")})
 
 
-def phase_profile_forest(n=4):
+def phase_profile_forest(n=4, base=256, kinds=("L", "periodic")):
     import chip_smoke
     from octree_mg_tpu_torch.core import tree as tm
-    for name, tree, dirichlet in (
-            ("forest_path", chip_smoke.forest_tree(pkg, tm, "L", 256, 16),
-             True),
-            ("forest_periodic",
-             chip_smoke.forest_tree(pkg, tm, "periodic", 128, 16), False)):
+    for name, kind, dirichlet in (("forest_path", "L", True),
+                                  ("forest_periodic", "periodic", False)):
+        if kind not in kinds:
+            continue
+        tree = chip_smoke.forest_tree(pkg, tm, kind, base, 16)
         torch.cuda.empty_cache()
         ps = pkg.PoissonSolver(3, (1,) * 3, 16, tree=tree,
                                dtype=torch.float32)
@@ -306,12 +315,13 @@ def phase_profile_forest(n=4):
         ps.set_rhs(arrays={top: torch.randn(ps.solver._ishape(top),
                                             generator=g, device="cuda")})
         ps.solve(rtol=0.0, max_cycles=3)
-        emit({"profile_forest": {"name": name, **profiled(
-            lambda: loop_ms(ps, n, False), n, "fmg")}})
+        emit({"profile_forest": {"name": name, "base": base, **by_row(
+            profiled(lambda: loop_ms(ps, n, False), n, "fmg", top=None),
+            "fmg")}})
         del ps
 
 
-def phase_profile_sharded(n=4):
+def phase_profile_sharded(n=4, parts=("fmg", "refined", "vcoeff")):
     """The ``profile`` pass for the slab solver: chip_smoke.py's
     ``sharded_path`` problem (the main path's 512^3 level and rhs over 8
     slabs on the card) and its ``sharded_vcoeff`` one (vhelmholtz at
@@ -333,17 +343,37 @@ def phase_profile_sharded(n=4):
         return by_row(profiled(run, n, "fmg", top=None), "fmg")
 
     _, ss = chip_smoke.dense_pair(pkg, N, 8)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    st = chip_smoke.seeded_state(ss, torch.randn((N,) * 3, generator=g,
-                                                 device="cuda"))
-    emit({"profile_sharded": profile(ss, st, 0.0)})
-    del st
+    if "fmg" in parts:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        st = chip_smoke.seeded_state(ss, torch.randn((N,) * 3, generator=g,
+                                                     device="cuda"))
+        emit({"profile_sharded": profile(ss, st, 0.0)})
+        del st
+        torch.cuda.empty_cache()
+    if "refined" in parts:
+        phase_profile_sharded_refined(ss)
+    del ss
     torch.cuda.empty_cache()
+    if "vcoeff" not in parts:
+        return
+    sd, ss = chip_smoke.dense_pair(pkg, N, 8, operator="vhelmholtz")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rhs = torch.randn((N,) * 3, generator=g, device="cuda")
+    st = chip_smoke.seeded_state(
+        ss, rhs, (chip_smoke.smooth_eps(sd, 0, torch.float32),))
+    del sd, rhs
+    emit({"profile_sharded_vcoeff": profile(ss, st, 1.5)})
+    del ss, st
+
+
+def phase_profile_sharded_refined(ss, n_outer=4):
+    """The profile pass over the slab solver's refined outers
+    (chip_smoke.py's sharded_refined rhs)."""
+    import chip_smoke
     from octree_mg_tpu_torch.ops import df32 as df
     rh, rl = df.split_f64(chip_smoke.seeded_rhs64(N, 1))
     rp = pkg.ShardedRefinedPoisson(ss)
     st = ss.allocate()
-    n_outer = 4
 
     def outers():
         torch.cuda.synchronize()
@@ -354,16 +384,7 @@ def phase_profile_sharded(n=4):
 
     emit({"profile_sharded_refined": by_row(
         profiled(outers, n_outer, "outer", top=None), "outer")})
-    del ss, st, rp, rh, rl
-    torch.cuda.empty_cache()
-    sd, ss = chip_smoke.dense_pair(pkg, N, 8, operator="vhelmholtz")
-    g = torch.Generator(device="cuda").manual_seed(5)
-    rhs = torch.randn((N,) * 3, generator=g, device="cuda")
-    st = chip_smoke.seeded_state(
-        ss, rhs, (chip_smoke.smooth_eps(sd, 0, torch.float32),))
-    del sd, rhs
-    emit({"profile_sharded_vcoeff": profile(ss, st, 1.5)})
-    del ss, st
+    del st, rp, rh, rl
 
 
 #: kernel names (demangled, as the profiler gives them) by the row of
@@ -381,6 +402,14 @@ ROW_PATTERNS = [
     ("7z", r"prolong_correct_kernel<\w+, 0, 1>"),
     ("8z", r"residual_df32_kernel<1>"),
     ("8", r"residual_df32_kernel<0>"),
+    ("8z march", r"df32_march_kernel<1>"),
+    ("8 march", r"df32_march_kernel<0>"),
+    ("2 march", r"half_march_kernel<"),
+    ("2", r"stream_kernel<\w+, 1, 0, 0, 0, 0>"),
+    ("1s wide", r"wide_kernel<float, [24], 0, 0, 1>"),
+    ("5s face-plane", r"apply_faces_kernel<\w+, [12], 0, 1, 0>"),
+    ("1s/5s", r"stream_kernel<\w+, \d, [012], 0, 1, 0>"),
+    ("7c", r"prolong_correct_kernel<\w+, 2, 0>"),
     ("1/3 wide", r"wide_kernel<"),
     ("1e/3e face-plane", r"face_kernel<"),
     ("4/4e/5e face-plane", r"apply_faces_kernel<"),
@@ -435,6 +464,16 @@ if __name__ == "__main__":
     emit({"card": smi, "torch": torch.__version__})
     if "--forest" in sys.argv[1:]:
         phase_profile_forest()
+        sys.exit(0)
+    if "--forest-periodic" in sys.argv[1:]:
+        phase_profile_forest(kinds=("periodic",))
+        sys.exit(0)
+    if "--refined" in sys.argv[1:]:
+        solver = main_path()
+        phase_profile_refined(solver)
+        del solver
+        torch.cuda.empty_cache()
+        phase_profile_sharded(parts=("refined",))
         sys.exit(0)
     if "--boxed" in sys.argv[1:]:
         phase_profile_boxed()

@@ -107,6 +107,20 @@ struct SlabParams {
 #define OMG_SLABEPS 1
 #endif
 
+// OMG_HALFAF (half-sweep) 0 builds one half-sweep (half_sweep_dense) on
+// stream_kernel.cuh's wavefront (NS = 1), the design before the register
+// march (stencil_sweep.cu), and OMG_DF32MARCH 0 builds every double-float
+// residual (residual_df32.cu, both modes) as one thread per cell reading
+// its neighbourhoods from device memory, the design before the z-march on
+// large levels and slabs: for experiments/probe_torch_kernels.py half and
+// df32_march and chip_smoke.py to hold the two against each other.
+#ifndef OMG_HALFAF
+#define OMG_HALFAF 1
+#endif
+#ifndef OMG_DF32MARCH
+#define OMG_DF32MARCH 1
+#endif
+
 // Whether the low / high z face of a slab synthesizes its BC ghost
 // (else its neighbours beyond the face are pad planes).
 __device__ __forceinline__ bool slab_syn(const LevelParams& P,

@@ -26,11 +26,18 @@
 //
 // half_sweep_dense (n_sweeps 1, constant coefficients) replaces the Pallas
 // entry point of that name: ONE half-sweep updating the cells of parity
-// red_parity, every other cell copied; the NS = 1 instantiation of the
-// same wavefront (halo 1, four planes in the ring).  The dense forest's
-// sequential smoother calls it between ghost refreshes, with its ghosts
-// in the six plane-valued faces.  Bound: bytes, as a pair, for half the
-// updates.
+// red_parity, every other cell copied.  The dense forest's sequential
+// smoother calls it between ghost refreshes, with its ghosts in the six
+// plane-valued faces.  Bound: bytes (phi and rhs read, the output
+// written, 12 B per cell in float32).  A half-sweep has no dependence
+// between planes: a cell of one colour reads only the other colour, and
+// every read is of the input.  So it runs a register march with no
+// shared memory and no barrier (half_march_kernel below, every launch),
+// where it ran the NS = 1 instantiation of stream_kernel.cuh's wavefront
+// (a ring in shared memory, a barrier per plane), which now builds only
+// with -DOMG_HALFAF=0, the probe's old design: 0.094 against 0.122 ms
+// at 256^3 float32 on an H100, 0.014 against 0.017 at 128^3 (device
+// time, PERF.md, experiments/probe_torch_kernels.py half).
 //
 // The variable-coefficient variants (E->n 1 or 3) replace the Pallas
 // bodies' eps windows (_halfsweep / _apply_expr with eps).  Bound: bytes,
@@ -134,6 +141,169 @@ static int launch_apply(const LevelParams& P, const EpsParams& E,
     return launch_stream<T, 0, MODE, NE>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
 }
 
+// ---- one half-sweep as a register march: no shared memory, no barrier --
+//
+// A block owns a 64 x 16 tile of (x, y) and a chunk of z planes; a thread
+// owns four x-adjacent cells of one row (sixteen threads a row, two rows
+// a warp) and marches up its chunk with phi's planes r-1, r and r+1 of
+// its cells in registers, plane r+2 loaded one step ahead.  Its x
+// neighbours come from the threads beside it (a warp shuffle within the
+// row, a load at the tile's edges), its y neighbours are loads of the
+// rows above and below, which the warps of those rows load as their own
+// (L1 serves them).  Warps never wait for each other, so the loads of
+// many planes are in flight at once; that is what the ring's barrier per
+// plane did not allow.  Chunks shorten until a launch has HR_BPS blocks
+// per SM (the register cap leaves room for 4 float32 blocks, 64
+// registers, or 2 float64): more, shorter chunks were faster at 256^3
+// than fewer, longer ones in the probe's trials (PERF.md).  The faces
+// are synthesized as in apply_faces.cuh (neighbor_pair); the update is
+// stream_kernel.cuh's, in the plain version's order.
+constexpr int HR_C = 4, HR_TX = 64, HR_TY = 16, HR_HT = HR_TX / HR_C;
+constexpr int HR_NT = HR_HT * HR_TY;
+constexpr int HR_CHUNK_Z = 64, HR_MIN_CZ = 2, HR_BPS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(HR_NT, sizeof(T) == 4 ? 4 : 2)
+half_march_kernel(LevelParams P, int cz, int vec, const T* __restrict__ phi,
+                  const T* __restrict__ rhs, T* __restrict__ out) {
+  constexpr int C = HR_C, HT = HR_HT;
+  const int X = P.X, Y = P.Y, Z = P.Z;
+  const int x0 = blockIdx.x * HR_TX, y0 = blockIdx.y * HR_TY;
+  const int zb = blockIdx.z * cz;
+  const int ze = zb + cz < Z ? zb + cz : Z;
+  const int h = threadIdx.x % HT, ty = threadIdx.x / HT;
+  const int gx0 = x0 + C * h, gy = y0 + ty;
+  const int px = P.per[0], py = P.per[1];
+  const int sy = src_idx(gy, Y, py), sym = src_idx(gy - 1, Y, py),
+            syp = src_idx(gy + 1, Y, py);
+  const bool ovec = vec != 0 && gx0 + C <= X;
+  int sx[C];
+  bool in[C], xyf[C];
+  const bool yface = !py && (gy == 0 || gy == Y - 1);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int g = gx0 + c;
+    sx[c] = src_idx(g, X, px);
+    in[c] = g < X && gy < Y;
+    xyf[c] = in[c] && (yface || (!px && (g == 0 || g == X - 1)));
+  }
+  const int sxl = src_idx(gx0 - 1, X, px), sxh = src_idx(gx0 + C, X, px);
+  const long long gplane = (long long)(Y + 2 * PY) * X;
+  const T idx2 = (T)P.idr2[0], idy2 = (T)P.idr2[1], idz2 = (T)P.idr2[2];
+  const T inv_den = (T)P.inv_den;
+  // row offsets inside a plane (-1: the row has no source, zeros)
+  auto roff = [&](int s) { return s < 0 ? -1LL : (long long)(s + PY) * X; };
+  const long long oc = roff(sy), om = roff(sym), op = roff(syp);
+  // the four cells at row offset o of the plane at offset zo (-1: zeros)
+  auto row4 = [&](const T* f, long long zo, long long o, T (&v)[C]) {
+    if (zo < 0 || o < 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = (T)0;
+      return;
+    }
+    const T* p = f + zo + o;
+    if (ovec) {
+      af_ld4<T>(p + gx0, v);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = sx[c] >= 0 ? p[sx[c]] : (T)0;
+    }
+  };
+  // the offset of the source plane of plane q, or -1
+  auto plane = [&](int q) {
+    const int sq = src_idx(q, Z, P.per[2]);
+    return sq < 0 ? -1LL : (long long)(sq + PZ) * gplane;
+  };
+  T m[C], cc[C], n[C];
+  row4(phi, plane(zb - 1), oc, m);
+  row4(phi, plane(zb), oc, cc);
+  row4(phi, plane(zb + 1), oc, n);
+  for (int r = zb; r < ze; ++r) {
+    T q[C] = {};
+    if (r + 2 <= ze) row4(phi, plane(r + 2), oc, q);
+    const long long zr = (long long)(r + PZ) * gplane;
+    T yl[C], yh[C], rr[C];
+    row4(phi, zr, om, yl);
+    row4(phi, zr, op, yh);
+    row4(rhs, zr, oc, rr);
+    T xl = __shfl_up_sync(0xffffffffu, cc[C - 1], 1, HT);
+    T xh = __shfl_down_sync(0xffffffffu, cc[0], 1, HT);
+    if (h == 0) xl = oc >= 0 && sxl >= 0 ? phi[zr + oc + sxl] : (T)0;
+    if (h == HT - 1) xh = oc >= 0 && sxh >= 0 ? phi[zr + oc + sxh] : (T)0;
+    const bool zf = !P.per[2] && (r == 0 || r == Z - 1);
+    T a[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const T v = cc[c];
+      T lo[3] = {c ? cc[c - 1] : xl, yl[c], m[c]};
+      T hi[3] = {c < C - 1 ? cc[c + 1] : xh, yh[c], n[c]};
+      if (xyf[c] || (zf && in[c])) {
+        const int g = gx0 + c;
+        T l, u;
+        neighbor_pair<T>(P, 0, g, X, v, lo[0], hi[0], g, gy, r, l, u);
+        lo[0] = l; hi[0] = u;
+        neighbor_pair<T>(P, 1, gy, Y, v, lo[1], hi[1], g, gy, r, l, u);
+        lo[1] = l; hi[1] = u;
+        neighbor_pair<T>(P, 2, r, Z, v, lo[2], hi[2], g, gy, r, l, u);
+        lo[2] = l; hi[2] = u;
+      }
+      T acc = -rr[c];
+      acc = acc + idx2 * (lo[0] + hi[0]);
+      acc = acc + idy2 * (lo[1] + hi[1]);
+      acc = acc + idz2 * (lo[2] + hi[2]);
+      a[c] = ((gx0 + c + gy + r) & 1) == P.red_parity ? acc * inv_den : v;
+    }
+    if (gy < Y) {
+      T* o = out + zr + (long long)(gy + PY) * X;
+      if (ovec) {
+        af_st4<T>(o + gx0, a);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (in[c]) o[gx0 + c] = a[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      m[c] = cc[c];
+      cc[c] = n[c];
+      n[c] = q[c];
+    }
+  }
+}
+
+template <typename T>
+static int launch_half_march(const LevelParams& P, const void* phi,
+                             const void* rhs, void* out, cudaStream_t s) {
+  auto al = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const int vec = (P.X * (int)sizeof(T)) % 16 == 0 && al(phi) && al(rhs) &&
+                  al(out);
+  int cz = HR_CHUNK_Z;
+  while (cz > HR_MIN_CZ &&
+         cdiv(P.X, HR_TX) * cdiv(P.Y, HR_TY) * cdiv(P.Z, cz) <
+             HR_BPS * (unsigned)wide_sms())
+    cz /= 2;
+  dim3 grid(cdiv(P.X, HR_TX), cdiv(P.Y, HR_TY), cdiv(P.Z, cz));
+  half_march_kernel<T><<<grid, HR_NT, 0, s>>>(P, cz, vec, (const T*)phi,
+                                              (const T*)rhs, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+// One half-sweep: the register march (*design = 4), every launch; with
+// -DOMG_HALFAF=0 stream_kernel.cuh's wavefront (NS = 1), the design before.
+template <typename T>
+static int launch_half(const LevelParams& P, const EpsParams& E,
+                       const void* phi, const void* rhs, void* out,
+                       cudaStream_t s, int* design) {
+#if OMG_HALFAF
+  (void)E;
+  *design = 4;
+  return launch_half_march<T>(P, phi, rhs, out, s);
+#else
+  return launch_stream<T, 1, M_PAIRS, 0>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+#endif
+}
+
 template <typename T, int NE>
 static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
                     const void* phi, const void* rhs, void* out,
@@ -146,7 +316,7 @@ static int dispatch(int mode, const LevelParams& P, const EpsParams& E,
   if (P.n_sweeps == 1) {
     // half_sweep_dense: constant coefficients only
     if constexpr (NE == 0)
-      return launch_stream<T, 1, M_PAIRS, 0>(P, E, 0, phi, rhs, out, nullptr, nullptr, s);
+      return launch_half<T>(P, E, phi, rhs, out, s, design);
     return (int)cudaErrorInvalidValue;
   }
   if (P.n_sweeps == 2) return launch_pairs<T, 2, NE>(P, E, phi, rhs, out, s, design);
@@ -171,7 +341,8 @@ static int dispatch_eps(int mode, const LevelParams& P, const EpsParams& E,
 // 3) in E->f, or null for none.  design, unless null, receives 1 where
 // the launch ran the wide design (stream_wide.cuh), 2 where it ran a
 // face-plane design (stream_faces.cuh for pairs, apply_faces.cuh for
-// modes 1 and 2), else 0.  Returns the cudaError_t of the launch.
+// modes 1 and 2), 4 where one half-sweep ran the register march, else 0.
+// Returns the cudaError_t of the launch.
 extern "C" int omg_stencil_sweep(int dtype, int mode, const LevelParams* P,
                                  const EpsParams* E, const void* phi,
                                  const void* rhs, void* out, void* stream,

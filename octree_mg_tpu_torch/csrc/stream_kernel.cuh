@@ -25,6 +25,10 @@
 // Arithmetic per cell is that of the plain PyTorch versions, operation by
 // operation (see stencil_common.cuh).
 //
+// The NS = 1 instantiation (one half-sweep, half_sweep_dense) builds only
+// with -DOMG_HALFAF=0, the probe's old design: every half-sweep runs the
+// register march of stencil_sweep.cu.
+//
 // NE (0, 1 or 3) is the number of coefficient fields.  NE = 0 is the
 // constant-coefficient stencil; NE > 0 (vlaplacian/vhelmholtz,
 // ahelmholtz) replaces the update and the apply by their harmonic-mean

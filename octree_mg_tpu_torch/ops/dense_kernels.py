@@ -95,7 +95,9 @@ coefficients for the residual-restriction (PERF.md).  The library
 reports which design a launch ran; a launch of the wide one is counted
 under ``name[wide]`` as well, one of a face-plane one under
 ``name[n_eps=k][faces]`` (``residual_restrict_dense[faces]`` without
-coefficients).
+coefficients).  One half-sweep runs a register march (csrc/stencil_sweep.cu:
+no shared memory, no barrier), every launch counted under
+``half_sweep_dense[march]`` as well.
 
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
@@ -189,6 +191,12 @@ for _n in (1, 3):
         _LAUNCHES[slab_name(_e, _n) + "[faces]"] = 0
 #: a slab prolongation on the pair kernel (csrc/prolong_correct.cu)
 _LAUNCHES[slab_name("prolong_correct_dense") + "[pair]"] = 0
+#: one half-sweep on the register march (csrc/stencil_sweep.cu)
+_LAUNCHES["half_sweep_dense[march]"] = 0
+#: a double-float residual on the z-march (csrc/residual_df32.cu), on a
+#: level and on a slab
+_LAUNCHES["residual_df32_dense[march]"] = 0
+_LAUNCHES[slab_name("residual_df32_dense") + "[march]"] = 0
 
 
 def launch_counts() -> dict:
@@ -793,14 +801,18 @@ def cuda_stream(t: torch.Tensor) -> int:
 def _count_design(name: str, n_eps: int, design: int) -> None:
     """Count a launch of a kernel entry point under the design the
     library reports it ran (1 wide, 2 face-plane, 3 the pair
-    prolongation, 0 none of them).  name: the entry point, or a name
-    that already carries its variant (then n_eps 0)."""
+    prolongation, 4 a march: one half-sweep's register march, the
+    double-float residual's z-march; 0 none of them).
+    name: the entry point, or a name that already carries its variant
+    (then n_eps 0)."""
     if design == 1:
         _LAUNCHES[name + "[wide]"] += 1
     elif design == 2:
         _LAUNCHES[faces_name(name, n_eps)] += 1
     elif design == 3:
         _LAUNCHES[name + "[pair]"] += 1
+    elif design == 4:
+        _LAUNCHES[name + "[march]"] += 1
 
 
 def record_launch(err: int, what: str,
@@ -1063,7 +1075,9 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     refreshed between half-sweeps (the reference's refill cadence,
     smooth_boxes, m_multigrid.f90:404-424): two calls with a refresh
     between are one pair.  The arithmetic of an updated cell is that of
-    pair_sweep_dense's red half.  On the card: constant coefficients."""
+    pair_sweep_dense's red half.  On the card: constant coefficients, on
+    a register march (csrc/stencil_sweep.cu), also counted under
+    ``half_sweep_dense[march]``."""
     eps = _check_eps(cfg, eps, "half_sweep_dense")
     if not phi.is_cuda:
         return _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps)
@@ -1076,11 +1090,13 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     P = _params(cfg, lam, bplanes, parity, 1)
     E = _eps_params(cfg, ())
     out = torch.empty_like(phi)
+    design = ctypes.c_int(0)
     err = _fn("stencil_sweep", "omg_stencil_sweep")(
         _dt(cfg), _MODE_PAIRS, ctypes.byref(P), ctypes.byref(E),
         phi.data_ptr(), rhs.data_ptr(), out.data_ptr(), cuda_stream(phi),
-        None)
+        ctypes.byref(design))
     record_launch(err, "half_sweep_dense")
+    _count_design("half_sweep_dense", 0, design.value)
     return out
 
 

@@ -351,11 +351,12 @@ class _Df32Params(ctypes.Structure):
 
 dk._ARGTYPES["omg_residual_df32"] = [
     ctypes.POINTER(dk._LevelParams), ctypes.POINTER(_Df32Params),
-    dk._VP, dk._VP, dk._VP, dk._VP, dk._VP, dk._VP]
+    dk._VP, dk._VP, dk._VP, dk._VP, dk._VP, dk._VP,
+    ctypes.POINTER(ctypes.c_int)]
 dk._ARGTYPES["omg_residual_df32_slab"] = [
     ctypes.POINTER(dk._LevelParams), ctypes.POINTER(_Df32Params),
     ctypes.POINTER(dk._SlabParams), dk._VP, dk._VP, dk._VP, dk._VP, dk._VP,
-    dk._VP]
+    dk._VP, ctypes.POINTER(ctypes.c_int)]
 
 
 def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
@@ -363,6 +364,13 @@ def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
     """:func:`residual_df32` in one pass over device memory.  A CPU
     tensor runs the plain version; a CUDA tensor launches
     ``csrc/residual_df32.cu`` or raises.  Bitwise the plain version.
+
+    On a level or slab of 2^24 cells and more in planes of 2^18 and more
+    (the refined path's 512^3 level and its slabs over 8) the kernel is a
+    z-march (planes of x_hi and x_lo in a shared-memory ring), whose
+    launches are also counted under ``residual_df32_dense[march]``
+    (``residual_df32_dense[z_gates][march]`` on a slab); smaller ones run
+    a thread per cell.
 
     Returns a padded field with garbage pads: ``out`` when given (a
     padded float32 field that is none of the inputs), else a new one.
@@ -397,18 +405,22 @@ def residual_df32_dense(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi, rhslo,
         Q.cb_hi[nb], Q.cb_lo[nb] = cbs[nb]
     Q.has_lam = int(lam_pair is not None)
     Q.lam_hi, Q.lam_lo = lam_pair if lam_pair is not None else (0.0, 0.0)
+    design = ctypes.c_int(0)
     ptrs = (xhi.data_ptr(), xlo.data_ptr(), rhshi.data_ptr(),
-            rhslo.data_ptr(), out.data_ptr(), dk.cuda_stream(xhi))
+            rhslo.data_ptr(), out.data_ptr(), dk.cuda_stream(xhi),
+            ctypes.byref(design))
     if z_gates is not None:
         Zs = dk._slab_params(z_gates)
         err = dk._fn("residual_df32", "omg_residual_df32_slab")(
             ctypes.byref(P), ctypes.byref(Q), ctypes.byref(Zs), *ptrs)
-        dk.record_launch(err, "residual_df32_dense",
-                         dk.slab_name("residual_df32_dense"))
+        name = dk.slab_name("residual_df32_dense")
+        dk.record_launch(err, "residual_df32_dense", name)
+        dk._count_design(name, 0, design.value)
         return out
     err = dk._fn("residual_df32", "omg_residual_df32")(
         ctypes.byref(P), ctypes.byref(Q), *ptrs)
     dk.record_launch(err, "residual_df32_dense")
+    dk._count_design("residual_df32_dense", 0, design.value)
     return out
 
 

@@ -607,3 +607,63 @@ def test_sharded_vcoeff_runs_the_face_plane_slab_designs():
         n for c, n in by[app].items() if chip_smoke.slab_eps_apply_takes(
             tuple(int(v) for v in c.split("x")))) < per_fmg[app], (per_fmg,
                                                                   by)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [2, 3, 4, 5, 6, 7])
+def test_half_sweep_new_design_equals_plain_and_old_design_bitwise(shape):
+    """One half-sweep on a canvas of chip_smoke.HALF_SHAPES (the forests'
+    64^3 .. 16^3 levels, a thin 2-plane canvas with ragged tiles,
+    ragged tiles in every dim, an odd canvas), as given, non-periodic and
+    fully periodic: float32 and float64, the four BC kinds and the
+    forest's identity planes, both parities, NaN pads: 0 ulp against the
+    plain version and against the old design (-DOMG_HALFAF=0), every
+    launch counted under half_sweep_dense[march]."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    old = chip_smoke.old_library(dk, "-DOMG_HALFAF=0", (
+        ("stencil_sweep", "omg_stencil_sweep"),))["omg_stencil_sweep"]
+    before = dk.launch_counts()
+    rows = chip_smoke.half_checks(dk, old, [chip_smoke.HALF_SHAPES[shape]])
+    assert rows and all(r["max_ulp"] == 0 and r["new_design"]
+                        for r in rows), [r for r in rows if r["max_ulp"]
+                                         or not r["new_design"]][:5]
+    after = dk.launch_counts()
+    assert after[chip_smoke.HALF_MARCH] - before[chip_smoke.HALF_MARCH] == \
+        len(rows) == after["half_sweep_dense"] - before["half_sweep_dense"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [3, 4, 7, 8, 11, 12])
+def test_df32_march_equals_plain_and_old_design_bitwise(shape):
+    """The double-float residual on a level or slab of
+    chip_smoke.DF32_MARCH_SHAPES (the sharded 64^3 and 32^3 levels'
+    slabs, which keep the thread-per-cell kernel; a 1032 x 520 x 32 slab
+    with ragged tiles on the z-march; odd extents; slabs with every gate
+    pair, physical and periodic z): 0 ulp against the plain version and
+    against the old design (-DOMG_DF32MARCH=0), within the double-float
+    bound of the float64 residual, counted under its z-march counter
+    exactly where the rule takes it."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    from octree_mg_tpu_torch.ops import df32 as df
+    before = dk.launch_counts()
+    rows = chip_smoke.df32_march_checks(dk, df,
+                                        chip_smoke.old_df32_library(dk),
+                                        [chip_smoke.DF32_MARCH_SHAPES[shape]])
+    assert rows and all(r["max_ulp"] == 0
+                        and r["new_design"] == r["want_new"]
+                        and r["within_float64_bound"] for r in rows), [
+        r for r in rows if r["max_ulp"] or r["new_design"] != r["want_new"]
+        or not r["within_float64_bound"]][:5]
+    after = dk.launch_counts()
+    moved = sum(after[c] - before[c] for c in (chip_smoke.DF32_MARCH,
+                                               chip_smoke.DF32_SLAB_MARCH))
+    assert moved == sum(r["want_new"] for r in rows)
+    launched = sum(after[c] - before[c] for c in (
+        "residual_df32_dense", "residual_df32_dense[z_gates]"))
+    assert launched == len(rows)

@@ -105,6 +105,26 @@ def test_half_sweep_matches_reference(parity, kind):
                                   np.asarray(want)[dk._ISL])
 
 
+def test_half_sweep_matches_reference_pallas_body():
+    """The same against the JAX package's Pallas body of half_sweep_dense
+    (interpret mode): an aligned float64 [256, 16, 16] level
+    (tests/test_dense.py's kernel-path size) with plane-valued faces of
+    the forest's identity coefficients, parity 1: bit for bit."""
+    rng = np.random.default_rng(7)
+    dims = (256, 16, 16)
+    jc, tc = configs(dims, (False,) * 3, [(1.0, 0.0, 0.0)] * 6, [None] * 6)
+    assert jc.use_kernel                # the Pallas body, interpreted
+    phi, rhs = padded_field(rng, dims), padded_field(rng, dims)
+    bp = planes_for(rng, tc)
+    want = np.asarray(jdk.half_sweep_dense(
+        jc, jnp.asarray(phi), jnp.asarray(rhs), jnp.asarray(0.37),
+        [jnp.asarray(p) for p in bp], parity=1))[dk._ISL]
+    got = dk.half_sweep_dense(tc, torch.from_numpy(phi), torch.from_numpy(rhs),
+                              0.37, [torch.from_numpy(p) for p in bp],
+                              parity=1)[dk._ISL].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_two_half_sweeps_are_one_pair():
     """half_sweep_dense(parity 0), a pad refresh, half_sweep_dense(parity
     1) is pair_sweep_dense(red_parity 0), bit for bit."""

@@ -266,13 +266,17 @@ def test_gated_apply_matches_reference_kernel(residual, gates):
     "pair_sweep_dense[n_eps=1][z_gates][faces]",
     "stencil_apply_dense[n_eps=1][z_gates][faces]",
     "pair_sweep_dense[n_eps=3][z_gates][faces]",
-    "stencil_apply_dense[n_eps=3][z_gates][faces]"])
+    "stencil_apply_dense[n_eps=3][z_gates][faces]",
+    "half_sweep_dense[march]", "residual_df32_dense[march]",
+    "residual_df32_dense[z_gates][march]"])
 def test_design_counters_exist_and_cpu_tensors_never_count(counter):
     """The counters of the wide slab double pair, of the
     constant-coefficient residual-restriction and the slab apply on the
-    face-plane apply, of the pair slab prolongation and of the coefficient
-    slab double pair, apply and residual on the face-plane designs exist,
-    each once (a coefficient slab launch is named ``[n_eps=k]`` once), and
+    face-plane apply, of the pair slab prolongation, of the coefficient
+    slab double pair, apply and residual on the face-plane designs, of one
+    half-sweep on the register march and of the double-float residual on
+    its z-march (level and slab) exist, each
+    once (a coefficient slab launch is named ``[n_eps=k]`` once), and
     calls on CPU tensors (the plain versions) count under no counter."""
     counts = dk.launch_counts()
     assert counter in counts
@@ -295,6 +299,13 @@ def test_design_counters_exist_and_cpu_tensors_never_count(counter):
         args[4], z_gates=(False, True))
     dk.pair_sweep_dense(*eargs, 0, n_pairs=2, eps=teps, z_gates=(True, False))
     dk.stencil_apply_dense(*eargs, False, eps=teps, z_gates=(False, True))
+    dk.half_sweep_dense(*args, parity=1)
+    _, fcfg, fields, _, _ = slab_case(False, 0, seed=4, dtype=np.float32,
+                                      dirichlet=True)
+    x, r = (torch.from_numpy(a) for a in fields)
+    df.residual_df32_dense(fcfg, x, x * 2.0 ** -25, r, r * 2.0 ** -25)
+    df.residual_df32_dense(fcfg, x, x * 2.0 ** -25, r, r * 2.0 ** -25,
+                           z_gates=(True, False))
     assert dk.launch_counts() == before
 
 
