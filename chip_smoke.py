@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --quick    # build + small kernel checks only
+    python3 chip_smoke.py --amr      # build + the AMR solver's part only
 
 Builds the CUDA kernels of ``octree_mg_tpu_torch`` from the sources in
 this checkout (the first use compiles them with nvcc), then, one JSON
@@ -84,6 +85,20 @@ object per line:
   2 to 16, 1, 7 and 4096 boxes, lam 0 and 0.7, both parities);
   ``max_ulp`` must be 0 (the kernels repeat the plain arithmetic
   operation by operation, built with --fmad=false);
+* ``amr_checks`` — the dense-patch AMR levels' faces against the plain
+  versions, 0 ulp: six refinement faces (plane-valued b, the sides_rb
+  coefficients with c2 = -0.25), and three of them beside constant
+  Dirichlet faces, lam 0 and 0.3, on the AMR path's 512^3 patches and
+  256^3 level (float32), the thinnest 512 x 512 levels on which the wide
+  design takes the double pair and the down-leg, and 64^3 .. 8^3 and a
+  48 x 32 x 16 level in both dtypes: the pair (1 and 2 pairs), apply,
+  residual, down-leg, residual-restriction, restriction, one half-sweep,
+  the coefficient variants (n_eps 1 and 3) up to 64^3, and the AMR
+  solver's region correction (the corr_ready mode against
+  ``_prolong_rect`` plus the add, the 258^3 window into a 512^3 patch and
+  small ones); each case on the design its rule gives (wide, face-plane,
+  the face-plane residual-restriction, the register march, corr_ready;
+  the constant-coefficient apply and residual on stream_kernel.cuh);
 * ``main_path`` — ``PoissonSolver(3, (512,)*3, 16, dtype=float32)``, zero
   Dirichlet faces, a seeded random right-hand side: one zero-guess FMG
   and eight have-guess FMGs through ``solve``, then a timed loop of
@@ -158,6 +173,27 @@ object per line:
   ``leaf_unknowns_per_s``, launches and coarse-loop host reads per FMG,
   peak memory, set-up seconds), and two FMGs with the kernel against two
   with the torch-ops smoother from one state, which must agree bitwise;
+* ``amr_path`` — the dense-patch AMR solver at full width: bench.py
+  amr's tree ``build_amr_centered(3, 3, 512^3, 16, 1/512)`` (levels 1, 2
+  and 3 each 512^3, the two patches with six refinement faces; 3.69e8
+  leaf unknowns) through ``PoissonSolver(tree=...)``, laplacian,
+  float32, Dirichlet 0: with bench.py's ones on the top patch one
+  zero-guess and eight have-guess FMGs (residual history, falling;
+  launches: every entry point of the cycle, the corr_ready mode of the
+  region corrections, the wide pair and down-leg and the face-plane
+  residual-restriction must have run; the plain route must not), eight
+  timed have-guess FMGs (``ms_per_fmg``, ``leaf_unknowns_per_s`` as
+  bench.py defines it, launches per FMG by entry point and design,
+  peak memory, tree build seconds); with a seeded normal rhs on the top
+  patch one zero-guess and eight have-guess FMGs (residuals must fall
+  monotonically below 1e-3 of the first); ``fmg_mode="fused"`` against
+  eager from one state, bitwise on every level, and ms per replayed
+  FMG;
+* ``amr_cpu_agreement`` — 3-level AMR trees at level-1 size 32 and 16,
+  box 8, float64, three FMGs on the card and on the CPU: laplacian,
+  helmholtz, vhelmholtz and ahelmholtz (their patch levels with
+  refinement faces on the plain route, counted on both), phi within
+  1e-11 of max|phi| on every level;
 * ``sharded_path`` — the main path's problem through
   ``ShardedDenseMGSolver(n_shards=8)`` (K slabs on one card; levels 512
   to 32 sharded, 16 replicated, 8 the direct coarse level): one
@@ -215,6 +251,9 @@ object per line:
   pair's and residual's ``[n_eps=1][z_gates]`` rows, the pair's levels
   with the 4-plane edge strips, their launches per FMG from
   sharded_vcoeff);
+  every row whose counter ``amr_path``'s solve launched carries those
+  launches and the timed FMGs' per FMG (``amr_path_launches``,
+  ``amr_path_launches_per_fmg``);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -318,6 +357,13 @@ for _v in SLAB_VARIANTS + SLAB_EPS_VARIANTS:
 SHARDED_KERNELS = SLAB_VARIANTS[:3] + ("restrict_dense",)
 
 
+#: the refinement-face ghost of the dense-patch AMR solver (sides_rb):
+#: ghost = 0.5*b + 0.75*x1 - 0.25*x2, b the coarse interpolation plane
+RB_COEFFS = (0.5, 0.75, -0.25)
+#: the refinement faces of the "amr_mixed" case kind (x-, y+, z+)
+AMR_MIXED_RB = (0, 3, 5)
+
+
 def vcoeff_kernels(n_eps):
     """The kernels of a variable-coefficient solve: the four stencil
     entry points' n_eps variants, the restriction (prepare_coefficient
@@ -382,6 +428,14 @@ def make_case(dk, dims, periodic, bc_kind, dtype, seed, nan_pads=True,
         # planes, read with identity coefficients
         bc = [(1.0, 0.0, 0.0)] * 6
         b_const = [None] * 6
+    elif bc_kind in ("amr", "amr_mixed"):
+        # a dense-patch AMR level: refinement faces (the sides_rb
+        # combination with a plane-valued b, c2 = -0.25) on all six faces
+        # (the patches of amr_path) or on AMR_MIXED_RB beside constant
+        # Dirichlet faces
+        rb = range(6) if bc_kind == "amr" else AMR_MIXED_RB
+        bc = [RB_COEFFS if nb in rb else (2.0, -1.0, 0.0) for nb in range(6)]
+        b_const = [None if nb in rb else 0.3 for nb in range(6)]
     else:
         raise ValueError(bc_kind)
     cfg = dk.DenseStencilConfig(dims, idr2, bc, periodic, dtype,
@@ -4310,6 +4364,452 @@ def phase_slab_kernel_times(dk, df, path, refined, vcoeff):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the dense-patch AMR solver (DenseAMRMGSolver)
+# ---------------------------------------------------------------------------
+
+def amr_thinnest_z(X, Y, sms):
+    """The thinnest even z extents of an X x Y level on which the wide
+    design takes the float32 double pair and the float32 down-leg
+    (``wide_takes``, csrc/stream_wide.cuh: 64 x 32 tiles, 8-plane chunks
+    for two blocks per SM, 64-plane chunks for four)."""
+    tiles = -(-X // 64) * -(-Y // 32)
+    zp = next(z for z in range(2, 1 << 14, 2) if tiles * -(-z // 8) >= 2 * sms)
+    zd = next(z for z in range(2, 1 << 14, 2)
+              if tiles * -(-z // 64) >= 4 * sms)
+    return zp, zd
+
+
+def amr_case_list(dk, cfg, field, planes, lam, kinds):
+    """(name, kernel call, plain call) of the entry points in ``kinds``
+    on one "amr" level: the pair (1 and 2 pairs), apply and residual,
+    down-leg (1 and 2 pairs) and residual-restriction, restriction, one
+    half-sweep (both parities), and with cfg.n_eps the coefficient
+    variants."""
+    phi, rhs = field(cfg), field(cfg)
+    isl = dk._ISL
+    out = []
+
+    def inner(*ts):
+        return tuple(t[isl] for t in ts if t is not None)
+
+    if cfg.n_eps:
+        return eps_variants(dk, cfg, field, planes, lam,
+                            eps_fields(dk, cfg, cfg.X + cfg.Z))
+    if "pairs" in kinds:
+        for k in (1, 2):
+            out.append((f"pairs{k}", lambda k=k: inner(dk.pair_sweep_dense(
+                cfg, phi, rhs, lam, planes, 0, n_pairs=k)),
+                lambda k=k: inner(dk._pairs_plain(cfg, phi, rhs, lam, planes,
+                                                  0, k))))
+    if "apply" in kinds:
+        for res in (False, True):
+            out.append(("residual" if res else "apply",
+                        lambda res=res: inner(dk.stencil_apply_dense(
+                            cfg, phi, rhs, lam, planes, res)),
+                        lambda res=res: inner(dk._apply_plain(
+                            cfg, phi, rhs, lam, planes, res))))
+    if "down" in kinds:
+        for k in (1, 2):
+            out.append((f"downsweep{k}", lambda k=k: inner(*dk.downsweep_dense(
+                cfg, phi, rhs, lam, planes, 0, n_pairs=k)),
+                lambda k=k: inner(*dk._down_plain(cfg, phi, rhs, lam, planes,
+                                                  0, k))))
+        out.append(("residual_restrict",
+                    lambda: inner(*dk.residual_restrict_dense(
+                        cfg, phi, rhs, lam, planes)),
+                    lambda: inner(*dk._down_plain(
+                        cfg, phi, rhs, lam, planes, 0, 0)[1:])))
+        out.append(("restrict", lambda: inner(dk.restrict_dense(cfg, phi)),
+                    lambda: inner(dk._restrict_plain(cfg, phi))))
+    if "half" in kinds:
+        for par in (0, 1):
+            out.append((f"half_sweep{par}",
+                        lambda par=par: inner(dk.half_sweep_dense(
+                            cfg, phi, rhs, lam, planes, par)),
+                        lambda par=par: inner(dk._half_plain(
+                            cfg, phi, rhs, lam, planes, par))))
+    return out
+
+
+ALL_AMR_KINDS = ("pairs", "apply", "down", "half")
+
+
+def amr_checks(dk, pkg, quick=False):
+    """The "amr" case kinds (six refinement faces, plane-valued b with
+    c2 = -0.25; and the mixed kind beside constant Dirichlet faces)
+    against the plain versions, 0 ulp, on the levels the AMR path sends
+    each entry point: its 512^3 patches and 256^3 level, small patches
+    (amr_cpu_agreement's 32^3 and 16^3, both dtypes), a non-cubic one,
+    the thinnest levels on which the wide design takes the double pair
+    and the down-leg; the coefficient variants (the face-plane designs)
+    on the small ones.  Each row names the design counters its launch
+    added to.  Also the region correction of the AMR solver: the
+    prolongation kernel's corr_ready mode against ``_prolong_rect`` plus
+    the add on the card, on the AMR path's 258^3 window into a 512^3
+    patch and on small and non-cubic windows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    zp, zd = amr_thinnest_z(512, 512, sms)
+    f32, f64 = torch.float32, torch.float64
+    big = [((512, 512, 512), (f32,), ("amr",), ALL_AMR_KINDS),
+           ((256, 256, 256), (f32,), ("amr", "amr_mixed"), ALL_AMR_KINDS),
+           ((512, 512, zp), (f32,), ("amr",), ("pairs", "apply")),
+           ((512, 512, zd), (f32,), ("amr",), ("down",))]
+    small = [((64, 64, 64), (f32, f64), ("amr", "amr_mixed"), ALL_AMR_KINDS),
+             ((32, 32, 32), (f32, f64), ("amr", "amr_mixed"), ALL_AMR_KINDS),
+             ((16, 16, 16), (f32, f64), ("amr", "amr_mixed"), ALL_AMR_KINDS),
+             ((48, 32, 16), (f32, f64), ("amr_mixed",), ALL_AMR_KINDS),
+             ((8, 8, 8), (f32, f64), ("amr",), ALL_AMR_KINDS)]
+    rows, seed = [], 7000
+    for dims, dtypes, bcs, kinds in (small if quick else big + small):
+        for dtype in dtypes:
+            for bc_kind in bcs:
+                for lam in (0.0, 0.3):
+                    for n_eps in (0, 1, 3) if max(dims) <= 64 else (0,):
+                        seed += 1
+                        cfg, field, planes = make_case(
+                            dk, dims, (False,) * 3, bc_kind, dtype, seed,
+                            n_eps=n_eps)
+                        for name, kern, plain in amr_case_list(
+                                dk, cfg, field, planes, lam, kinds):
+                            before = dk.launch_counts()
+                            got = kern()
+                            after = dk.launch_counts()
+                            want = plain()
+                            torch.cuda.synchronize()
+                            us = [ulp_diff(a, b) for a, b in zip(got, want)]
+                            rows.append({
+                                "kernel": f"{name}[amr]", "dims": dims,
+                                "dtype": str(dtype)[6:], "bc": bc_kind,
+                                "lam": lam,
+                                "max_ulp": max(us) if min(us) >= 0 else 1 << 62,
+                                "counters": sorted(
+                                    k for k in after if after[k] > before[k])})
+                            del got, want
+                        torch.cuda.empty_cache()
+    # the region correction: corr_ready against _prolong_rect + add
+    windows = [(18, 18, 18), (10, 34, 18)] if quick else \
+        [(258, 258, 258), (18, 18, 18), (10, 34, 18)]
+    for dtype in (f32, f64):
+        sv = pkg.DenseAMRMGSolver(
+            pkg.build_amr_centered(3, 3, np.full(3, 16), 8,
+                                   np.full(3, 1.0 / 16)),
+            pkg.MGConfig(dtype=dtype))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for win in windows:
+            if dtype == f64 and max(win) > 64:
+                continue
+            sub = torch.randn(win, generator=g, dtype=dtype, device="cuda")
+            fine = torch.randn(dk.padded_shape(tuple(2 * (v - 2)
+                                                     for v in win[::-1])),
+                               generator=g, dtype=dtype, device="cuda")
+            want = fine.clone()
+            want[dk._ISL] += sv._prolong_rect(sub)
+            before = dk.launch_counts()
+            got = sv._prolong_add(sub, fine.clone())
+            after = dk.launch_counts()
+            torch.cuda.synchronize()
+            u = ulp_diff(got[dk._ISL], want[dk._ISL])
+            rows.append({"kernel": "region_correction[amr]",
+                         "window": list(win), "dtype": str(dtype)[6:],
+                         "max_ulp": u if u >= 0 else 1 << 62,
+                         "counters": sorted(k for k in after
+                                            if after[k] > before[k])})
+            del sub, fine, want, got
+        torch.cuda.empty_cache()
+    # each entry point on the design its rule gives: the double pair on
+    # the wide design from 256^3 up and on the thinnest level it takes,
+    # the float32 down-leg at 512^3 and the thinnest, every
+    # residual-restriction on the face-plane apply, every half-sweep on
+    # the register march, every coefficient pair (float32), apply,
+    # residual and residual-restriction on a face-plane design, every
+    # region correction on the corr_ready mode
+    def want_counter(r):
+        k, d = r["kernel"], r["dims"] if "dims" in r else None
+        if k == "region_correction[amr]":
+            return "prolong_correct_dense[corr_ready]"
+        if "n_eps" in k and not (r["dtype"] == "float64"
+                                 and k.split("[")[0] in ("pairs1", "pairs2",
+                                                         "downsweep")):
+            return "[faces]"
+        if k == "pairs2[amr]" and r["dtype"] == "float32" and \
+                (min(d) >= 256 or d == (512, 512, zp)):
+            return "pair_sweep_dense[wide]"
+        if k == "downsweep2[amr]" and r["dtype"] == "float32" and \
+                d in ((512, 512, 512), (512, 512, zd)):
+            return "downsweep_dense[wide]"
+        if k == "residual_restrict[amr]":
+            return RR_FACES
+        if k.startswith("half_sweep"):
+            return "half_sweep_dense[march]"
+        return None
+
+    for r in rows:
+        w = want_counter(r)
+        r["design_as_its_rule_gives"] = w is None or any(
+            c.endswith(w) if w == "[faces]" else c == w
+            for c in r["counters"])
+    return rows, {"thinnest_wide_pair_z": zp, "thinnest_wide_down_z": zd,
+                  "sms": sms}
+
+
+def amr_poisson(pkg, n, box=16, dtype=torch.float32, device="cuda",
+                operator="laplacian"):
+    """bench.py amr's tree, ``build_amr_centered(3, 3, n^3, box, 1/n)``,
+    through ``PoissonSolver``, Dirichlet 0: (PoissonSolver, tree, seconds
+    to build the tree)."""
+    t0 = time.perf_counter()
+    tree = pkg.build_amr_centered(3, 3, np.full(3, n), box,
+                                  np.full(3, 1.0 / n))
+    build_s = time.perf_counter() - t0
+    ps = pkg.PoissonSolver(3, (n,) * 3, box, tree=tree, dtype=dtype,
+                           device=device, operator=operator)
+    if not isinstance(ps.solver, pkg.DenseAMRMGSolver):
+        fail(f"amr: make_solver gave {type(ps.solver).__name__}")
+    ps.set_dirichlet(0.0)
+    return ps, tree, build_s
+
+
+#: what amr_path's solve must launch: every entry point of the AMR FMG,
+#: the prolongation's corr_ready mode (the region corrections) and the
+#: designs its 512^3 levels take
+AMR_PATH_KERNELS = ("pair_sweep_dense", "stencil_apply_dense",
+                    "downsweep_dense", "residual_restrict_dense",
+                    "restrict_dense", "prolong_correct_dense",
+                    "prolong_correct_dense[corr_ready]",
+                    "pair_sweep_dense[wide]", "downsweep_dense[wide]",
+                    RR_FACES)
+
+
+def amr_fused_check(sv, state, n_fmg=3, n_timed=8):
+    """``fmg_mode="fused"`` (one CUDA graph per FMG) against the eager
+    cycle from one state: ``n_fmg`` have-guess FMGs each way (the first
+    fused call runs eagerly, the second captures and replays, the third
+    replays), every level's phi compared bitwise; then ms per replayed
+    FMG."""
+    keys = sv._field_keys
+    twin = {k: {lvl: t.clone() for lvl, t in state[k].items()} for k in keys}
+    twin["bc"] = {lvl: list(p) for lvl, p in state["bc"].items()}
+    sv.cfg.fmg_mode = "fused"
+    try:
+        for _ in range(n_fmg):
+            sv.fas_fmg(state, have_guess=True, need_res=False)
+        sv.cfg.fmg_mode = "split"
+        for _ in range(n_fmg):
+            sv.fas_fmg(twin, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        ulps = {str(lvl): ulp_diff(sv.interior(state, lvl, "phi"),
+                                   sv.interior(twin, lvl, "phi"))
+                for lvl in sv.levels}
+        del twin
+        torch.cuda.empty_cache()
+        sv.cfg.fmg_mode = "fused"
+        sv.fas_fmg(state, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            sv.fas_fmg(state, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n_timed
+    finally:
+        sv.cfg.fmg_mode = "split"
+        sv._graphs = {}
+        torch.cuda.empty_cache()
+    if any(u != 0 for u in ulps.values()):
+        fail(f"amr_path: fmg_mode='fused' differs from the eager FMG: "
+             f"ulps by level {ulps}")
+    return {"max_ulp_by_level": ulps, "ms_per_fmg_fused": ms}
+
+
+def phase_amr_path(pkg, dk, n=512, n_have=8, n_timed=8):
+    """The slice at full width: bench.py amr's tree at level-1 size 512,
+    box 16 (levels 1, 2 and 3 each 512^3: level 1 the whole domain,
+    levels 2 and 3 centred patches with six refinement faces; below them
+    the uniform chain 256^3 .. 8^3), laplacian, float32, Dirichlet 0.
+
+    bench.py's problem, ones on the top patch: one zero-guess and
+    ``n_have`` have-guess FMGs through ``solve`` (residual history,
+    launches, the plain route), then ``n_timed`` have-guess FMGs without
+    the residual and one synchronisation (``ms_per_fmg``,
+    ``leaf_unknowns_per_s`` as bench.py:289-290 defines it, launches per
+    FMG).  Its float32 residual reaches its floor within ~1e2 of the
+    first FMG's (a CPU run at level-1 size 64: 4.7e-3), so it is held
+    to falling (bench.py's ``r1 <= r0``); the 1e-3 convergence gate runs
+    on a seeded normal rhs on the top patch, the same solver from a zero
+    guess (the forest paths' choice, phase_forest_path).  Then
+    ``fmg_mode="fused"`` against eager, bitwise."""
+    box = 16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ps, tree, build_s = amr_poisson(pkg, n, box)
+    sv = ps.solver
+    top = sv.levels[-1]
+    ps.set_rhs(arrays={top: torch.ones(sv._ishape(top), dtype=torch.float32,
+                                       device="cuda")})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    phi, info = ps.solve(rtol=0.0, atol=0.0, max_cycles=1 + n_have)
+    launches = dk.launch_counts()
+    plain = dk.plain_route_counts()
+    hist_ones = info["residuals"]
+    if tuple(phi.shape) != sv._ishape(top) or not bool(
+            torch.isfinite(phi).all()):
+        fail("amr_path: phi has a wrong shape or non-finite values")
+    if not (all(np.isfinite(hist_ones)) and hist_ones[-1] < hist_ones[0]):
+        fail(f"amr_path: the residual of bench.py's problem did not fall: "
+             f"{hist_ones}")
+    missing = [k for k in AMR_PATH_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"amr_path launched no kernel for {missing}")
+    if any(plain.values()):
+        fail(f"amr_path: the plain route ran on the laplacian: {plain}")
+    state = ps.state
+    sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t1 = time.perf_counter()
+    for _ in range(n_timed):
+        sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t1) / n_timed
+    per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    # the convergence gate: a seeded normal rhs on the top patch
+    g = torch.Generator(device="cuda").manual_seed(13)
+    ps.set_rhs(arrays={top: torch.randn(sv._ishape(top), generator=g,
+                                        dtype=torch.float32, device="cuda")})
+    phi, info = ps.solve(rtol=0.0, atol=0.0, max_cycles=1 + n_have)
+    hist = info["residuals"]
+    check_fmg_history(hist, "amr_path")
+    del phi
+    fused = amr_fused_check(sv, ps.state)
+    n_unk = leaf_unknowns(tree, box)
+    emit({"amr_path": {
+        "model": f"bench.py amr: PoissonSolver(tree=build_amr_centered(3, 3, "
+                 f"{n}^3, {box}, 1/{n}), float32), laplacian, Dirichlet 0",
+        "levels": {str(lvl): {"dims": list(sv.dims[lvl]),
+                              "offset": [int(v) for v in sv.offsets[lvl]],
+                              "faces": sv.face_kind[lvl],
+                              "whole_region": sv._whole_region(lvl)}
+                   for lvl in sv.levels},
+        "leaf_unknowns": n_unk, "tree_build_s": build_s,
+        "setup_s": setup_s,
+        "residuals_ones": hist_ones, "residuals": hist,
+        "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+        "ms_per_fmg": 1e3 * dt, "leaf_unknowns_per_s": n_unk / dt,
+        "launches_in_solve": {k: v for k, v in launches.items() if v},
+        "plain_route_in_solve": plain,
+        "launches_per_fmg": per_fmg,
+        "fused_mode": fused,
+        "peak_memory_bytes": peak}})
+    del ps, sv, state
+    torch.cuda.empty_cache()
+    return launches, per_fmg
+
+
+def phase_amr_cpu_agreement(pkg, dk):
+    """Small AMR trees (3 levels, level-1 size 16 and 32, box 8) in
+    float64 on the card and on the CPU, three FMGs from the same seeded
+    rhs on every level, Dirichlet faces from a function: laplacian,
+    helmholtz, vhelmholtz and ahelmholtz (the coefficient operators' patch
+    levels with refinement faces on the plain route, counted; smooth
+    coefficients set on every level and prepared).  Bounds as in
+    cpu_agreement: phi on every level within 1e-11 of max|phi|, each
+    residual within 1e-8 relative."""
+    bound, bound_res = 1e-11, 1e-8
+
+    def bc_fn(x):
+        return 0.25 + np.sin(3 * x[..., 0]) * np.cos(2 * x[..., 2])
+
+    rows = {}
+    for n, op, lam in ((32, "laplacian", 0.0), (32, "helmholtz", 0.9),
+                       (32, "vhelmholtz", 1.5), (32, "ahelmholtz", 0.7),
+                       (16, "laplacian", 0.0), (16, "ahelmholtz", 0.7)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tree = pkg.build_amr_centered(3, 3, np.full(3, n), 8,
+                                          np.full(3, 1.0 / n))
+            sv = pkg.make_solver(tree, pkg.MGConfig(
+                operator=op, dtype=torch.float64, device=dev))
+            if not isinstance(sv, pkg.DenseAMRMGSolver):
+                fail(f"amr_cpu_agreement: {type(sv).__name__}")
+            sv.set_bc(0, pkg.BCType.DIRICHLET, fn=bc_fn)
+            st = sv.allocate()
+            rng = np.random.default_rng(n)
+            for lvl in sv.levels:
+                sv.set_interior(st, lvl, "rhs", rng.normal(size=sv._ishape(lvl)))
+                x = sv.cell_centers(lvl)
+                for d in range(sv.n_eps):
+                    sv.set_coefficient(st, 1.0 + 0.5 * np.cos(
+                        2 * np.pi * (x[..., d] + 0.1 * d)), d, lvl=lvl)
+            if sv.n_eps:
+                sv.prepare_coefficient(st)
+            dk.reset_plain_route_counts()
+            hist = []
+            for i in range(3):
+                st, r = sv.fas_fmg(st, lam=lam, have_guess=i > 0)
+                hist.append(float(r))
+            out[dev] = ({lvl: sv.interior(st, lvl, "phi").cpu().numpy()
+                         for lvl in sv.levels}, np.array(hist),
+                        dk.plain_route_counts())
+        phi_d = max(np.abs(out["cuda"][0][l] - out["cpu"][0][l]).max()
+                    / np.abs(out["cpu"][0][l]).max() for l in out["cpu"][0])
+        res_d = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1])
+                             / np.abs(out["cpu"][1])))
+        rows[f"{op}_{n}"] = {
+            "phi_max_rel_diff": float(phi_d), "residual_max_rel_diff": res_d,
+            "residuals_cuda": out["cuda"][1].tolist(),
+            "residuals_cpu": out["cpu"][1].tolist(),
+            "plain_route_cuda": {k: v for k, v in out["cuda"][2].items() if v},
+            "plain_route_cpu": {k: v for k, v in out["cpu"][2].items() if v}}
+    emit({"amr_cpu_agreement": {
+        "tree": "build_amr_centered(3, 3, n^3, 8, 1/n), n 16 and 32",
+        "dtype": "float64", "fmgs": 3, "bound": bound,
+        "residual_bound": bound_res, **rows}})
+    for k, r in rows.items():
+        if not (r["phi_max_rel_diff"] < bound
+                and r["residual_max_rel_diff"] < bound_res):
+            fail(f"amr_cpu_agreement: card and CPU disagree ({k}): {r}")
+        if ("vhelmholtz" in k or "ahelmholtz" in k) and \
+                r["plain_route_cuda"] != r["plain_route_cpu"]:
+            fail(f"amr_cpu_agreement: the plain route differs ({k}): {r}")
+
+
+def phase_amr_checks(dk, pkg, quick):
+    """amr_checks as one ``amr_checks`` line: cases, worst ulp, cases by
+    design counter; fails on any ulp or a design its rule does not give."""
+    rows, info = amr_checks(dk, pkg, quick)
+    by_counter = {}
+    for r in rows:
+        for c in r["counters"]:
+            by_counter[c] = by_counter.get(c, 0) + 1
+    bad = [r for r in rows if r["max_ulp"] != 0]
+    off = [r for r in rows if not r["design_as_its_rule_gives"]]
+    emit({"amr_checks": {"cases": len(rows),
+                         "max_ulp": max(r["max_ulp"] for r in rows),
+                         "expected_max_ulp": 0, **info,
+                         "cases_by_counter": by_counter, "failed": bad[:20],
+                         "off_design": off[:20]}})
+    if bad:
+        fail(f"{len(bad)} amr kernel cases differ from their plain version")
+    if off:
+        fail(f"{len(off)} amr kernel cases ran another design than their "
+             f"rule gives")
+
+
+def amr_rows(rows, launches, per_fmg):
+    """The ``kernels`` rows with the AMR path's launches of their counter
+    (the solve's and per timed FMG) where it launched any."""
+    for r in rows:
+        if launches.get(r["name"], 0):
+            r["amr_path_launches"] = launches[r["name"]]
+            r["amr_path_launches_per_fmg"] = per_fmg.get(r["name"], 0.0)
+    return rows
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     quick = "--quick" in argv
@@ -4345,7 +4845,16 @@ def main(argv) -> int:
                     "old_designs_built": sorted(OLD_DESIGNS),
                     "build_s": time.perf_counter() - t_build}})
     t0 = time.perf_counter()
+    if "--amr" in argv:
+        # the dense-patch AMR solver alone: its checks and phases
+        phase_amr_checks(dk, pkg, quick)
+        phase_amr_path(pkg, dk)
+        phase_amr_cpu_agreement(pkg, dk)
+        print(smi)
+        emit({"ok": True, "amr": True})
+        return 0
     phase_checks(dk, df, quick)
+    phase_amr_checks(dk, pkg, quick)
     if quick:
         print(smi)
         emit({"ok": True, "quick": True})
@@ -4384,12 +4893,15 @@ def main(argv) -> int:
     forest_rows += periodic_rows
     forest_rows.append(phase_set_mode_row(dk, launches_forest))
     boxed_rows, _ = phase_boxed_path(pkg, dk)
+    amr_launches, amr_per_fmg = phase_amr_path(pkg, dk)
+    phase_amr_cpu_agreement(pkg, dk)
     rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
                                         vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,
           "seconds_after_build": time.perf_counter() - t0,
           "seconds_total": time.perf_counter() - t_start})
-    emit({"kernels": rows + forest_rows + boxed_rows + slab_rows})
+    emit({"kernels": amr_rows(rows + forest_rows + boxed_rows + slab_rows,
+                              amr_launches, amr_per_fmg)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@
     python3 experiments/profile_torch_fmg.py --refined  # the refined outers
     python3 experiments/profile_torch_fmg.py --boxed    # the boxed solver
     python3 experiments/profile_torch_fmg.py --sharded  # the slab solver
+    python3 experiments/profile_torch_fmg.py --amr      # the AMR solver
 
 On the 512^3 float32 main path (``PoissonSolver(3, (512,)*3, 16)``,
 Dirichlet 0, seeded random right-hand side) it prints, one JSON object
@@ -63,7 +64,15 @@ per line:
   time per FMG (per outer) of every kernel by name, and summed by the
   port's kernel rows (``by_row``: ``PERF.md`` section 6's 1z, 1ze, 5z,
   5ze, 7z, 8z ... and the copies and other PyTorch kernels), shows the slab
-  kernels' share, which the stage clocks of a launch-bound FMG do not.
+  kernels' share, which the stage clocks of a launch-bound FMG do not;
+* ``profile_amr`` (``--amr`` only) — the same pass for ``chip_smoke.py``'s
+  ``amr_path`` solver: bench.py amr's tree at level-1 size 512, box 16
+  (three 512^3 levels, two of them patches with six refinement faces),
+  float32, ones on the top patch (its problem): device ms per FMG against
+  wall ms, busy share, kernel time by name and by row; the PyTorch
+  kernels of the refinement-face planes (``DenseAMRMGSolver._planes``)
+  and of the region correction's window fall under ``other`` and
+  ``copies``.
 
 Needs a CUDA device and nvcc.
 """
@@ -439,6 +448,19 @@ def by_row(out, unit):
     return out
 
 
+def phase_profile_amr(n=4, size=512):
+    import chip_smoke
+    torch.cuda.empty_cache()
+    ps, _, _ = chip_smoke.amr_poisson(pkg, size)
+    sv = ps.solver
+    top = sv.levels[-1]
+    ps.set_rhs(arrays={top: torch.ones(sv._ishape(top), device="cuda")})
+    ps.solve(rtol=0.0, max_cycles=3)
+    emit({"profile_amr": {"size": size, **by_row(
+        profiled(lambda: loop_ms(ps, n, False), n, "fmg", top=None),
+        "fmg")}})
+
+
 def phase_profile_boxed(n=4):
     import chip_smoke
     from octree_mg_tpu_torch.core import tree as tm
@@ -480,6 +502,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if "--sharded" in sys.argv[1:]:
         phase_profile_sharded()
+        sys.exit(0)
+    if "--amr" in sys.argv[1:]:
+        phase_profile_amr()
         sys.exit(0)
     if "--vcoeff" not in sys.argv[1:]:
         solver = main_path()

@@ -8,7 +8,9 @@ helmholtz and the variable-coefficient vlaplacian, vhelmholtz,
 ahelmholtz; FAS V-cycle and FMG, GSRB pair smoothing, direct eigenbasis
 coarse solve, assembled or probed), its f64-class refined mode
 (double-float residual around the float32 FMG) and the dense forest
-(any 2:1-balanced 3D octree, laplacian and helmholtz), whose stencil,
+(any 2:1-balanced 3D octree, laplacian and helmholtz) and the
+dense-patch AMR solver (rectangular AMR patches, the five operators),
+whose stencil,
 restriction, prolongation and double-float residual passes are CUDA
 kernels written by hand (``csrc/``), each beside a plain PyTorch version
 that serves CPU tensors; and the boxed solver ``MGSolver`` (ghost-padded
@@ -24,9 +26,10 @@ unless the caller passes ``device="cpu"``.
 
 from .core.constants import (BCType, Geometry, Operator, Smoother, IPHI,
                              IRHS, IOLD, IRES, NUM_VARS)
-from .core.tree import Tree, build_rectangle, box_r_min
+from .core.tree import Tree, box_r_min, build_amr_centered, build_rectangle
 from .solve.multigrid import MGConfig, MGExperimental, MGSolver
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
+from .solve.dense_amr import DenseAMRMGSolver, dense_amr_supported
 from .solve.dense_forest import DenseForestMGSolver, dense_forest_supported
 from .solve.dense_shard import ShardedDenseMGSolver
 from .models.poisson import PoissonSolver
@@ -39,8 +42,9 @@ from .convert import (state_from_numpy, state_to_numpy, direct_from_numpy,
 __all__ = [
     "BCType", "Geometry", "Operator", "Smoother",
     "IPHI", "IRHS", "IOLD", "IRES", "NUM_VARS",
-    "Tree", "build_rectangle", "box_r_min",
+    "Tree", "build_rectangle", "build_amr_centered", "box_r_min",
     "MGConfig", "MGExperimental", "MGSolver", "DenseMGSolver", "dense_supported", "make_solver",
+    "DenseAMRMGSolver", "dense_amr_supported",
     "DenseForestMGSolver", "dense_forest_supported", "ShardedDenseMGSolver",
     "PoissonSolver", "RefinedPoisson", "ShardedRefinedPoisson",
     "solve_refined", "df32_ok",

@@ -99,6 +99,14 @@ coefficients).  One half-sweep runs a register march (csrc/stencil_sweep.cu:
 no shared memory, no barrier), every launch counted under
 ``half_sweep_dense[march]`` as well.
 
+The dense-patch AMR solver's levels with refinement faces and
+coefficient fields carry ``eps_bc`` (plane-valued coefficient ghosts,
+``eps_planes=``): the pair, the half-sweep and the apply run their plain
+versions for such a config on every device, as the JAX package runs its
+jnp path for it, counted by :func:`plain_route_counts` and never as a
+launch; the down-leg and the residual-restriction refuse it (the JAX
+package's fused transfers never see one).
+
 Kernel and plain version keep one arithmetic order, one rounding per
 operation, so on the card they agree bitwise.  Scalars (``idr2``, BC
 coefficients, ``lam``) are Python floats rounded to the working dtype at
@@ -215,6 +223,33 @@ def add_launch_counts(delta: dict) -> None:
         _LAUNCHES[k] += v
 
 
+#: calls that ran the plain versions whatever the device because their
+#: config carries ``eps_bc`` (the JAX package's jnp path for such configs,
+#: ``use_kernel = False``); not kernel launches, and kept apart from them
+_PLAIN_ROUTE = {"pair_sweep_dense[eps_bc]": 0, "half_sweep_dense[eps_bc]": 0,
+                "stencil_apply_dense[eps_bc]": 0}
+
+
+def plain_route_counts() -> dict:
+    return dict(_PLAIN_ROUTE)
+
+
+def reset_plain_route_counts() -> None:
+    for k in _PLAIN_ROUTE:
+        _PLAIN_ROUTE[k] = 0
+
+
+def _plain_route(cfg, name: str, eps_planes) -> bool:
+    """Whether a call takes the plain route (its config carries eps_bc),
+    counted here; eps_planes belong to such configs only."""
+    if cfg.eps_bc is None:
+        if eps_planes is not None:
+            raise ValueError(f"{name}: eps_planes need a config with eps_bc")
+        return False
+    _PLAIN_ROUTE[name + "[eps_bc]"] += 1
+    return True
+
+
 def padded_shape(dims) -> Tuple[int, int, int]:
     X, Y, Z = int(dims[0]), int(dims[1]), int(dims[2])
     return (Z + 2 * PZ, Y + 2 * PY, X)
@@ -234,19 +269,29 @@ class DenseStencilConfig:
     periodic: (px, py, pz); dtype: torch.float32 or torch.float64;
     n_eps: coefficient fields riding along with phi/rhs (0 = constant
     coefficients, 1 = cell-centred eps of vlaplacian/vhelmholtz, 3 =
-    per-direction eps of ahelmholtz); eps_bc: per-face ghost synthesis
-    of the coefficient fields, which only the AMR patch solvers set —
-    not part of this package yet, so anything but None raises.
+    per-direction eps of ahelmholtz); eps_bc: per face a (c0, c1, c2)
+    ghost synthesis of the coefficient fields, or None for the
+    reference's Neumann-zero default (ghost = own value,
+    m_vlaplacian.f90:25-28).  The dense-patch AMR solver sets it on
+    levels with refinement faces: there the sides_rb combination (0.5,
+    0.75, -0.25) with a plane-valued b (the coarse interpolation of the
+    coefficient field, ``eps_planes=``), (0, 1, 0) on physical faces.  A
+    config with eps_bc runs the plain versions on every device, as the
+    JAX package runs its jnp path for it (the plain route, counted by
+    :func:`plain_route_counts`).
     """
 
     def __init__(self, dims, idr2, bc, periodic, dtype, b_const=None,
                  n_eps=0, eps_bc=None):
-        if eps_bc is not None:
-            raise NotImplementedError(
-                "eps_bc: plane-valued coefficient ghosts belong to the "
-                "dense-patch AMR solvers, still to be ported (ROADMAP A8)")
         if int(n_eps) not in (0, 1, 3):
             raise ValueError(f"n_eps must be 0, 1 or 3, got {n_eps}")
+        if eps_bc is not None:
+            if not n_eps or len(eps_bc) != 6:
+                raise ValueError("eps_bc: six (c0, c1, c2) faces of a "
+                                 "config with coefficient fields")
+            eps_bc = [tuple(float(c) for c in t) for t in eps_bc]
+        #: per-face coefficient-field ghost synthesis, or None
+        self.eps_bc = eps_bc
         self.n_eps = int(n_eps)
         self.X, self.Y, self.Z = int(dims[0]), int(dims[1]), int(dims[2])
         self.dims = (self.X, self.Y, self.Z)
@@ -424,35 +469,52 @@ def _seg_substitute(p, lo_raw, hi_raw, d, layers):
     return lo, hi
 
 
-def _eps_neighbor_ops(e, d, axis, masks):
+def _eps_neighbor_ops(e, d, axis, masks, eps_bc=None, ebpw=None):
     """(lo, hi) neighbour values of a coefficient field along dim d:
     Neumann-zero physical ghosts (m_vlaplacian.f90:25-28,
     m_ahelmholtz.f90:28-41), i.e. at a physical face the neighbour value
     IS the cell's own value; periodic axes read the wrapped neighbour
-    (the roll, or the caller-synced pad planes)."""
+    (the roll, or the caller-synced pad planes).  With eps_bc the face's
+    ghost is c0*b + c1*x1 + c2*x2 (the JAX package's order; b from
+    ``ebpw``, read only where c0 != 0)."""
     lo_raw = torch.roll(e, +1, axis)
     hi_raw = torch.roll(e, -1, axis)
     if masks[d] is None:
         return lo_raw, hi_raw
     m_lo, m_hi = masks[d]
-    return torch.where(m_lo, e, lo_raw), torch.where(m_hi, e, hi_raw)
+    if eps_bc is None:
+        return torch.where(m_lo, e, lo_raw), torch.where(m_hi, e, hi_raw)
+    g = []
+    for nb, x2 in ((2 * d, hi_raw), (2 * d + 1, lo_raw)):
+        c0, c1, c2 = eps_bc[nb]
+        v = c1 * e
+        if c0 != 0.0:
+            v = c0 * ebpw[nb] + v
+        if c2 != 0.0:
+            v = v + c2 * x2
+        g.append(v)
+    return torch.where(m_lo, g[0], lo_raw), torch.where(m_hi, g[1], hi_raw)
 
 
 _DIM_AXIS = ((0, 2), (1, 1), (2, 0))   # dim x,y,z -> array axis
 
 
-def _face_coeffs(cfg, eps, d, axis, masks):
+def _face_coeffs(cfg, eps, d, axis, masks, ebpw=None):
     """The two harmonic-mean face coefficients of dim d,
     ``((2*e0)*e_nb)/(e0 + e_nb)*idr2[d]`` for the low and the high
-    neighbour; dim d reads eps[0] (n_eps 1) or eps[d] (n_eps 3)."""
-    e0 = eps[0] if cfg.n_eps == 1 else eps[d]
-    elo, ehi = _eps_neighbor_ops(e0, d, axis, masks)
+    neighbour; dim d reads eps[0] (n_eps 1) or eps[d] (n_eps 3), and
+    its boundary planes ebpw[0] or ebpw[d] (cfg.eps_bc)."""
+    i = 0 if cfg.n_eps == 1 else d
+    e0 = eps[i]
+    elo, ehi = _eps_neighbor_ops(e0, d, axis, masks, cfg.eps_bc,
+                                 None if ebpw is None else ebpw[i])
     idr2 = cfg.rnd(cfg.idr2[d])
     return (2.0 * e0 * elo / (e0 + elo) * idr2,
             2.0 * e0 * ehi / (e0 + ehi) * idr2)
 
 
-def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=(), segd=None):
+def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=(), segd=None,
+               ebpw=None):
     """One masked GSRB half-sweep over the array (constant coefficient,
     m_laplacian.f90 / m_helmholtz.f90 arithmetic order; with eps the
     harmonic-mean form of m_vlaplacian.f90:51-128 /
@@ -460,12 +522,13 @@ def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=(), segd=None):
     den = lam + sum c, accumulated per dim x, y, z, low side first).
 
     upd: boolean "parity == red parity" mask; red=True updates those
-    cells, red=False the complement (same mask, swapped select arms)."""
+    cells, red=False the complement (same mask, swapped select arms).
+    ebpw: the coefficient fields' boundary planes (cfg.eps_bc)."""
     if cfg.n_eps:
         num = -rhs_w
         den = cfg.rnd(lam)
         for d, axis in _DIM_AXIS:
-            c_lo, c_hi = _face_coeffs(cfg, eps, d, axis, masks)
+            c_lo, c_hi = _face_coeffs(cfg, eps, d, axis, masks, ebpw)
             lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
             num = num + c_lo * lo
             den = den + c_lo
@@ -482,13 +545,13 @@ def _halfsweep(cfg, p, rhs_w, lam, masks, upd, red, bpw, eps=(), segd=None):
     return torch.where(upd, new, p) if red else torch.where(upd, p, new)
 
 
-def _apply_expr(cfg, p, lam, masks, bpw, eps=(), segd=None):
+def _apply_expr(cfg, p, lam, masks, bpw, eps=(), segd=None, ebpw=None):
     """A(phi) over the array: out = -lam*c; out += idr2[d]*(lo+hi-2c),
     or with eps out += c_lo*(lo - c) + c_hi*(hi - c) per dim."""
     out = (-cfg.rnd(lam)) * p
     if cfg.n_eps:
         for d, axis in _DIM_AXIS:
-            c_lo, c_hi = _face_coeffs(cfg, eps, d, axis, masks)
+            c_lo, c_hi = _face_coeffs(cfg, eps, d, axis, masks, ebpw)
             lo, hi = _neighbor_ops(cfg, p, d, axis, masks, bpw)
             out = out + c_lo * (lo - p)
             out = out + c_hi * (hi - p)
@@ -500,18 +563,33 @@ def _apply_expr(cfg, p, lam, masks, bpw, eps=(), segd=None):
     return out
 
 
+def _bpw_eps_full(eps_planes):
+    """The coefficient fields' boundary planes (cfg.eps_bc) broadcast
+    against the padded array: per field six planes, a face whose
+    synthesis never reads b (None) as 0.0; layouts as in
+    :func:`_bpw_full`."""
+    if eps_planes is None:
+        return None
+    return [[0.0 if p is None else p[:, :, None] if i < 2
+             else p[:, None, :] if i < 4 else p[None, :, :]
+             for i, p in enumerate(planes)] for planes in eps_planes]
+
+
 def _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps=(),
-                z_gates=None):
+                z_gates=None, eps_planes=None):
     g = _full_iotas(cfg, phi.device)
     masks = _face_masks(cfg, g, z_gates)
     upd = _parity_mask(g, red_parity)
     bpw = _bpw_full(cfg, bplanes)
-    p1 = _halfsweep(cfg, phi, rhs, lam, masks, upd, True, bpw, eps)
-    return _halfsweep(cfg, p1, rhs, lam, masks, upd, False, bpw, eps)
+    ebpw = _bpw_eps_full(eps_planes)
+    p1 = _halfsweep(cfg, phi, rhs, lam, masks, upd, True, bpw, eps,
+                    ebpw=ebpw)
+    return _halfsweep(cfg, p1, rhs, lam, masks, upd, False, bpw, eps,
+                      ebpw=ebpw)
 
 
 def _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=(),
-                 z_gates=None):
+                 z_gates=None, eps_planes=None):
     """n_pairs single pairs with the periodic pads re-synced between
     (what a fused multi-pair kernel computes in one pass).  CPU callers
     keep the periodic pads of the eps fields current.  On a z-slab
@@ -522,24 +600,26 @@ def _pairs_plain(cfg, phi, rhs, lam, bplanes, red_parity, n_pairs, eps=(),
         if k:
             sync_pads(cfg, phi, slab=z_gates is not None)
         phi = _pair_plain(cfg, phi, rhs, lam, bplanes, red_parity, eps,
-                          z_gates)
+                          z_gates, eps_planes)
     return phi
 
 
 def _apply_plain(cfg, phi, rhs, lam, bplanes, residual, eps=(),
-                 z_gates=None):
+                 z_gates=None, eps_planes=None):
     g = _full_iotas(cfg, phi.device)
     masks = _face_masks(cfg, g, z_gates)
-    out = _apply_expr(cfg, phi, lam, masks, _bpw_full(cfg, bplanes), eps)
+    out = _apply_expr(cfg, phi, lam, masks, _bpw_full(cfg, bplanes), eps,
+                      ebpw=_bpw_eps_full(eps_planes))
     return rhs - out if residual else out
 
 
-def _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps=()):
+def _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps=(),
+                eps_planes=None):
     """One half-sweep updating the cells of the given parity."""
     g = _full_iotas(cfg, phi.device)
     return _halfsweep(cfg, phi, rhs, lam, _face_masks(cfg, g),
                       _parity_mask(g, parity), True, _bpw_full(cfg, bplanes),
-                      eps)
+                      eps, ebpw=_bpw_eps_full(eps_planes))
 
 
 _NO_MASKS = {0: None, 1: None, 2: None}
@@ -994,7 +1074,8 @@ def _slab_launch(name, cfg, mode, phi, rhs, lam, bplanes, red_parity,
 
 def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
                      red_parity: int, n_pairs: int = 1, eps=(), segs=None,
-                     seg_planes=None, z_gates=None, out=None):
+                     seg_planes=None, z_gates=None, out=None,
+                     eps_planes=None):
     """Fused [red half-sweep, ghost refresh, black half-sweep] x n_pairs.
 
     phi/rhs: padded_shape(dims); lam: host scalar; bplanes: 6 padded
@@ -1020,11 +1101,24 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     fields' too); between two pairs only the y pads are re-synced.  The
     local z of the slab must have the parity of the global z.
     out: a padded field, none of the inputs (a z-window of a larger one
-    will do), that receives the core cells; its pads are not written."""
+    will do), that receives the core cells; its pads are not written.
+
+    eps_planes: a config with eps_bc (the dense-patch AMR solver's levels
+    with refinement faces) takes per coefficient field six boundary
+    planes (None where the face's c0 is 0) and runs the plain version on
+    any device, counted under ``pair_sweep_dense[eps_bc]`` by
+    :func:`plain_route_counts`, as the JAX package runs its jnp path."""
     eps = _check_eps(cfg, eps, "pair_sweep_dense")
     z_gates = _check_gates(z_gates, "pair_sweep_dense")
     if n_pairs not in (1, 2):
         raise ValueError("pair_sweep_dense: n_pairs must be 1 or 2")
+    if _plain_route(cfg, "pair_sweep_dense", eps_planes):
+        if segs is not None or z_gates is not None:
+            raise ValueError("pair_sweep_dense: eps_bc takes no segs and "
+                             "no z_gates")
+        return _plain_out(out, _pairs_plain(cfg, phi, rhs, lam, bplanes,
+                                            red_parity, n_pairs, eps,
+                                            eps_planes=eps_planes))
     if segs is not None:
         if z_gates is not None or out is not None:
             raise ValueError("pair_sweep_dense: segment launches take no "
@@ -1067,7 +1161,7 @@ def pair_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
 
 
 def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
-                     parity: int, eps=()):
+                     parity: int, eps=(), eps_planes=None):
     """ONE GSRB half-sweep: update the cells with (gx+gy+gz)%2 == parity,
     copy the others.  Returns a new field.
 
@@ -1077,8 +1171,12 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
     between are one pair.  The arithmetic of an updated cell is that of
     pair_sweep_dense's red half.  On the card: constant coefficients, on
     a register march (csrc/stencil_sweep.cu), also counted under
-    ``half_sweep_dense[march]``."""
+    ``half_sweep_dense[march]``.  eps_planes: as in
+    :func:`pair_sweep_dense` (the plain route, on any device)."""
     eps = _check_eps(cfg, eps, "half_sweep_dense")
+    if _plain_route(cfg, "half_sweep_dense", eps_planes):
+        return _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps,
+                           eps_planes)
     if not phi.is_cuda:
         return _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps)
     if eps:
@@ -1102,14 +1200,21 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
 
 def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
                         residual: bool, eps=(), segs=None, seg_planes=None,
-                        z_gates=None, out=None):
+                        z_gates=None, out=None, eps_planes=None):
     """A(phi) (or rhs - A(phi)) in one pass (box_lpl/box_helmh +
     residual_box, m_multigrid.f90:426-436; with eps box_vlpl/box_vhelmh/
     box_ahelmh).  Returns a new field.  segs/seg_planes: a forest
-    canvas's ghost layers, as in :func:`pair_sweep_dense`; z_gates and
-    out as there (the z pads 1 deep)."""
+    canvas's ghost layers, as in :func:`pair_sweep_dense`; z_gates, out
+    and eps_planes as there (the z pads 1 deep)."""
     eps = _check_eps(cfg, eps, "stencil_apply_dense")
     z_gates = _check_gates(z_gates, "stencil_apply_dense")
+    if _plain_route(cfg, "stencil_apply_dense", eps_planes):
+        if segs is not None or z_gates is not None:
+            raise ValueError("stencil_apply_dense: eps_bc takes no segs and "
+                             "no z_gates")
+        return _plain_out(out, _apply_plain(cfg, phi, rhs, lam, bplanes,
+                                            residual, eps,
+                                            eps_planes=eps_planes))
     if segs is not None:
         if z_gates is not None or out is not None:
             raise ValueError("stencil_apply_dense: segment launches take no "
@@ -1148,6 +1253,11 @@ def stencil_apply_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
 def _downsweep(name, cfg, phi, rhs, lam, bplanes, red_parity, n_pairs,
                fine_out, eps):
     eps = _check_eps(cfg, eps, name)
+    if cfg.eps_bc is not None:
+        # the JAX package's fused transfers need cfg.fused_down_ok, which
+        # an eps_bc config never has
+        raise ValueError(f"{name}: a config with eps_bc takes the separate "
+                         f"phases (pair, residual, restriction)")
     if not cfg.even_dims:
         raise ValueError(f"{name}: every extent must be even, got {cfg.dims}")
     if not phi.is_cuda:

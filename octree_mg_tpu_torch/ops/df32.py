@@ -477,11 +477,10 @@ def df_scale_pow2(a, s: float):
 def df32_vcoeff_ok(cfg: dk.DenseStencilConfig) -> bool:
     """Gate for the double-float variable-coefficient residual: eps
     present, per-dim power-of-two 1/dx^2 (the c*idr2 scale stays exact),
-    exact BC coefficient classes with static boundary values (the eps
-    ghosts are the Neumann-zero mirror, the only kind this package
-    has).  Unlike ``df32_ok`` the per-dim spacings need not be equal
-    (ahelmholtz grids)."""
-    if not cfg.n_eps:
+    exact BC coefficient classes with static boundary values, default
+    Neumann-zero eps ghosts (no ``eps_bc``).  Unlike ``df32_ok`` the
+    per-dim spacings need not be equal (ahelmholtz grids)."""
+    if not cfg.n_eps or cfg.eps_bc is not None:
         return False
     for d in range(3):
         if not _is_pow2(cfg.idr2[d]):

@@ -37,11 +37,12 @@ the coarsest level's operator column by column (its matrix depends on
 the coefficients).
 
 Gating: 3D cartesian GSRB on uniform trees.  ``make_solver`` routes as
-the JAX package does: uniform trees here, every other 2:1-balanced 3D
-octree the dense forest's gate admits to the dense forest
-(solve/dense_forest.py, a subclass of this solver), what no dense path
-takes to the boxed solver (solve/multigrid.py); paths still to be ported
-(rectangular AMR patches, sparse multi-canvas forests, 2D) raise.
+the JAX package does: uniform trees here, rectangular AMR patch trees to
+the dense-patch AMR solver (solve/dense_amr.py), every other
+2:1-balanced 3D octree the dense forest's gate admits to the dense
+forest (solve/dense_forest.py; both subclasses of this solver), what no
+dense path takes to the boxed solver (solve/multigrid.py); paths still to
+be ported (sparse multi-canvas forests, 2D) raise.
 """
 from __future__ import annotations
 
@@ -88,17 +89,18 @@ def _dense2d_ops(cfg: MGConfig) -> bool:
 
 def make_solver(tree: Tree, config: Optional[MGConfig] = None):
     """The solver the JAX package's ``make_solver`` would pick, in its
-    order: the dense fast path for a uniform 3D tree, the dense forest
-    for other 2:1-balanced 3D octrees (constant coefficients), and the
-    boxed ``MGSolver`` for what no dense path takes (1D, the Jacobi
-    smoother, operators or geometries the 2D paths reject, fully
-    periodic sparse trees).  What it would dispatch to a path still to
-    be ported raises, naming its ROADMAP item: rectangular AMR patch
-    trees (A8), sparse multi-canvas forests (A9), variable-coefficient
-    forests (A14), and every 2D configuration some 2D dense path's
-    operator gate admits (A10) — whether that path would take the tree
-    or leave it to the boxed solver."""
-    from .dense_amr import dense_amr_supported
+    order: the dense fast path for a uniform 3D tree, the dense-patch AMR
+    solver for 3D trees whose levels are nested rectangular patches (the
+    five operators), the dense forest for other 2:1-balanced 3D octrees
+    (constant coefficients), and the boxed ``MGSolver`` for what no dense
+    path takes (1D, the Jacobi smoother, operators or geometries the 2D
+    paths reject, fully periodic sparse trees).  What it would dispatch
+    to a path still to be ported raises, naming its ROADMAP item: sparse
+    multi-canvas forests (A9), variable-coefficient forests (A14), and
+    every 2D configuration some 2D dense path's operator gate admits
+    (A10) — whether that path would take the tree or leave it to the
+    boxed solver."""
+    from .dense_amr import DenseAMRMGSolver, dense_amr_supported
     from .dense_forest import DenseForestMGSolver, dense_forest_supported
     from .dense_multiforest import dense_multiforest_supported
     from .multigrid import MGSolver
@@ -108,7 +110,7 @@ def make_solver(tree: Tree, config: Optional[MGConfig] = None):
     if tree.ndim == 2 and _dense2d_ops(cfg):
         what = "2D paths (ROADMAP A10)"
     elif dense_amr_supported(tree, cfg):
-        what = "the dense-patch AMR solver (ROADMAP A8)"
+        return DenseAMRMGSolver(tree, cfg)
     elif dense_forest_supported(tree, cfg):
         return DenseForestMGSolver(tree, cfg)
     elif dense_multiforest_supported(tree, cfg):
@@ -395,8 +397,13 @@ class DenseMGSolver:
         for i in range(self.n_eps):
             key = f"eps{i}"
             for lvl in range(self.levels[-1], self.levels[0], -1):
-                coarse = dk.restrict_dense(self._kcfgs[lvl], state[key][lvl])
-                state[key][lvl - 1].copy_(coarse)
+                # keep the coarse field's identity (a captured graph
+                # holds its address)
+                coarse = state[key][lvl - 1]
+                state = self._restrict_into(state, lvl, key)
+                if state[key][lvl - 1] is not coarse:
+                    coarse.copy_(state[key][lvl - 1])
+                    state[key][lvl - 1] = coarse
         self._direct = None
         self._graphs = {}
         self._graph_epoch += 1
@@ -515,6 +522,18 @@ class DenseMGSolver:
         return tuple(self._sync_pads(state[f"eps{i}"][lvl], lvl)
                      for i in range(self.n_eps))
 
+    def _planes(self, state, lvl, key="phi"):
+        """The boundary-value planes the kernels read at lvl; the AMR
+        subclass replaces refinement faces by the coarse interpolation of
+        ``key``'s coarse field here."""
+        return state["bc"][lvl]
+
+    def _eps_planes(self, state, lvl):
+        """The coefficient fields' boundary planes, or None for the
+        reference's Neumann-zero ghosts (the AMR subclass puts coarse
+        interpolation planes on refinement faces)."""
+        return None
+
     def _smooth(self, state, lvl, n_cycle, lam):
         """n_cycle GSRB cycles as fused pair kernels — double pairs (4
         half-sweeps, one pass over device memory) on CUDA
@@ -522,15 +541,20 @@ class DenseMGSolver:
         cfg = self._kcfgs[lvl]
         phi = state["phi"][lvl]
         rhs = self._sync_pads(state["rhs"][lvl], lvl)
-        bp = state["bc"][lvl]
+        bp = self._planes(state, lvl)
         eps = self._eps(state, lvl)
+        epl = self._eps_planes(state, lvl)
         rem = n_cycle
         while rem > 0:
-            k = 2 if (rem >= 2 and phi.is_cuda and cfg.periodic_even) else 1
+            # the plain route of an eps_bc config runs single pairs on
+            # any device, as the JAX package's jnp path does
+            k = 2 if (rem >= 2 and phi.is_cuda and cfg.periodic_even
+                      and cfg.eps_bc is None) else 1
             phi = self._sync_pads(phi, lvl)
             # substeps n=1,2 -> red parity (n+1)%2 = 0
             phi = dk.pair_sweep_dense(cfg, phi, rhs, lam, bp,
-                                      red_parity=0, n_pairs=k, eps=eps)
+                                      red_parity=0, n_pairs=k, eps=eps,
+                                      eps_planes=epl)
             rem -= k
         state["phi"][lvl] = phi
         return state
@@ -539,16 +563,19 @@ class DenseMGSolver:
         cfg = self._kcfgs[lvl]
         phi = self._sync_pads(state["phi"][lvl], lvl)
         state["ires"][lvl] = dk.stencil_apply_dense(
-            cfg, phi, state["rhs"][lvl], lam, state["bc"][lvl],
-            residual=True, eps=self._eps(state, lvl))
+            cfg, phi, state["rhs"][lvl], lam, self._planes(state, lvl),
+            residual=True, eps=self._eps(state, lvl),
+            eps_planes=self._eps_planes(state, lvl))
         return state
 
     def _apply_op(self, state, lvl, lam):
         cfg = self._kcfgs[lvl]
         phi = self._sync_pads(state["phi"][lvl], lvl)
         return dk.stencil_apply_dense(cfg, phi, state["rhs"][lvl], lam,
-                                      state["bc"][lvl], residual=False,
-                                      eps=self._eps(state, lvl))
+                                      self._planes(state, lvl),
+                                      residual=False,
+                                      eps=self._eps(state, lvl),
+                                      eps_planes=self._eps_planes(state, lvl))
 
     def _max_residual(self, state, lvl, lam):
         """(state, max |residual|) — a 0-dim tensor on the state's
@@ -570,7 +597,7 @@ class DenseMGSolver:
             cfg = self._kcfgs[lvl]
             phi_c, ires_c = dk.residual_restrict_dense(
                 cfg, state["phi"][lvl], state["rhs"][lvl], lam,
-                state["bc"][lvl], eps=self._eps(state, lvl))
+                self._planes(state, lvl), eps=self._eps(state, lvl))
             state["phi"][lvl - 1] = phi_c
             state["ires"][lvl - 1] = ires_c
         else:
@@ -608,7 +635,8 @@ class DenseMGSolver:
         cfg = self._kcfgs[lvl]
         phi, phi_c, ires_c = dk.downsweep_dense(
             cfg, state["phi"][lvl], state["rhs"][lvl], lam,
-            state["bc"][lvl], red_parity=0, eps=self._eps(state, lvl))
+            self._planes(state, lvl), red_parity=0,
+            eps=self._eps(state, lvl))
         state["phi"][lvl] = phi
         state["phi"][lvl - 1] = phi_c
         state["ires"][lvl - 1] = ires_c
@@ -621,7 +649,7 @@ class DenseMGSolver:
         iold_c = self._sync_pads(state["iold"][lvl_c], lvl_c)
         dk.prolong_correct_dense(self._kcfgs[lvl_c], phi_c, iold_c,
                                  state["phi"][lvl_c + 1],
-                                 state["bc"][lvl_c])
+                                 self._planes(state, lvl_c))
         return state
 
     def _prolong_rect(self, sub):
@@ -652,6 +680,52 @@ class DenseMGSolver:
             out[(bits >> 2) & 1::2, (bits >> 1) & 1::2, bits & 1::2] = v
         return out
 
+    def _zeros(self, shape):
+        return torch.zeros(shape, dtype=self.cfg.dtype, device=self.device)
+
+    def _prolong_add(self, sub, phi_f):
+        """phi_f += prolong(sub), in place, through the prolongation
+        kernel's corr_ready mode: sub's interior is the coarse field and
+        its one-cell ring rides the kernel's identity face planes (the
+        window ring IS the window's six faces).  Bitwise
+        ``phi_f[interior] += _prolong_rect(sub)``: the same
+        mg_prolong_sparse accumulation order, and the ghost 1.0*b +
+        0.0*x1 is b."""
+        cfg_w, cp, planes = self._corr_window(sub)
+        return dk.prolong_correct_dense(cfg_w, cp, cp, phi_f, planes,
+                                        corr_ready=True)
+
+    def _corr_window(self, sub):
+        """(config, padded field, six face planes) of a correction window
+        [Zs+2, Ys+2, Xs+2]: its interior as a padded field, its ring as
+        the plane values of identity-coefficient faces."""
+        Zs, Ys, Xs = (int(v) - 2 for v in sub.shape)
+        dims_w = (Xs, Ys, Zs)
+        memo = self.__dict__.setdefault("_cfg_w_memo", {})
+        if dims_w not in memo:
+            memo[dims_w] = dk.DenseStencilConfig(
+                dims=dims_w, idr2=(1.0, 1.0, 1.0), bc=[(1.0, 0.0, 0.0)] * 6,
+                periodic=(False,) * 3, dtype=self.cfg.dtype,
+                b_const=[None] * 6)
+        cfg_w = memo[dims_w]
+        PZ, PY = dk.PZ, dk.PY
+        cp = self._zeros(dk.padded_shape(dims_w))
+        cp[_ISL] = sub[1:-1, 1:-1, 1:-1]
+        planes = []
+        for nb, face in enumerate((
+                sub[1:-1, 1:-1, 0], sub[1:-1, 1:-1, -1],   # x faces
+                sub[1:-1, 0, 1:-1], sub[1:-1, -1, 1:-1],   # y faces
+                sub[0, 1:-1, 1:-1], sub[-1, 1:-1, 1:-1])):  # z faces
+            p = self._zeros(cfg_w.plane_shape(nb))
+            if nb < 2:
+                p[PZ:PZ + Zs, PY:PY + Ys] = face
+            elif nb < 4:
+                p[PZ:PZ + Zs, :] = face
+            else:
+                p[PY:PY + Ys, :] = face
+            planes.append(p)
+        return cfg_w, cp, planes
+
     def _ring_bc(self, lvl, key="phi"):
         """(c0,c1,c2) per face for ghost-ring synthesis; coefficient
         fields (eps*) take the reference's Neumann-zero default, ghost =
@@ -660,44 +734,62 @@ class DenseMGSolver:
             return [(0.0, 1.0, 0.0)] * (2 * self.ndim)
         return self._bc_static(lvl)
 
-    def _var_with_ring(self, state, lvl, key):
+    def _var_with_ring(self, state, lvl, key, lo=None, hi=None):
         """One variable with a one-cell ghost ring [Z+2, Y+2, X+2]: ring
         faces from the bc_to_gc formula (ghost = c0*b + c1*x1 + c2*x2,
-        m_ghost_cells.f90:682-698) or the periodic wrap."""
+        m_ghost_cells.f90:682-698) or the periodic wrap; on AMR patches
+        refinement faces take (0.5, 0.75, -0.25) with the coarse
+        interpolation plane (_ring_bc, _planes).  The ring's edges and
+        corners are 0.  lo/hi (per axis z, y, x, in the ringed array's
+        coordinates): only the window [lo:hi], computed on its own cells
+        (the same values; the planes are read only if a ring face of the
+        window needs them)."""
         X, Y, Z = self.dims[lvl]
+        n = (Z, Y, X)
+        lo = (0, 0, 0) if lo is None else tuple(lo)
+        hi = (Z + 2, Y + 2, X + 2) if hi is None else tuple(hi)
+        pads = (dk.PZ, dk.PY, 0)        # field and plane pads per axis
         arr = state[key][lvl]
-        bp = state["bc"][lvl]
+        out = torch.zeros(tuple(h - l for l, h in zip(lo, hi)),
+                          dtype=arr.dtype, device=arr.device)
+        # ring coordinate c holds interior cell c - 1 (1 <= c <= n)
+        tl = [max(l, 1) for l in lo]
+        th = [min(h, m + 1) for h, m in zip(hi, n)]
+        if all(a < b for a, b in zip(tl, th)):
+            out[tuple(slice(a - l, b - l) for a, b, l in zip(tl, th, lo))] = \
+                arr[tuple(slice(a - 1 + p, b - 1 + p)
+                          for a, b, p in zip(tl, th, pads))]
         bc = self._ring_bc(lvl, key)
-        out = torch.zeros((Z + 2, Y + 2, X + 2), dtype=arr.dtype,
-                          device=arr.device)
-        out[1:-1, 1:-1, 1:-1] = arr[_ISL]
-        pads = (dk.PZ, dk.PY, 0)
+        bp = None
         for nbd in range(6):
             d = nbd // 2
-            lowside = nbd % 2 == 0
             ax = 2 - d
-            n_d = (X, Y, Z)[d]
+            lowside = nbd % 2 == 0
+            c = 0 if lowside else n[ax] + 1
+            if not (lo[ax] <= c < hi[ax]
+                    and all(tl[a] < th[a] for a in range(3) if a != ax)):
+                continue
+            tsl = [slice(tl[a] - 1 + pads[a], th[a] - 1 + pads[a])
+                   for a in range(3)]
 
             def pick(idx):
-                sl = list(_ISL)
+                sl = list(tsl)
                 sl[ax] = idx + pads[ax]
                 return arr[tuple(sl)]
 
             if self.periodic[d]:
-                ring = pick(n_d - 1 if lowside else 0)
+                ring = pick(n[ax] - 1 if lowside else 0)
             else:
-                x1 = pick(0 if lowside else n_d - 1)
-                x2 = pick(1 if lowside else n_d - 2)
-                bpl = (bp[nbd][dk.PZ:-dk.PZ, dk.PY:-dk.PY] if d == 0
-                       else bp[nbd][dk.PZ:-dk.PZ, :] if d == 1
-                       else bp[nbd][dk.PY:-dk.PY, :])
+                if bp is None:
+                    bp = self._planes(state, lvl, key)
+                bpl = bp[nbd][tuple(tsl[a] for a in range(3) if a != ax)]
                 c0, c1, c2 = bc[nbd]
-                ring = c0 * bpl + c1 * x1
+                ring = c0 * bpl + c1 * pick(0 if lowside else n[ax] - 1)
                 if c2 != 0.0:
-                    ring = ring + c2 * x2
-            sl: List = [slice(1, -1)] * 3
-            sl[ax] = 0 if lowside else -1
-            out[tuple(sl)] = ring
+                    ring = ring + c2 * pick(1 if lowside else n[ax] - 2)
+            osl = [slice(tl[a] - lo[a], th[a] - lo[a]) for a in range(3)]
+            osl[ax] = c - lo[ax]
+            out[tuple(osl)] = ring
         return out
 
     def prolong_set(self, state, lvl_c, key_from="phi", key_to="phi",

@@ -544,9 +544,6 @@ class DenseForestMGSolver(DenseMGSolver):
     # ------------------------------------------------------------------
     # ghost machinery
     # ------------------------------------------------------------------
-    def _zeros(self, shape):
-        return torch.zeros(shape, dtype=self.cfg.dtype, device=self.device)
-
     def _cansl(self, lo, hi):
         """Padded-canvas slice of a canvas-local cell rectangle."""
         return (slice(dk.PZ + int(lo[2]), dk.PZ + int(hi[2])),
@@ -1210,49 +1207,6 @@ class DenseForestMGSolver(DenseMGSolver):
                 sub[idx1] = s2[idx1]
         self._prolong_add(sub, state["phi"][lvl])
         return state
-
-    def _prolong_add(self, sub, phi_f):
-        """phi_f += prolong(sub), in place, through the prolongation
-        kernel's corr_ready mode: sub's interior is the coarse field and
-        its one-cell ring rides the kernel's identity face planes (the
-        window ring IS the window's six faces).  Bitwise
-        ``phi_f[interior] += _prolong_rect(sub)``: the same
-        mg_prolong_sparse accumulation order, and the ghost 1.0*b +
-        0.0*x1 is b."""
-        cfg_w, cp, planes = self._corr_window(sub)
-        return dk.prolong_correct_dense(cfg_w, cp, cp, phi_f, planes,
-                                        corr_ready=True)
-
-    def _corr_window(self, sub):
-        """(config, padded field, six face planes) of a correction window
-        [Zs+2, Ys+2, Xs+2]: its interior as a padded field, its ring as
-        the plane values of identity-coefficient faces."""
-        Zs, Ys, Xs = (int(v) - 2 for v in sub.shape)
-        dims_w = (Xs, Ys, Zs)
-        memo = self.__dict__.setdefault("_cfg_w_memo", {})
-        if dims_w not in memo:
-            memo[dims_w] = dk.DenseStencilConfig(
-                dims=dims_w, idr2=(1.0, 1.0, 1.0), bc=[(1.0, 0.0, 0.0)] * 6,
-                periodic=(False,) * 3, dtype=self.cfg.dtype,
-                b_const=[None] * 6)
-        cfg_w = memo[dims_w]
-        PZ, PY = dk.PZ, dk.PY
-        cp = self._zeros(dk.padded_shape(dims_w))
-        cp[_ISL] = sub[1:-1, 1:-1, 1:-1]
-        planes = []
-        for nb, face in enumerate((
-                sub[1:-1, 1:-1, 0], sub[1:-1, 1:-1, -1],   # x faces
-                sub[1:-1, 0, 1:-1], sub[1:-1, -1, 1:-1],   # y faces
-                sub[0, 1:-1, 1:-1], sub[-1, 1:-1, 1:-1])):  # z faces
-            p = self._zeros(cfg_w.plane_shape(nb))
-            if nb < 2:
-                p[PZ:PZ + Zs, PY:PY + Ys] = face
-            elif nb < 4:
-                p[PZ:PZ + Zs, :] = face
-            else:
-                p[PY:PY + Ys, :] = face
-            planes.append(p)
-        return cfg_w, cp, planes
 
     # -- subtract mean (fully periodic forests) -------------------------
     def _subtract_mean(self, state, key):

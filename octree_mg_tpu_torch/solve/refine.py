@@ -44,6 +44,14 @@ from ..ops.df32 import (_cb_pairs, accumulate_df32_, df32_ok,
 from .dense import DenseMGSolver, _ISL
 
 
+class Df32GateError(ValueError, AssertionError):
+    """A solver outside the double-float residual's gates (``df32_ok``,
+    ``df32_vcoeff_ok``).  The JAX package asserts these gates, so this
+    is an ``AssertionError`` as there, and a ``ValueError`` as the other
+    refusals of this module (a dense-patch AMR solver meets it: its top
+    level's refinement faces are plane-valued)."""
+
+
 class RefinedPoisson:
     """Iteratively refined solve on the dense solver's top level.
 
@@ -101,7 +109,7 @@ class RefinedPoisson:
             # variable-coefficient operators: double-float pair
             # arithmetic (~2^-47 relative — f64-class but not error-free)
             if not df32_vcoeff_ok(cfg):
-                raise ValueError("rhs/operator outside the df32 vcoeff "
+                raise Df32GateError("rhs/operator outside the df32 vcoeff "
                                  "gate (ops.df32.df32_vcoeff_ok)")
             if eps is None:
                 raise ValueError(
@@ -115,7 +123,7 @@ class RefinedPoisson:
                                  f"{self.n_eps}")
         else:
             if not df32_ok(cfg):
-                raise ValueError("rhs/operator outside the df32 gate "
+                raise Df32GateError("rhs/operator outside the df32 gate "
                                  "(ops.df32.df32_ok)")
             if eps is not None:
                 raise ValueError("eps= given for a constant-coefficient "
@@ -348,8 +356,11 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
     """One-shot convenience wrapper.  The JAX package picks the forest,
     sharded, 2D or plain refinement class by solver type; here the
     z-slab solver takes :class:`ShardedRefinedPoisson` (bc_values and lam
-    only, as there) and the uniform 3D dense solver
-    :class:`RefinedPoisson`; anything else raises.  lam != 0 = f64-class
+    only, as there), the uniform 3D dense solver and the dense-patch AMR
+    solver :class:`RefinedPoisson` (which refuses the AMR solver's top
+    level with :class:`Df32GateError`, its refinement faces being
+    plane-valued, as the JAX package's asserts do); anything else
+    raises.  lam != 0 = f64-class
     Helmholtz (a helmholtz-family inner solver); eps = the float64
     coefficient fields of a variable-coefficient solver (see
     RefinedPoisson)."""

@@ -582,6 +582,10 @@ ROUTES = {
     "uniform2_jacobi": dict(smoother="jacobi"),
     "cyl2_helmholtz": dict(geometry="cylindrical", operator="helmholtz"),
 }
+#: the rectangular AMR patch tree with each of the five operators (the
+#: dense-patch AMR solver in both packages)
+ROUTES.update({f"amr3_{op}": dict(operator=op) for op in (
+    "laplacian", "helmholtz", "vlaplacian", "vhelmholtz", "ahelmholtz")})
 
 
 def route_tree(name, pkg, tm):
@@ -591,7 +595,7 @@ def route_tree(name, pkg, tm):
                                    np.zeros(2))
     if base == "cyl2":
         return build("cyl2", pkg, tm)
-    if base in ("uniform3", "amr1"):
+    if base in ("uniform3", "amr1", "amr3"):
         return build(base, pkg, tm)
     return forest_tree(pkg, tm, base, 16, 4)
 
@@ -604,7 +608,8 @@ def test_make_solver_routes_as_the_reference(name):
     kw = ROUTES[name]
     want = type(ref_make_solver(route_tree(name, ref, rtm),
                                 ref.MGConfig(**kw))).__name__
-    ported = ("DenseMGSolver", "DenseForestMGSolver", "MGSolver")
+    ported = ("DenseMGSolver", "DenseAMRMGSolver", "DenseForestMGSolver",
+              "MGSolver")
     tree = route_tree(name, port, ptm)
     cfg = port.MGConfig(device="cpu", **kw)
     if want in ported:
@@ -617,3 +622,5 @@ def test_make_solver_routes_as_the_reference(name):
         assert want == "MGSolver"
     if name == "sparse":
         assert want == "DenseMultiForestMGSolver"
+    if name.startswith("amr3_"):
+        assert want == "DenseAMRMGSolver"

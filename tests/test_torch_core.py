@@ -124,10 +124,10 @@ def _tree3(n=16, box=8, per=False):
 
 @pytest.mark.parametrize("case", ["2d", "amr", "jacobi", "cylindrical"])
 def test_make_solver_raises_for_what_waits(case):
-    """2D dense paths and rectangular AMR patches still wait and raise; a
-    uniform 3D tree with the Jacobi smoother or cylindrical geometry is
-    no dense path's and goes to the boxed MGSolver, as in the JAX
-    package."""
+    """2D dense paths still wait and raise; rectangular AMR patches go to
+    the dense-patch AMR solver; a uniform 3D tree with the Jacobi
+    smoother or cylindrical geometry is no dense path's and goes to the
+    boxed MGSolver, as in the JAX package."""
     cfg = port.MGConfig(device="cpu")
     tree = _tree3()
     if case == "2d":
@@ -142,6 +142,9 @@ def test_make_solver_raises_for_what_waits(case):
     if case in ("jacobi", "cylindrical"):
         assert type(port.make_solver(tree, cfg)) is port.MGSolver
         return
+    if case == "amr":
+        assert type(port.make_solver(tree, cfg)) is port.DenseAMRMGSolver
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.make_solver(tree, cfg)
 
@@ -149,15 +152,22 @@ def test_make_solver_raises_for_what_waits(case):
 @pytest.mark.parametrize("op", ["vlaplacian", "vhelmholtz", "ahelmholtz"])
 def test_variable_coefficients_raise(op):
     """The variable-coefficient operators build on the dense path (their
-    tests are tests/test_torch_vcoeff.py); what still raises is the
-    plane-valued coefficient ghost synthesis of the AMR patch solvers."""
+    tests are tests/test_torch_vcoeff.py), and the plane-valued
+    coefficient ghost synthesis of the AMR patch solver (eps_bc) is
+    accepted for them (tests/test_torch_dense_amr.py); what raises is
+    eps_bc on a config without coefficient fields."""
     from octree_mg_tpu_torch.ops import dense_kernels as dk
     sv = port.make_solver(_tree3(), port.MGConfig(operator=op, device="cpu"))
     assert isinstance(sv, port.DenseMGSolver) and sv.n_eps in (1, 3)
     c = sv._kcfgs[sv.levels[-1]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dk.DenseStencilConfig(c.dims, c.idr2, c.bc, c.periodic, c.dtype,
+    assert c.eps_bc is None
+    e = dk.DenseStencilConfig(c.dims, c.idr2, c.bc, c.periodic, c.dtype,
                               b_const=c.b_const, n_eps=sv.n_eps,
+                              eps_bc=[(0.0, 1.0, 0.0)] * 6)
+    assert e.eps_bc == [(0.0, 1.0, 0.0)] * 6
+    with pytest.raises(ValueError, match="eps_bc"):
+        dk.DenseStencilConfig(c.dims, c.idr2, c.bc, c.periodic, c.dtype,
+                              b_const=c.b_const,
                               eps_bc=[(0.0, 1.0, 0.0)] * 6)
 
 

@@ -667,3 +667,84 @@ def test_df32_march_equals_plain_and_old_design_bitwise(shape):
     launched = sum(after[c] - before[c] for c in (
         "residual_df32_dense", "residual_df32_dense[z_gates]"))
     assert launched == len(rows)
+
+
+@pytest.mark.cuda
+def test_amr_kernel_cases_equal_plain_versions_bitwise():
+    """chip_smoke.py's "amr" case kinds (refinement faces with
+    plane-valued b and c2 = -0.25, alone and beside constant Dirichlet
+    faces) on the small patch shapes, and the AMR solver's region
+    correction (the corr_ready mode against ``_prolong_rect`` plus the
+    add): 0 ulp, each launch on the design its rule gives."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    rows, _ = chip_smoke.amr_checks(dk, port, quick=True)
+    assert rows and all(r["max_ulp"] == 0 for r in rows), [
+        r for r in rows if r["max_ulp"]][:5]
+    assert all(r["design_as_its_rule_gives"] for r in rows), [
+        r for r in rows if not r["design_as_its_rule_gives"]][:5]
+
+
+@pytest.mark.cuda
+def test_amr_solver_on_card_matches_cpu():
+    """3-level AMR trees in float64, four operators, three FMGs on the
+    card and on the CPU (chip_smoke.phase_amr_cpu_agreement): phi within
+    1e-11 of max|phi|, the plain route the same count on both."""
+    need_cuda()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import octree_mg_tpu_torch as port
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    chip_smoke.phase_amr_cpu_agreement(port, dk)   # SystemExit on a miss
+
+
+@pytest.mark.cuda
+def test_eps_bc_config_takes_the_plain_route_on_card():
+    """A config with plane-valued coefficient ghosts (eps_bc) on CUDA
+    tensors runs the plain versions, counted under ``[eps_bc]`` and never
+    as a launch, with the CPU's values (1e-13 of max|ref|)."""
+    need_cuda()
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    rb = (0, 3, 5)
+    rbc = (0.5, 0.75, -0.25)
+    cfg = dk.DenseStencilConfig(
+        (16, 8, 12), (256.0, 64.0, 144.0),
+        [rbc if nb in rb else (2.0, -1.0, 0.0) for nb in range(6)],
+        (False,) * 3, torch.float64,
+        b_const=[None if nb in rb else 0.3 for nb in range(6)], n_eps=3,
+        eps_bc=[rbc if nb in rb else (0.0, 1.0, 0.0) for nb in range(6)])
+    g = torch.Generator().manual_seed(5)
+    phi, rhs = (torch.randn(cfg.pshape, generator=g, dtype=torch.float64)
+                for _ in range(2))
+    eps = [0.5 + torch.rand(cfg.pshape, generator=g, dtype=torch.float64)
+           for _ in range(3)]
+    planes = [torch.randn(cfg.plane_shape(nb), generator=g,
+                          dtype=torch.float64) for nb in range(6)]
+    eplanes = [[0.5 + torch.rand(cfg.plane_shape(nb), generator=g,
+                                 dtype=torch.float64) if nb in rb else None
+                for nb in range(6)] for _ in range(3)]
+
+    def run(dev):
+        def to(t):
+            return None if t is None else t.to(dev)
+        a = (cfg, to(phi), to(rhs), 0.7, [to(p) for p in planes])
+        kw = dict(eps=[to(e) for e in eps],
+                  eps_planes=[[to(p) for p in row] for row in eplanes])
+        return [dk.pair_sweep_dense(*a, 0, n_pairs=2, **kw),
+                dk.half_sweep_dense(*a, 1, **kw),
+                dk.stencil_apply_dense(*a, True, **kw)]
+
+    want = run("cpu")
+    before, plain = dk.launch_counts(), dk.plain_route_counts()
+    got = run("cuda")
+    after = dk.plain_route_counts()
+    assert dk.launch_counts() == before
+    assert {k: after[k] - plain[k] for k in after} == {
+        "pair_sweep_dense[eps_bc]": 1, "half_sweep_dense[eps_bc]": 1,
+        "stencil_apply_dense[eps_bc]": 1}
+    for a, b in zip(got, want):
+        a, b = a[dk._ISL].cpu(), b[dk._ISL]
+        assert float((a - b).abs().max()) <= 1e-13 * float(b.abs().max())

@@ -255,10 +255,16 @@ def test_eps_fields_are_checked():
     with pytest.raises(TypeError, match="dtype"):
         dk.downsweep_dense(c, phi, phi, 0.0, [None] * 6, 0,
                            eps=[eps[0].float(), eps[1], eps[2]])
-    with pytest.raises(NotImplementedError, match="A8"):
+    # plane-valued coefficient ghosts (eps_bc) need coefficient fields
+    # and six faces
+    with pytest.raises(ValueError, match="eps_bc"):
+        dk.DenseStencilConfig(c.dims, c.idr2, c.bc, c.periodic,
+                              torch.float64, n_eps=0,
+                              eps_bc=[(0.0, 1.0, 0.0)] * 6)
+    with pytest.raises(ValueError, match="eps_bc"):
         dk.DenseStencilConfig(c.dims, c.idr2, c.bc, c.periodic,
                               torch.float64, n_eps=1,
-                              eps_bc=[(0.0, 1.0, 0.0)] * 6)
+                              eps_bc=[(0.0, 1.0, 0.0)] * 5)
 
 
 def _bits(t):
