@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --quick    # build + small kernel checks only
     python3 chip_smoke.py --amr      # build + the AMR solver's part only
+    python3 chip_smoke.py --drivers  # build + the free-space, diffusion
+                                     # and coefficient-forest part only
 
 Builds the CUDA kernels of ``octree_mg_tpu_torch`` from the sources in
 this checkout (the first use compiles them with nvcc), then, one JSON
@@ -130,6 +132,18 @@ object per line:
   the CPU (plain versions), three FMGs, laplacian and ahelmholtz; the
   32^3-base L and periodic forests the same way (footprint cells); the
   boxed solver on the sparse periodic tree at base 32, box 4, two FMGs;
+  and the drivers' rows (``drivers_cpu_agreement``, also its own line
+  under ``--drivers``): both free-space drivers (dense IGF 32^3 box 8,
+  boxed 16^3 box 4, two solves each), the spectral and IGF kernel
+  tables and the dense driver with the FFT level at the top (spectral),
+  every diffusion scheme (helmholtz, vhelmholtz, ahelmholtz) in both
+  orders on the dense, dense-AMR and boxed solvers at 16^3, the
+  ahelmholtz L forest and the periodic vhelmholtz forest at base 32
+  (three FMGs, the plain route's counts equal on both devices); bounds
+  1e-11 of max|phi|, residuals 1e-8 relative (the diffusion rows'
+  within 64 eps of the step's rhs scale max|rhs|: their residuals sit
+  at the 1e-7 target, ~1e-10 of the terms they cancel; the card read
+  at most 4.1e-15 of that scale);
 * ``vcoeff_path`` — ``PoissonSolver(3, (512,)*3, 16, operator=...,
   dtype=float32)`` for vhelmholtz and ahelmholtz (lam 1.5, Dirichlet 0,
   coefficients 1 + 0.5 cos(2 pi (x_d + 0.1 d)) set and restricted on the
@@ -194,6 +208,37 @@ object per line:
   helmholtz, vhelmholtz and ahelmholtz (their patch levels with
   refinement faces on the plain route, counted on both), phi within
   1e-11 of max|phi| on every level;
+* ``free_space_path`` — ``make_free_space`` over the main path's tree
+  (512^3, box 16, float32; IGF kernel, FFT level 256^3, Hockney grid
+  516^3), the Gaussian charge of tests/test_free_space.py (sigma 0.1,
+  centred): the kernel build clocked apart, five solves (the first
+  ``new_rhs=True``, each with an FMG), ms per solve, the max error
+  against erf(r/sigma)/(4 pi r) per solve, the residuals, launches,
+  peak memory; gates: the last error below FS_ERR_BOUND (6.8e-5: twice
+  the O(h^2) extrapolation of the CPU's float32 errors at 64^3 and
+  128^3, experiments/driver_bounds_cpu.py), the first below twice the
+  last, rows 1, 3, 4, 5, 6 and 7
+  launched;
+* ``diffusion_path`` — ``diffusion_solve_vcoeff``, order 2, on
+  vcoeff_path's 512^3 vhelmholtz problem with Neumann-0 walls and phi0 =
+  solution + 2, three steps of dt 0.01, max_res DIFF_MAX_RES (5.71:
+  four times the float32 floor extrapolated from the CPU's 32^3 .. 128^3
+  floors, experiments/driver_bounds_cpu.py): per step ms, cycles and their residuals, the mass drift
+  (summed in float64) and the variance ratio, then the floor measured
+  by six more V-cycles; gates: residual <= max_res (the driver raises
+  otherwise), mass within 1e-5 relative, variance falling every step,
+  the coefficient rows 1e, 3e, 4e, 5e and rows 6 and 7 launched, the
+  plain route not;
+* ``forest_vcoeff`` — forest_path's L tree (512^3 level-2 canvas,
+  1.195e8 leaf unknowns) under vhelmholtz (n_eps 1), float32, lam 1.5,
+  eps 1 + 0.5 cos(2 pi x) sin(2 pi y) on every canvas, a seeded normal
+  rhs: one zero-guess and eight have-guess FMGs through ``solve``
+  (residual history, launches and plain-route counts), three timed
+  have-guess FMGs (ms each, launches and plain-route counts per FMG);
+  the plain half-sweeps and applies per FMG by canvas and one of each
+  timed on the 512^3 and 256^3 canvases; gates: the residual below 1e-3
+  of the first, finite footprint, rows 6 and 7c launched, the plain
+  route (half-sweep, apply) taken;
 * ``sharded_path`` — the main path's problem through
   ``ShardedDenseMGSolver(n_shards=8)`` (K slabs on one card; levels 512
   to 32 sharded, 16 replicated, 8 the direct coarse level): one
@@ -253,7 +298,9 @@ object per line:
   sharded_vcoeff);
   every row whose counter ``amr_path``'s solve launched carries those
   launches and the timed FMGs' per FMG (``amr_path_launches``,
-  ``amr_path_launches_per_fmg``);
+  ``amr_path_launches_per_fmg``), and likewise the launches of the
+  driver paths (``free_space_launches``, ``diffusion_launches``,
+  ``forest_vcoeff_launches``, ``forest_vcoeff_launches_per_fmg``);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -3666,12 +3713,52 @@ def phase_boxed_path(pkg, dk, base=256, box=16, n_have=8, n_timed=8,
     return [row], launches
 
 
+#: card-against-CPU bounds in float64: phi within AGREE_PHI of max|phi|,
+#: each residual within AGREE_RES relative (a residual is the cancelled
+#: difference rhs - A(phi) of O(1) terms, so a 1e-16 perturbation of phi
+#: shows at 1e-16/|residual| relative)
+AGREE_PHI, AGREE_RES = 1e-11, 1e-8
+
+
+def agreement(cuda, cpu, res_scale=None, res_bound=AGREE_RES):
+    """One card-against-CPU row from the (phi, residuals) pairs of the two
+    devices: phi's max difference over max|phi| (phi an array, or a dict
+    of levels: the worst level; residuals None for a table alone), the
+    residuals' over each CPU residual, or over ``res_scale`` where given
+    (the row then carries the scale and ``res_bound``)."""
+    a, b = cuda[0], cpu[0]
+    if not isinstance(b, dict):
+        a, b = {0: a}, {0: b}
+    phi_d = max(np.abs(np.asarray(a[l]) - np.asarray(b[l])).max()
+                / max(np.abs(np.asarray(b[l])).max(), 1e-300) for l in b)
+    row = {"phi_max_rel_diff": float(phi_d), "residual_max_rel_diff": 0.0}
+    if cpu[1] is not None:
+        rd, rc = np.asarray(cuda[1], float), np.asarray(cpu[1], float)
+        scale = (np.maximum(np.abs(rc), 1e-300) if res_scale is None
+                 else res_scale)
+        row.update(residual_max_rel_diff=float(np.max(np.abs(rd - rc)
+                                                      / scale)),
+                   residuals_cuda=rd.tolist(), residuals_cpu=rc.tolist())
+    if res_scale is not None:
+        row.update(residual_scale=float(res_scale), residual_bound=res_bound)
+    return row
+
+
+def check_agreement(rows, what):
+    """Fail on the first row outside AGREE_PHI or its residual bound."""
+    for k, r in rows.items():
+        if not (r["phi_max_rel_diff"] < AGREE_PHI
+                and r["residual_max_rel_diff"]
+                < r.get("residual_bound", AGREE_RES)):
+            fail(f"{what}: card and CPU disagree ({k}): {r}")
+
+
 def boxed_cpu_agreement(pkg, base=32, box=4):
     """The sparse periodic tree at base 32, box 4, float64, the kernel
     smoother on, two FMGs on the card and on the CPU (plain versions)."""
     from octree_mg_tpu_torch.core import tree as tm
     rng = np.random.default_rng(19)
-    res, phis = {}, {}
+    out = {}
     for dev in ("cuda", "cpu"):
         t = forest_tree(pkg, tm, "sparse_periodic", base, box)
         ps = pkg.PoissonSolver(
@@ -3682,15 +3769,8 @@ def boxed_cpu_agreement(pkg, base=32, box=4):
                    for l in (1, 2)}
         ps.set_rhs(arrays=rhs)
         phi, info = ps.solve(rtol=0.0, max_cycles=2)
-        phis[dev] = phi.cpu().numpy()
-        res[dev] = np.array(info["residuals"])
-    return {
-        "phi_max_rel_diff": float(np.abs(phis["cuda"] - phis["cpu"]).max()
-                                  / np.abs(phis["cpu"]).max()),
-        "residual_max_rel_diff": float(np.max(
-            np.abs(res["cuda"] - res["cpu"]) / np.abs(res["cpu"]))),
-        "residuals_cuda": res["cuda"].tolist(),
-        "residuals_cpu": res["cpu"].tolist()}
+        out[dev] = (phi.cpu().numpy(), info["residuals"])
+    return agreement(out["cuda"], out["cpu"])
 
 
 def forest_cpu_agreement(pkg, kinds=("L", "periodic")):
@@ -3700,7 +3780,7 @@ def forest_cpu_agreement(pkg, kinds=("L", "periodic")):
     out = {}
     rng = np.random.default_rng(17)
     for kind in kinds:
-        res, phis = {}, {}
+        pair = {}
         for dev in ("cuda", "cpu"):
             t = forest_tree(pkg, tm, kind, 32, 8)
             ps = pkg.PoissonSolver(3, (32,) * 3, 8, tree=t,
@@ -3713,16 +3793,9 @@ def forest_cpu_agreement(pkg, kinds=("L", "periodic")):
                 rhs = rng.normal(size=sv._ishape(top))
             ps.set_rhs(arrays={top: rhs})
             phi, info = ps.solve(rtol=0.0, max_cycles=3)
-            phis[dev] = np.where(sv.footprint_mask(top),
-                                 phi.cpu().numpy(), 0.0)
-            res[dev] = np.array(info["residuals"])
-        out[f"forest_{kind}"] = {
-            "phi_max_rel_diff": float(np.abs(phis["cuda"] - phis["cpu"]).max()
-                                      / np.abs(phis["cpu"]).max()),
-            "residual_max_rel_diff": float(np.max(
-                np.abs(res["cuda"] - res["cpu"]) / np.abs(res["cpu"]))),
-            "residuals_cuda": res["cuda"].tolist(),
-            "residuals_cpu": res["cpu"].tolist()}
+            pair[dev] = (np.where(sv.footprint_mask(top),
+                                  phi.cpu().numpy(), 0.0), info["residuals"])
+        out[f"forest_{kind}"] = agreement(pair["cuda"], pair["cpu"])
     return out
 
 
@@ -3735,7 +3808,7 @@ def phase_cpu_agreement(pkg, df):
     max|phi|; each residual within 1e-8 relative (a residual is the
     cancelled difference rhs - A(phi) of O(1) terms, so a 1e-16
     perturbation of phi shows at 1e-16/|residual| relative)."""
-    bound, bound_res, n = 1e-11, 1e-8, 64
+    n = 64
     rng = np.random.default_rng(3)
     rhs = rng.normal(size=(n, n, n))
     rows = {}
@@ -3754,31 +3827,21 @@ def phase_cpu_agreement(pkg, df):
             sv.prepare_coefficient(st)
             ps.set_rhs(arrays={sv.levels[-1]: rhs})
             phi, info = ps.solve(lam=lam, rtol=0.0, max_cycles=3)
-            out[dev] = (phi.cpu().numpy(), np.array(info["residuals"]))
-        phi_d = (np.abs(out["cuda"][0] - out["cpu"][0]).max()
-                 / np.abs(out["cpu"][0]).max())
-        res_d = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1])
-                             / np.abs(out["cpu"][1])))
-        rows[op] = {"phi_max_rel_diff": float(phi_d),
-                    "residual_max_rel_diff": res_d,
-                    "residuals_cuda": out["cuda"][1].tolist(),
-                    "residuals_cpu": out["cpu"][1].tolist()}
+            out[dev] = (phi.cpu().numpy(), info["residuals"])
+        rows[op] = agreement(out["cuda"], out["cpu"])
     rows.update(forest_cpu_agreement(pkg))
     rows["boxed"] = boxed_cpu_agreement(pkg)
     rows["sharded"] = sharded_cpu_agreement(pkg)
+    from octree_mg_tpu_torch.ops import dense_kernels as dk
+    rows.update(drivers_cpu_agreement(pkg, dk))
     emit({"cpu_agreement": {
         "dims": [n] * 3, "dtype": "float64", "fmgs": 3,
-        "bound": bound, "residual_bound": bound_res,
+        "bound": AGREE_PHI, "residual_bound": AGREE_RES,
         "reason": "identical stencil arithmetic; cuBLAS and CPU BLAS sum "
                   "the coarse solve's matrix-vector products in different "
                   "orders", **rows,
         "refined_vcoeff_periodic": refined_vcoeff_periodic(pkg, df)}})
-    for op, r in rows.items():
-        if not (r["phi_max_rel_diff"] < bound
-                and r["residual_max_rel_diff"] < bound_res):
-            fail(f"card and CPU disagree ({op}): phi "
-                 f"{r['phi_max_rel_diff']}, residuals "
-                 f"{r['residual_max_rel_diff']}")
+    check_agreement(rows, "cpu_agreement")
 
 
 # ---------------------------------------------------------------------------
@@ -4135,19 +4198,13 @@ def sharded_cpu_agreement(pkg, n=32, k=8):
     """32^3 over 8 slabs, float64, three FMGs on the card and on the CPU
     (plain versions)."""
     rhs = torch.from_numpy(np.random.default_rng(23).normal(size=(n,) * 3))
-    res, phis = {}, {}
+    out = {}
     for dev in ("cuda", "cpu"):
         _, ss = dense_pair(pkg, n, k, dtype=torch.float64, device=dev)
         st = seeded_state(ss, rhs)
-        res[dev] = np.array(run_fmgs(ss, st, 3))
-        phis[dev] = ss.interior(st, ss.levels[-1], "phi").cpu().numpy()
-    return {
-        "phi_max_rel_diff": float(np.abs(phis["cuda"] - phis["cpu"]).max()
-                                  / np.abs(phis["cpu"]).max()),
-        "residual_max_rel_diff": float(np.max(
-            np.abs(res["cuda"] - res["cpu"]) / np.abs(res["cpu"]))),
-        "residuals_cuda": res["cuda"].tolist(),
-        "residuals_cpu": res["cpu"].tolist()}
+        res = run_fmgs(ss, st, 3)
+        out[dev] = (ss.interior(st, ss.levels[-1], "phi").cpu().numpy(), res)
+    return agreement(out["cuda"], out["cpu"])
 
 
 def slab_work_model(name, zl, xy, item, halo, n_eps=0):
@@ -4717,9 +4774,7 @@ def phase_amr_cpu_agreement(pkg, dk):
     helmholtz, vhelmholtz and ahelmholtz (the coefficient operators' patch
     levels with refinement faces on the plain route, counted; smooth
     coefficients set on every level and prepared).  Bounds as in
-    cpu_agreement: phi on every level within 1e-11 of max|phi|, each
-    residual within 1e-8 relative."""
-    bound, bound_res = 1e-11, 1e-8
+    cpu_agreement (AGREE_PHI on every level, AGREE_RES)."""
 
     def bc_fn(x):
         return 0.25 + np.sin(3 * x[..., 0]) * np.cos(2 * x[..., 2])
@@ -4753,26 +4808,18 @@ def phase_amr_cpu_agreement(pkg, dk):
                 st, r = sv.fas_fmg(st, lam=lam, have_guess=i > 0)
                 hist.append(float(r))
             out[dev] = ({lvl: sv.interior(st, lvl, "phi").cpu().numpy()
-                         for lvl in sv.levels}, np.array(hist),
+                         for lvl in sv.levels}, hist,
                         dk.plain_route_counts())
-        phi_d = max(np.abs(out["cuda"][0][l] - out["cpu"][0][l]).max()
-                    / np.abs(out["cpu"][0][l]).max() for l in out["cpu"][0])
-        res_d = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1])
-                             / np.abs(out["cpu"][1])))
         rows[f"{op}_{n}"] = {
-            "phi_max_rel_diff": float(phi_d), "residual_max_rel_diff": res_d,
-            "residuals_cuda": out["cuda"][1].tolist(),
-            "residuals_cpu": out["cpu"][1].tolist(),
+            **agreement(out["cuda"][:2], out["cpu"][:2]),
             "plain_route_cuda": {k: v for k, v in out["cuda"][2].items() if v},
             "plain_route_cpu": {k: v for k, v in out["cpu"][2].items() if v}}
     emit({"amr_cpu_agreement": {
         "tree": "build_amr_centered(3, 3, n^3, 8, 1/n), n 16 and 32",
-        "dtype": "float64", "fmgs": 3, "bound": bound,
-        "residual_bound": bound_res, **rows}})
+        "dtype": "float64", "fmgs": 3, "bound": AGREE_PHI,
+        "residual_bound": AGREE_RES, **rows}})
+    check_agreement(rows, "amr_cpu_agreement")
     for k, r in rows.items():
-        if not (r["phi_max_rel_diff"] < bound
-                and r["residual_max_rel_diff"] < bound_res):
-            fail(f"amr_cpu_agreement: card and CPU disagree ({k}): {r}")
         if ("vhelmholtz" in k or "ahelmholtz" in k) and \
                 r["plain_route_cuda"] != r["plain_route_cpu"]:
             fail(f"amr_cpu_agreement: the plain route differs ({k}): {r}")
@@ -4807,6 +4854,612 @@ def amr_rows(rows, launches, per_fmg):
         if launches.get(r["name"], 0):
             r["amr_path_launches"] = launches[r["name"]]
             r["amr_path_launches_per_fmg"] = per_fmg.get(r["name"], 0.0)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the free-space and diffusion drivers, the coefficient forest
+# ---------------------------------------------------------------------------
+
+def _centres(sv, lvl, d, dev):
+    """Cell-centre coordinates of dim d on level lvl's grid or canvas
+    (offset-aware), float64 on ``dev``."""
+    off = getattr(sv, "offsets", {}).get(lvl, np.zeros(3, np.int64))
+    n = sv.dims[lvl][d]
+    return (float(sv.tree.r_min[d]) + (float(off[d])
+            + torch.arange(n, dtype=torch.float64, device=dev) + 0.5)
+            * float(sv.tree.dr[lvl][d]))
+
+
+def _field(sv, lvl, fn, dev):
+    """fn(x, y, z) on the level's cells as a float64 [Z, Y, X] tensor
+    (coordinates broadcast, never materialized on the host)."""
+    x = _centres(sv, lvl, 0, dev).view(1, 1, -1)
+    y = _centres(sv, lvl, 1, dev).view(1, -1, 1)
+    z = _centres(sv, lvl, 2, dev).view(-1, 1, 1)
+    return fn(x, y, z).expand(sv._ishape(lvl))
+
+
+#: the free-space Gaussian (tests/test_free_space.py): sigma 0.1, centred
+FS_SIGMA = 0.1
+
+
+def fs_rhs(x, y, z):
+    r2 = ((x - 0.5) / FS_SIGMA) ** 2 + ((y - 0.5) / FS_SIGMA) ** 2 \
+        + ((z - 0.5) / FS_SIGMA) ** 2
+    return (-1.0 / (FS_SIGMA ** 3 * np.pi * np.sqrt(np.pi))) * torch.exp(-r2)
+
+
+def fs_solution(x, y, z):
+    """erf(r/sigma)/(4 pi r), its limit at r = 0."""
+    r = torch.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+    small = r < np.sqrt(np.finfo(float).eps)
+    rs = torch.where(small, 1.0, r)
+    val = torch.erf(rs / FS_SIGMA) / (4 * np.pi * rs)
+    return torch.where(small, 2.0 / (4 * np.pi * np.sqrt(np.pi) * FS_SIGMA),
+                       val)
+
+
+#: free_space_path's error gate: the port's dense driver on the CPU in
+#: float32 (box 16, five solves; experiments/driver_bounds_cpu.py) ends
+#: at max|phi - erf(r/s)/(4 pi r)| = 2.156e-3 at 64^3 and 5.444e-4 at
+#: 128^3 (3.96x: O(h^2)); at 512^3 that predicts 5.444e-4 / 16 = 3.4e-5,
+#: and the gate allows twice that
+FS_ERR_BOUND = 2 * 5.444e-4 / 16
+#: the stencil entry points of the dense FMG (rows 1, 3, 4, 5, 6, 7)
+FS_KERNELS = ("pair_sweep_dense", "downsweep_dense",
+              "residual_restrict_dense", "stencil_apply_dense",
+              "restrict_dense", "prolong_correct_dense")
+
+
+def phase_free_space_path(pkg, dk, n=512, box=16, n_solves=5):
+    """The free-space driver at full width: the main path's tree
+    (build_rectangle n^3, box 16), float32, ``make_free_space(solver)``
+    (IGF kernel; FFT level n/2, Hockney grid 2 (n/2 + 2) a side), the
+    Gaussian charge of tests/test_free_space.py on the top level.  The
+    kernel is built and clocked apart, then ``n_solves`` solves (the
+    first ``new_rhs=True``, each with an FMG): seconds per solve, the max
+    error against the analytic potential per solve, the residual, the
+    launches of the solves, peak memory; then one more ``new_rhs`` solve
+    (cuFFT's plans made) and the FFT convolution alone (CUDA events).  Gates: every error finite,
+    the last below FS_ERR_BOUND, the first below twice the last (the
+    reference test's), and every stencil entry point of the FMG
+    launched."""
+    from octree_mg_tpu_torch.solve import free_space as fsm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dsz = np.full(3, n)
+    sv = pkg.make_solver(pkg.build_rectangle(3, dsz, box, 1.0 / dsz,
+                                             np.zeros(3)),
+                         pkg.MGConfig(operator="laplacian",
+                                      dtype=torch.float32, device="cuda"))
+    fs = fsm.make_free_space(sv)
+    if not isinstance(fs, fsm.FreeSpacePoisson3DDense):
+        fail(f"free_space_path: make_free_space gave {type(fs).__name__}")
+    state = sv.allocate()
+    top = sv.levels[-1]
+    sv.set_interior(state, top, "rhs", _field(sv, top, fs_rhs, "cuda"))
+    sol = _field(sv, top, fs_solution, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    fs.cache = fsm._build_cache(fs.kernel, fs.fft_lvl, fs.nx, fs.dr,
+                                sv.device)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t1
+    dk.reset_launch_counts()
+    solve_ms, errs, res = [], [], []
+    for i in range(n_solves):
+        t2 = time.perf_counter()
+        state, r = fs.solve(state, new_rhs=(i == 0))
+        r = float(r)
+        solve_ms.append(1e3 * (time.perf_counter() - t2))
+        phi = sv.interior(state, top, "phi")
+        errs.append(float((phi.double() - sol).abs().max()))
+        res.append(r)
+    launches = dk.launch_counts()
+    # where the first solve's time goes: the same solve again with cuFFT's
+    # plans made, and the convolution alone (events, 5 calls)
+    t3 = time.perf_counter()
+    state, r = fs.solve(state, new_rhs=True)
+    float(r)
+    warm_ms = 1e3 * (time.perf_counter() - t3)
+    X, Y, Z = sv.dims[fs.fft_lvl]
+    rho = torch.zeros((Z + 2, Y + 2, X + 2), dtype=torch.float32,
+                      device="cuda")
+    rho[1:-1, 1:-1, 1:-1] = sv.interior(state, fs.fft_lvl, "rhs")
+    conv_ms = time_ms(lambda: fsm._fft_convolve(rho, fs.cache.kernel_hat), 5)
+    del rho
+    rec = {
+        "model": f"make_free_space(DenseMGSolver(build_rectangle({n}^3, box "
+                 f"{box}), float32)), kernel igf, Gaussian sigma "
+                 f"{FS_SIGMA}",
+        "fft_lvl": fs.fft_lvl, "fft_dims": list(sv.dims[fs.fft_lvl]),
+        "hockney_grid": [2 * (int(v) + 2) for v in fs.nx[::-1]],
+        "kernel_hat_dtype": str(fs.cache.kernel_hat.dtype),
+        "kernel_build_s": kernel_s, "setup_s": setup_s,
+        "solve_ms": solve_ms, "new_rhs_solve_ms": solve_ms[0],
+        "later_solve_ms": solve_ms[1:],
+        "new_rhs_solve_again_ms": warm_ms, "fft_convolve_ms": conv_ms,
+        "max_err": errs,
+        "err_bound": FS_ERR_BOUND, "residuals": res,
+        "rhs_scale": float(1.0 / (FS_SIGMA ** 3 * np.pi * np.sqrt(np.pi))),
+        "launches_in_solves": {k: v for k, v in launches.items() if v},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit({"free_space_path": rec})
+    if not (all(np.isfinite(errs)) and all(np.isfinite(res))):
+        fail(f"free_space_path: non-finite errors or residuals {errs} {res}")
+    if not errs[-1] < FS_ERR_BOUND:
+        fail(f"free_space_path: error {errs[-1]} above {FS_ERR_BOUND}")
+    if not errs[0] < 2 * errs[-1]:
+        fail(f"free_space_path: not converged after the first solve {errs}")
+    missing = [k for k in FS_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"free_space_path launched no kernel for {missing}")
+    del fs, sv, state, sol
+    torch.cuda.empty_cache()
+    return launches
+
+
+def diffusion_phi0(x, y, z):
+    """tests/test_dense_vcoeff.py's initial condition: solution + 2, the
+    solution sin(4 pi x) sin(4 pi y) sin(4 pi z) (tests/test_dense.py)."""
+    return (torch.sin(4 * np.pi * x) * torch.sin(4 * np.pi * y)
+            * torch.sin(4 * np.pi * z) + 2.0)
+
+
+#: diffusion_path's residual target: the float32 residual floor of this
+#: problem (three steps, then six V-cycles, the largest of the last
+#: three: the phase's measured_floor) on the CPU was 0.00534 at 32^3,
+#: 0.0229 at 64^3 and 0.0892 at 128^3 (experiments/driver_bounds_cpu.py),
+#: growing 4.3x and 3.9x per doubling, as h^-2; at 512^3 that predicts
+#: 0.0892 * 16 = 1.43, and the target is 4x that
+DIFF_MAX_RES = 4 * 0.0892 * 16
+#: float32 mass drift bound: the CPU's runs drift by at most 2.7e-7 (128^3,
+#: three steps, summed in float64; the same script); the gate allows 1e-5
+DIFF_MASS_BOUND = 1e-5
+
+
+class _CycleLog:
+    """Residuals of the solver's FMG and V-cycles as the driver reads
+    them (a wrap of the two entry points on the instance, removed on
+    exit); the driver reads each residual on the host anyway."""
+
+    def __init__(self, sv):
+        self.sv, self.res = sv, []
+
+    def __enter__(self):
+        for name in ("fas_fmg", "fas_vcycle"):
+            orig = getattr(self.sv, name)
+
+            def wrap(*a, _orig=orig, **k):
+                st, r = _orig(*a, **k)
+                self.res.append(float(r))
+                return st, r
+            setattr(self.sv, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("fas_fmg", "fas_vcycle"):
+            self.sv.__dict__.pop(name, None)
+
+
+def phase_diffusion_path(pkg, dk, n=512, n_steps=3, dt=0.01):
+    """``diffusion_solve_vcoeff``, order 2, on vcoeff_path's problem at
+    full width (PoissonSolver(3, (n,)*3, 16, operator="vhelmholtz"),
+    float32, eps 1 + 0.5 cos(2 pi (x + 0.1 d)) set and prepared on the
+    card) with Neumann-0 walls and phi0 = solution + 2
+    (tests/test_dense_vcoeff.py's set-up), ``n_steps`` steps of dt:
+    per step ms, cycles and their residuals, the mass drift (summed in
+    float64) and the variance ratio; the launches of the path, counted
+    from before ``prepare_coefficient`` (the steps' have-guess FMGs
+    restrict on the fused down-leg, so row 6 launches only in the
+    coefficients' restriction); then six more V-cycles on
+    the last step's system (the measured float32 floor).  Gates: each step's
+    residual <= DIFF_MAX_RES (the driver raises otherwise), the mass
+    within DIFF_MASS_BOUND relative, the variance falling every step,
+    every coefficient stencil entry point launched, the plain route
+    never."""
+    from octree_mg_tpu_torch.solve import diffusion as dfm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ps = pkg.PoissonSolver(3, (n,) * 3, 16 if n >= 64 else 8,
+                           operator="vhelmholtz", dtype=torch.float32,
+                           device="cuda")
+    sv = ps.solver
+    ps.set_neumann(0.0)
+    state = ps._ensure_state()
+    top = sv.levels[-1]
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    sv.set_coefficient(state, _field(sv, top, lambda x, y, z: 1.0 + 0.5
+                                     * torch.cos(2 * np.pi * x), "cuda"))
+    sv.prepare_coefficient(state)
+    sv.set_interior(state, top, "phi", _field(sv, top, diffusion_phi0,
+                                              "cuda"))
+    phi = sv.interior(state, top, "phi")
+    mass0 = float(phi.double().sum())
+    var0 = float(phi.double().var(unbiased=False))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps, var_prev = [], var0
+    for _ in range(n_steps):
+        with _CycleLog(sv) as log:
+            t1 = time.perf_counter()
+            state, r = dfm.diffusion_solve_vcoeff(sv, state, dt, order=2,
+                                                  max_res=DIFF_MAX_RES)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+        phi = sv.interior(state, top, "phi")
+        mass = float(phi.double().sum())
+        var = float(phi.double().var(unbiased=False))
+        steps.append({"ms": ms, "cycles": len(log.res),
+                      "residuals": log.res, "residual": r,
+                      "mass_drift_rel": (mass - mass0) / mass0,
+                      "variance_ratio": var / var0,
+                      "variance_fell": var < var_prev})
+        var_prev = var
+    launches = dk.launch_counts()
+    plain = dk.plain_route_counts()
+    lam = sv._lam(2.0 / dt)
+    floor = []
+    for _ in range(6):
+        state, r = sv.fas_vcycle(state, lam=lam)
+        floor.append(float(r))
+    rec = {
+        "model": f"PoissonSolver(3, ({n},)*3, 16, operator='vhelmholtz', "
+                 f"float32), Neumann 0, eps 1 + 0.5 cos(2 pi x), phi0 = "
+                 f"solution + 2, diffusion_solve_vcoeff order 2, dt {dt}",
+        "max_res": DIFF_MAX_RES, "mass_bound": DIFF_MASS_BOUND,
+        "setup_s": setup_s, "steps": steps,
+        "ms_per_step": [s["ms"] for s in steps],
+        "floor_vcycles": floor, "measured_floor": max(floor[-3:]),
+        "launches_in_path": {k: v for k, v in launches.items() if v},
+        "plain_route": {k: v for k, v in plain.items() if v},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit({"diffusion_path": rec})
+    for s in steps:
+        if not (np.isfinite(s["residual"]) and s["residual"]
+                <= DIFF_MAX_RES):
+            fail(f"diffusion_path: residual {s['residual']} above "
+                 f"{DIFF_MAX_RES}")
+        if not abs(s["mass_drift_rel"]) <= DIFF_MASS_BOUND:
+            fail(f"diffusion_path: mass drift {s['mass_drift_rel']}")
+        if not s["variance_fell"]:
+            fail(f"diffusion_path: the variance did not fall {steps}")
+    missing = [k for k in vcoeff_kernels(1) if launches[k] == 0]
+    if missing:
+        fail(f"diffusion_path launched no kernel for {missing}")
+    if any(plain.values()):
+        fail(f"diffusion_path: the plain route ran on a uniform tree: "
+             f"{plain}")
+    del ps, sv, state, phi
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the coefficient forest's kernels: the restriction and the
+#: prolongation's corr_ready mode (every correction of a forest); its
+#: smoothing and applies take the plain route
+FOREST_VCOEFF_KERNELS = ("restrict_dense",
+                         "prolong_correct_dense[corr_ready]")
+
+
+def forest_eps(x, y, z):
+    """0.5 + a smooth field: 1 + 0.5 cos(2 pi x) sin(2 pi y)."""
+    return 1.0 + 0.5 * torch.cos(2 * np.pi * x) * torch.sin(2 * np.pi * y)
+
+
+def phase_forest_vcoeff(pkg, dk, base=256, box=16, n_have=8, n_timed=3,
+                        lam=1.5):
+    """forest_path's L tree (chip_smoke.forest_tree: base 256, box 16, a
+    512^3 level-2 canvas, 1.195e8 leaf unknowns) under vhelmholtz (n_eps
+    1), float32, Dirichlet 0, lam 1.5: eps 1 + 0.5 cos(2 pi x) sin(2 pi
+    y) set on every level's canvas and prepared, a seeded normal rhs on
+    the top level; one zero-guess and ``n_have`` have-guess FMGs through
+    ``solve`` (residual history, launches and plain-route counts), then
+    ``n_timed`` timed have-guess FMGs without the residual, each
+    synchronized (ms per FMG, launches and plain-route counts per FMG,
+    the plain half-sweeps and applies per FMG by canvas); then one plain
+    half-sweep, residual and phi ghost assembly on levels 2 and 3
+    (CUDA events: the breakdown of an FMG).
+    Gates: the residual below 1e-3 of the first (check_fmg_history),
+    finite footprint, the restriction and the prolongation's corr_ready
+    mode launched (FOREST_VCOEFF_KERNELS), the plain route's half-sweep
+    and apply taken."""
+    from octree_mg_tpu_torch.core import tree as tm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = forest_tree(pkg, tm, "L", base, box)
+    ps = pkg.PoissonSolver(3, (base,) * 3, box, tree=tree,
+                           operator="vhelmholtz", dtype=torch.float32,
+                           device="cuda")
+    sv = ps.solver
+    if not isinstance(sv, pkg.DenseForestMGSolver):
+        fail(f"forest_vcoeff: make_solver gave {type(sv).__name__}")
+    ps.set_dirichlet(0.0)
+    state = ps._ensure_state()
+    for lvl in sv.levels:
+        sv.set_coefficient(state, _field(sv, lvl, forest_eps, "cuda"),
+                           lvl=lvl)
+    sv.prepare_coefficient(state)
+    top = sv.levels[-1]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    ps.set_rhs(arrays={top: torch.randn(sv._ishape(top), generator=g,
+                                        dtype=torch.float32, device="cuda")})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    t1 = time.perf_counter()
+    phi, info = ps.solve(lam=lam, rtol=0.0, atol=0.0, max_cycles=1 + n_have)
+    solve_s = time.perf_counter() - t1
+    launches = dk.launch_counts()
+    plain = dk.plain_route_counts()
+    hist = info["residuals"]
+    m = torch.as_tensor(sv.footprint_mask(top), device="cuda")
+    finite = bool(torch.isfinite(sv.interior(ps.state, top, "phi")[m]).all())
+    state = ps.state
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    ms = []
+    with SegTally(dk, "half_sweep_dense") as halves, \
+            SegTally(dk, "stencil_apply_dense") as applies:
+        for _ in range(n_timed):
+            t2 = time.perf_counter()
+            sv.fas_fmg(state, lam=lam, have_guess=True, need_res=False)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t2))
+    per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items() if v}
+    plain_per_fmg = {k: v / n_timed for k, v in
+                     dk.plain_route_counts().items() if v}
+    by_canvas = {}
+    for name, tally in (("half_sweeps", halves), ("applies", applies)):
+        for c, r in tally.per(n_timed).get(
+                "half_sweep_dense" if name == "half_sweeps"
+                else "stencil_apply_dense", {}).items():
+            by_canvas.setdefault(c, {})[name + "_per_fmg"] = r["launches"]
+    # one plain half-sweep, one plain residual and one ghost assembly
+    # of phi per canvas size, CUDA events (the breakdown of an FMG)
+    for lvl in (2, 3):
+        cfg = sv._kcfgs[lvl]
+        canvas, planes, _ = sv._assemble(state, lvl, "phi")
+        easm = sv._eps_assemble(state, lvl)
+        eps, epl = tuple(a[0] for a in easm), [a[1] for a in easm]
+        rhs = state["rhs"][lvl]
+        row = by_canvas.setdefault("x".join(map(str, cfg.dims)), {})
+        row["half_sweep_ms"] = time_ms(lambda: dk.half_sweep_dense(
+            cfg, canvas, rhs, lam, planes, 0, eps=eps,
+            eps_planes=epl), 3)
+        row["residual_ms"] = time_ms(lambda: dk.stencil_apply_dense(
+            cfg, canvas, rhs, lam, planes, True, eps=eps,
+            eps_planes=epl), 3)
+        row["phi_assembly_ms"] = time_ms(
+            lambda: sv._assemble(state, lvl, "phi"), 3)
+        del canvas, planes, easm, eps, epl
+    n_unk = leaf_unknowns(tree, box)
+    rec = {
+        "model": f"PoissonSolver(tree=L base {base} box {box}, "
+                 f"operator='vhelmholtz', float32), Dirichlet 0, lam {lam}, "
+                 f"eps 1 + 0.5 cos(2 pi x) sin(2 pi y)",
+        "levels": {str(l): {"canvas": list(sv.dims[l]),
+                            "fill": sv.geom[l].n_cells
+                            / float(np.prod(sv.dims[l])),
+                            "conflicts": sv.conflicts.get(l) is not None}
+                   for l in sv.levels},
+        "leaf_unknowns": n_unk, "setup_s": setup_s, "solve_s": solve_s,
+        "residuals": hist,
+        "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+        "ms_per_fmg": ms, "leaf_unknowns_per_s": n_unk / (min(ms) / 1e3),
+        "launches_in_solve": {k: v for k, v in launches.items() if v},
+        "plain_route_in_solve": {k: v for k, v in plain.items() if v},
+        "launches_per_fmg": per_fmg, "plain_route_per_fmg": plain_per_fmg,
+        "plain_route_by_canvas": by_canvas,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit({"forest_vcoeff": rec})
+    if not finite:
+        fail("forest_vcoeff: non-finite footprint values")
+    check_fmg_history(hist, "forest_vcoeff")
+    missing = [k for k in FOREST_VCOEFF_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"forest_vcoeff launched no kernel for {missing}")
+    if not (plain["half_sweep_dense[eps_bc]"]
+            and plain["stencil_apply_dense[eps_bc]"]):
+        fail(f"forest_vcoeff: the plain route did not run: {plain}")
+    del ps, sv, state, phi
+    torch.cuda.empty_cache()
+    return launches, per_fmg
+
+
+def _fs_case(pkg, kind, dev):
+    """Two solves of a free-space driver at <= 32^3, float64: (top phi,
+    residuals)."""
+    from octree_mg_tpu_torch.solve import free_space as fsm
+    if kind == "boxed":
+        dsz = np.full(3, 16)
+        sv = pkg.MGSolver(pkg.build_rectangle(3, dsz, 4, 1.0 / dsz,
+                                              np.zeros(3)),
+                          pkg.MGConfig(operator="laplacian",
+                                       dtype=torch.float64, device=dev))
+        st = sv.allocate()
+        isl = (slice(None),) + (slice(1, -1),) * 3
+        for lvl in sv.levels:
+            x = torch.from_numpy(sv.cell_centers(lvl)[isl])
+            st["cc"][lvl][1][isl] = fs_rhs(x[..., 0], x[..., 1],
+                                           x[..., 2]).to(dev)
+        fs = fsm.make_free_space(sv)
+    else:
+        dsz = np.full(3, 32)
+        sv = pkg.DenseMGSolver(pkg.build_rectangle(3, dsz, 8, 1.0 / dsz,
+                                                   np.zeros(3)),
+                               pkg.MGConfig(operator="laplacian",
+                                            dtype=torch.float64, device=dev))
+        fs = fsm.make_free_space(sv, **({"max_fft_frac": 1.0,
+                                         "kernel": "spectral"}
+                                        if kind == "spectral" else {}))
+        st = sv.allocate()
+        top = sv.levels[-1]
+        sv.set_interior(st, top, "rhs", _field(sv, top, fs_rhs, dev))
+    res = []
+    for i in range(1 if kind == "spectral" else 2):
+        st, r = fs.solve(st, new_rhs=(i == 0))
+        res.append(float(r))
+    top = sv.levels[-1]
+    phi = (st["cc"][top][0] if kind == "boxed"
+           else sv.interior(st, top, "phi"))
+    return phi.cpu().numpy(), res
+
+
+def _diffusion_case(pkg, kind, op, dev):
+    """An order-1 then an order-2 step (dt 0.01, max_res 1e-7) of the
+    scheme of ``op`` on a 16^3 tree, float64: (top phi, residuals,
+    max|rhs| of the last step on the top level)."""
+    from octree_mg_tpu_torch.solve import diffusion as dfm
+    n = np.full(3, 16)
+    cfg = pkg.MGConfig(operator=op, dtype=torch.float64, device=dev)
+    if kind == "amr":
+        sv = pkg.make_solver(pkg.build_amr_centered(3, 2, n, 8, 1.0 / n),
+                             cfg)
+    else:
+        t = pkg.build_rectangle(3, n, 8, 1.0 / n, np.zeros(3),
+                                periodic=[kind == "boxed"] * 3)
+        sv = pkg.MGSolver(t, cfg) if kind == "boxed" else pkg.make_solver(
+            t, cfg)
+    if kind != "boxed":
+        sv.set_bc(0, pkg.BCType.NEUMANN, 0.0)
+    st = sv.allocate()
+    n_eps = {"helmholtz": 0, "vhelmholtz": 1, "ahelmholtz": 3}[op]
+    for lvl in sv.levels:
+        if kind == "boxed":
+            x = torch.from_numpy(sv.cell_centers(lvl))
+            st["cc"][lvl][0] = diffusion_phi0(x[..., 0], x[..., 1],
+                                              x[..., 2]).to(dev)
+            for d in range(n_eps):
+                st["cc"][lvl][4 + d] = (1.0 + 0.3 * torch.cos(
+                    2 * np.pi * x[..., d])).to(dev)
+            continue
+        sv.set_interior(st, lvl, "phi", _field(sv, lvl, diffusion_phi0, "cpu"))
+        for d in range(n_eps):
+            sv.set_interior(st, lvl, f"eps{d}", _field(
+                sv, lvl, lambda x, y, z, d=d: 1.0 + 0.3 * torch.cos(
+                    2 * np.pi * (x, y, z)[d]), "cpu"))
+    if kind == "boxed":
+        st = sv.fill_ghost(st, 0)
+    fn = {"helmholtz": dfm.diffusion_solve,
+          "vhelmholtz": dfm.diffusion_solve_vcoeff,
+          "ahelmholtz": dfm.diffusion_solve_acoeff}[op]
+    args = (1.0,) if op == "helmholtz" else ()
+    res = []
+    for order in (1, 2):
+        st, r = fn(sv, st, 0.01, *args, order=order, max_res=1e-7)
+        res.append(r)
+    top = sv.levels[-1]
+    phi = st["cc"][top][0] if kind == "boxed" else sv.interior(st, top,
+                                                               "phi")
+    rhs = st["cc"][top][1] if kind == "boxed" else sv.interior(st, top,
+                                                               "rhs")
+    return phi.cpu().numpy(), res, float(rhs.abs().max())
+
+
+def _forest_vcoeff_case(pkg, dk, kind, op, dev):
+    """Three FMGs of a coefficient forest at base 32, box 8, float64,
+    seeded rhs, smooth eps on every level: (footprint top phi, residuals,
+    plain-route counts)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    t = forest_tree(pkg, tm, kind, 32, 8)
+    ps = pkg.PoissonSolver(3, (32,) * 3, 8, tree=t, operator=op,
+                           dtype=torch.float64, device=dev)
+    sv = ps.solver
+    if kind == "L":
+        ps.set_dirichlet(0.25)
+    st = ps._ensure_state()
+    for lvl in sv.levels:
+        for d in range(sv.n_eps):
+            sv.set_coefficient(st, _field(
+                sv, lvl, lambda x, y, z, d=d: 1.0 + 0.5 * torch.cos(
+                    2 * np.pi * ((x, y, z)[d] + 0.1 * d)), "cpu"), d, lvl=lvl)
+    sv.prepare_coefficient(st)
+    top = sv.levels[-1]
+    rhs = np.random.default_rng(29).normal(size=sv._ishape(top))
+    ps.set_rhs(arrays={top: rhs})
+    dk.reset_plain_route_counts()
+    phi, info = ps.solve(lam=0.9, rtol=0.0, max_cycles=3)
+    return (np.where(sv.footprint_mask(top), phi.cpu().numpy(), 0.0),
+            info["residuals"], dict(dk.plain_route_counts()))
+
+
+#: the diffusion rows' residual bound, relative to the step's rhs scale
+#: max|rhs|: the card's readings were 0 to 4.1e-15 of it on an H100
+#: (tests/test_torch_diffusion.py holds the port's CPU residuals to the
+#: JAX package's at the same bound)
+AGREE_RES_RHS = 64 * float(np.finfo(np.float64).eps)
+
+
+def drivers_cpu_agreement(pkg, dk):
+    """Card against CPU, float64, <= 32^3 (bounds as cpu_agreement's:
+    AGREE_PHI, AGREE_RES): both free-space drivers (dense igf 32^3 box 8,
+    boxed 16^3 box 4; two solves each) and the spectral kernel (its
+    table, and the dense driver with the FFT level at the top); every
+    diffusion scheme (helmholtz, vhelmholtz, ahelmholtz) and both orders
+    on the dense, dense-AMR and boxed solvers (16^3; their residual
+    differences relative to the step's rhs scale max|rhs| ~ 2 max|phi| /
+    dt, within AGREE_RES_RHS: the residuals sit at the 1e-7 target, ~1e-10
+    of the rhs terms they cancel, so the card's 1e-16 perturbation of phi
+    from cuBLAS's coarse solve shows at ~1e-5 of the residual itself);
+    the ahelmholtz L forest and the periodic vhelmholtz forest (base 32,
+    three FMGs; the plain route's counts equal on both devices).  Returns
+    the rows."""
+    from octree_mg_tpu_torch.solve import free_space as fsm
+    devs = ("cuda", "cpu")
+    rows = {}
+    for kind in ("dense", "boxed", "spectral"):
+        rows[f"free_space_{kind}"] = agreement(
+            *(_fs_case(pkg, kind, dev) for dev in devs))
+    nx, dr = np.array([34, 34, 34]), np.full(3, 1.0 / 32)
+    rows["spectral_kernel"] = agreement(*(
+        (fsm._green_kernel_hat_spectral(nx, dr, dev)[0].cpu().numpy(), None)
+        for dev in devs))
+    rows["igf_kernel"] = agreement(*(
+        (fsm._green_kernel_hat(nx, dr, dev).cpu().numpy(), None)
+        for dev in devs))
+    for kind in ("dense", "amr", "boxed"):
+        for op in ("helmholtz", "vhelmholtz", "ahelmholtz"):
+            a, b = (_diffusion_case(pkg, kind, op, dev) for dev in devs)
+            rows[f"diffusion_{kind}_{op}"] = agreement(
+                a[:2], b[:2], res_scale=b[2], res_bound=AGREE_RES_RHS)
+    for kind, op in (("L", "ahelmholtz"), ("periodic", "vhelmholtz")):
+        a, b = (_forest_vcoeff_case(pkg, dk, kind, op, dev) for dev in devs)
+        r = agreement(a[:2], b[:2])
+        r["plain_route_cuda"] = {k: v for k, v in a[2].items() if v}
+        r["plain_route_cpu"] = {k: v for k, v in b[2].items() if v}
+        if r["plain_route_cuda"] != r["plain_route_cpu"]:
+            fail(f"drivers_cpu_agreement: the plain route differs "
+                 f"({kind}): {r}")
+        rows[f"forest_vcoeff_{kind}_{op}"] = r
+    return rows
+
+
+def phase_drivers_cpu_agreement(pkg, dk):
+    """drivers_cpu_agreement as one line of its own (``--drivers``)."""
+    rows = drivers_cpu_agreement(pkg, dk)
+    emit({"drivers_cpu_agreement": {"dtype": "float64", "bound": AGREE_PHI,
+                                    "residual_bound": AGREE_RES,
+                                    "diffusion_residual_bound":
+                                        AGREE_RES_RHS, **rows}})
+    check_agreement(rows, "drivers_cpu_agreement")
+
+
+def driver_rows(rows, paths):
+    """The ``kernels`` rows with the launches of the driver paths (the
+    free-space solves, the diffusion steps, the coefficient forest's
+    solve and its timed FMGs) where a path launched the row's counter."""
+    for r in rows:
+        for key, counts in paths.items():
+            if counts.get(r["name"], 0):
+                r[key] = counts[r["name"]]
     return rows
 
 
@@ -4853,6 +5506,15 @@ def main(argv) -> int:
         print(smi)
         emit({"ok": True, "amr": True})
         return 0
+    if "--drivers" in argv:
+        # the free-space and diffusion drivers and the coefficient forest
+        phase_free_space_path(pkg, dk)
+        phase_diffusion_path(pkg, dk)
+        phase_forest_vcoeff(pkg, dk)
+        phase_drivers_cpu_agreement(pkg, dk)
+        print(smi)
+        emit({"ok": True, "drivers": True})
+        return 0
     phase_checks(dk, df, quick)
     phase_amr_checks(dk, pkg, quick)
     if quick:
@@ -4895,13 +5557,18 @@ def main(argv) -> int:
     boxed_rows, _ = phase_boxed_path(pkg, dk)
     amr_launches, amr_per_fmg = phase_amr_path(pkg, dk)
     phase_amr_cpu_agreement(pkg, dk)
+    drivers = {"free_space_launches": phase_free_space_path(pkg, dk),
+               "diffusion_launches": phase_diffusion_path(pkg, dk)}
+    (drivers["forest_vcoeff_launches"],
+     drivers["forest_vcoeff_launches_per_fmg"]) = phase_forest_vcoeff(pkg, dk)
     rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
                                         vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,
           "seconds_after_build": time.perf_counter() - t0,
           "seconds_total": time.perf_counter() - t_start})
-    emit({"kernels": amr_rows(rows + forest_rows + boxed_rows + slab_rows,
-                              amr_launches, amr_per_fmg)})
+    emit({"kernels": driver_rows(amr_rows(
+        rows + forest_rows + boxed_rows + slab_rows, amr_launches,
+        amr_per_fmg), drivers)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

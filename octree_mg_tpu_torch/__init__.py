@@ -8,7 +8,7 @@ helmholtz and the variable-coefficient vlaplacian, vhelmholtz,
 ahelmholtz; FAS V-cycle and FMG, GSRB pair smoothing, direct eigenbasis
 coarse solve, assembled or probed), its f64-class refined mode
 (double-float residual around the float32 FMG) and the dense forest
-(any 2:1-balanced 3D octree, laplacian and helmholtz) and the
+(any 2:1-balanced 3D octree, the five operators) and the
 dense-patch AMR solver (rectangular AMR patches, the five operators),
 whose stencil,
 restriction, prolongation and double-float residual passes are CUDA
@@ -18,7 +18,11 @@ boxes in 1D, 2D and 3D, all five operators, the 2D cylindrical
 laplacian, GSRB or Jacobi), which serves what no dense path takes, with
 its flat-box half-sweep as a CUDA kernel; and the z-slab dense solver
 ``ShardedDenseMGSolver`` with its refined mode ``ShardedRefinedPoisson``
-(K slabs on one device, the kernels' z_gates variants).
+(K slabs on one device, the kernels' z_gates variants); and the
+free-space and implicit-diffusion drivers over these solvers
+(``models``: ``make_free_space``, ``diffusion_solve`` and its
+variable-coefficient and anisotropic forms), as the JAX package's
+``models`` exports them.
 
 It imports ``torch`` and ``numpy`` only.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
@@ -37,7 +41,8 @@ from .solve.refine import (RefinedPoisson, ShardedRefinedPoisson,
                            solve_refined)
 from .ops.df32 import df32_ok, df32_vcoeff_ok, split_f64
 from .convert import (state_from_numpy, state_to_numpy, direct_from_numpy,
-                      df_pair_from_numpy, df_pair_to_numpy)
+                      df_pair_from_numpy, df_pair_to_numpy,
+                      free_space_cache_from_numpy)
 
 __all__ = [
     "BCType", "Geometry", "Operator", "Smoother",
@@ -50,6 +55,7 @@ __all__ = [
     "solve_refined", "df32_ok",
     "df32_vcoeff_ok", "split_f64", "state_from_numpy", "state_to_numpy",
     "direct_from_numpy", "df_pair_from_numpy", "df_pair_to_numpy",
+    "free_space_cache_from_numpy",
 ]
 
 __version__ = "0.1.0"

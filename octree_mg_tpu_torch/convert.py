@@ -27,6 +27,13 @@ puts a padded double-float pair (the solution ``(x_hi, x_lo)`` or the
 right-hand side) into a ``RefinedPoisson``'s own buffers, and
 ``df_pair_to_numpy`` reads one back.
 
+The free-space drivers' FFT state crosses with
+``free_space_cache_from_numpy``: the JAX driver's cache (``kernel_hat``
+— complex128 for the IGF kernel, float64 for the spectral one, kept in
+that dtype — the boundary ``planes`` and the FFT potential
+``phi_global``, in the working dtype) becomes the port driver's, so a
+test can hold the solve phases apart from the kernel build.
+
 The boxed solver (``MGSolver``) has the JAX package's boxed layout,
 
     {"cc": {lvl: ndarray [n_vars, n_boxes, (nc+2)^D]},
@@ -139,6 +146,55 @@ def direct_from_numpy(solver, package: Dict) -> Dict:
     return {"V": _to_tensor(solver, V), "Vinv": _to_tensor(solver, Vinv),
             "d": _to_tensor(solver, d),
             "tiny": _to_tensor(solver, np.asarray(package["tiny"]))}
+
+
+def free_space_cache_from_numpy(driver, np_cache: Dict):
+    """Install a free-space FFT cache on ``driver`` (a
+    ``FreeSpacePoisson3D`` or ``FreeSpacePoisson3DDense``) and return it.
+
+    ``np_cache``: {"kernel_hat": array, "planes": {nb: [slow, fast]
+    plane} or None, "phi_global": [Z+2, Y+2, X+2] or None, and, for the
+    spectral kernel, "pad_shape": (z, y, x)}, the fields of the JAX
+    package's ``FreeSpaceCache`` as numpy arrays.  The kernel keeps its
+    dtype (complex128 or float64); planes and potential take the
+    solver's dtype.  Shapes are checked against the driver's FFT level."""
+    from .solve.free_space import FreeSpaceCache
+    sv = driver.solver
+    X, Y, Z = (int(v) + 2 for v in driver.nx)
+    pad = np_cache.get("pad_shape")
+    pad = tuple(int(v) for v in pad) if pad is not None else None
+    kz, ky, kx = pad if pad is not None else (2 * Z, 2 * Y, 2 * X)
+    khat = np.ascontiguousarray(np.asarray(np_cache["kernel_hat"]))
+    if khat.shape != (kz, ky, kx // 2 + 1):
+        raise ValueError(f"kernel_hat: shape {khat.shape}, this driver's "
+                         f"FFT grid needs {(kz, ky, kx // 2 + 1)}")
+    if khat.dtype not in (np.complex128, np.float64):
+        raise TypeError(f"kernel_hat: complex128 or float64, got "
+                        f"{khat.dtype}")
+    cache = FreeSpaceCache(
+        fft_lvl=driver.fft_lvl,
+        kernel_hat=torch.from_numpy(khat.copy()).to(sv.device),
+        pad_shape=pad)
+    phi = np_cache.get("phi_global")
+    if phi is not None:
+        phi = np.asarray(phi)
+        if phi.shape != (Z, Y, X):
+            raise ValueError(f"phi_global: shape {phi.shape}, expected "
+                             f"{(Z, Y, X)}")
+        cache.phi_global = _to_tensor(sv, phi)
+    planes = np_cache.get("planes")
+    if planes is not None:
+        want = {0: (Z, Y), 1: (Z, Y), 2: (Z, X), 3: (Z, X), 4: (Y, X),
+                5: (Y, X)}
+        cache.planes = {}
+        for nb in range(6):
+            p = np.asarray(planes[nb])
+            if p.shape != want[nb]:
+                raise ValueError(f"planes[{nb}]: shape {p.shape}, expected "
+                                 f"{want[nb]}")
+            cache.planes[nb] = _to_tensor(sv, p)
+    driver.cache = cache
+    return cache
 
 
 def df_pair_from_numpy(refined, which: str, hi, lo):

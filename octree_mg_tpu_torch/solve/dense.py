@@ -90,16 +90,15 @@ def _dense2d_ops(cfg: MGConfig) -> bool:
 def make_solver(tree: Tree, config: Optional[MGConfig] = None):
     """The solver the JAX package's ``make_solver`` would pick, in its
     order: the dense fast path for a uniform 3D tree, the dense-patch AMR
-    solver for 3D trees whose levels are nested rectangular patches (the
-    five operators), the dense forest for other 2:1-balanced 3D octrees
-    (constant coefficients), and the boxed ``MGSolver`` for what no dense
-    path takes (1D, the Jacobi smoother, operators or geometries the 2D
-    paths reject, fully periodic sparse trees).  What it would dispatch
-    to a path still to be ported raises, naming its ROADMAP item: sparse
-    multi-canvas forests (A9), variable-coefficient forests (A14), and
-    every 2D configuration some 2D dense path's operator gate admits
-    (A10) — whether that path would take the tree or leave it to the
-    boxed solver."""
+    solver for 3D trees whose levels are nested rectangular patches, the
+    dense forest for other 2:1-balanced 3D octrees (both with the five
+    operators), and the boxed ``MGSolver`` for what no dense path takes
+    (1D, the Jacobi smoother, operators or geometries the 2D paths
+    reject, fully periodic sparse trees).  What it would dispatch to a
+    path still to be ported raises, naming its ROADMAP item: sparse
+    multi-canvas forests (A9) and every 2D configuration some 2D dense
+    path's operator gate admits (A10) — whether that path would take the
+    tree or leave it to the boxed solver."""
     from .dense_amr import DenseAMRMGSolver, dense_amr_supported
     from .dense_forest import DenseForestMGSolver, dense_forest_supported
     from .dense_multiforest import dense_multiforest_supported
@@ -805,7 +804,16 @@ class DenseMGSolver:
             corr = torch.zeros(tuple(np.array(self.dims[lvl_c])[::-1] + 2),
                                dtype=src.dtype, device=src.device)
             corr[1:-1, 1:-1, 1:-1] = src[_ISL]
-        state[key_to][lvl_c + 1][_ISL] = self._prolong_rect(corr)
+        vals = self._prolong_rect(corr)
+        dst = state[key_to][lvl_c + 1][_ISL]
+        if tuple(vals.shape) != tuple(dst.shape):
+            # a patch level smaller than twice the coarse one (the
+            # dense-patch AMR solver): the JAX package's scatter refuses
+            # it with this ValueError
+            raise ValueError(f"Incompatible shapes for broadcasting: "
+                             f"{tuple(vals.shape)} and requested shape "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(vals)
         return state
 
     # -- subtract mean (fully periodic) ---------------------------------

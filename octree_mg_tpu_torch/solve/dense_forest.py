@@ -50,10 +50,20 @@ Tensors made under ``torch.inference_mode()`` carry no version counter:
 a build with such a dependency is not memoized (same results, more
 host work).
 
-Not here: variable-coefficient forests (``n_eps > 0``, ROADMAP A14), the
-multi-device GSPMD placement (ROADMAP A13), the relaxed ``"pair"`` ghost
-cadence (a measured-negative knob of the JAX package) and CUDA graphs
-(``fmg_mode="fused"`` raises).
+Variable-coefficient operators (vlaplacian, vhelmholtz, ahelmholtz):
+the coefficient fields ride the same ring and face-plane ghost synthesis
+(Neumann-zero physical ghosts = own value, m_vlaplacian.f90:25-28;
+sides_rb refinement faces and periodic wraps as for phi), assembled once
+per level visit and memoized on the coefficient canvases' versions.
+Their configs carry identity ``eps_bc``, so the half-sweep and the apply
+take the plain route on every device (``dk.plain_route_counts``), as the
+JAX package runs its jnp path for them; the segment smoother is off for
+them (the JAX package's gate), and the concave-corner fix-ups recompute
+the harmonic-mean expressions with direction-correct coefficient ghosts.
+
+Not here: the multi-device GSPMD placement (ROADMAP A13), the relaxed
+``"pair"`` ghost cadence (a measured-negative knob of the JAX package)
+and CUDA graphs (``fmg_mode="fused"`` raises).
 """
 from __future__ import annotations
 
@@ -68,7 +78,7 @@ from ..core.constants import NO_BOX
 from ..core.tree import Tree
 from ..ops import dense_kernels as dk
 from ..ops.ghost import interp_rb_strip
-from .dense import _ISL, _OP_N_EPS, DenseMGSolver
+from .dense import _ISL, DenseMGSolver
 from .dense_amr import RB_COEFFS
 from .multigrid import MGConfig
 
@@ -363,8 +373,7 @@ def _forest_balanced(tree: Tree) -> bool:
 def dense_forest_supported(tree: Tree, cfg: MGConfig,
                            min_fill: float = 0.2) -> bool:
     """Whether the JAX package's dense-forest path covers this
-    configuration (variable-coefficient operators included; this package
-    builds the constant-coefficient ones, see DenseForestMGSolver)."""
+    configuration (the five operators)."""
     if not (tree.ndim == 3
             and tree.highest_lvl > 1
             and cfg.operator in ("laplacian", "helmholtz", "vlaplacian",
@@ -389,7 +398,7 @@ def dense_forest_supported(tree: Tree, cfg: MGConfig,
 
 class DenseForestMGSolver(DenseMGSolver):
     """FAS multigrid on dense level canvases over arbitrary forests
-    (constant coefficients: laplacian, helmholtz).
+    (the five operators).
 
     ``seg_fused`` (default True) selects the fused-canvas smoother on
     every level it covers; False runs the sequential half-sweep path
@@ -400,11 +409,6 @@ class DenseForestMGSolver(DenseMGSolver):
 
     def __init__(self, tree: Tree, config: Optional[MGConfig] = None):
         cfg = config or MGConfig()
-        if _OP_N_EPS.get(cfg.operator, 0):
-            raise NotImplementedError(
-                f"dense forest with the variable-coefficient operator "
-                f"{cfg.operator!r}: plane-valued coefficient ghosts are "
-                f"still to be ported (ROADMAP A14)")
         if cfg.fmg_mode == "fused":
             raise NotImplementedError(
                 "dense forest: fmg_mode='fused' (CUDA graphs) is not "
@@ -458,13 +462,16 @@ class DenseForestMGSolver(DenseMGSolver):
         """Every face is a precomputed ghost plane with identity
         coefficients: the plane carries the already-synthesized ghost
         values (phys/rb/wrap per segment), refreshed between half-sweeps
-        by the driver."""
+        by the driver.  Coefficient fields are pre-synthesized the same
+        way: identity ``eps_bc`` faces consume the assembled coefficient
+        planes (the plain route on every device)."""
         idr2 = tuple(float(x) for x in
                      1.0 / self.tree.dr[self._lvl_of(lvl)] ** 2)
         return dk.DenseStencilConfig(
             dims=self.dims[lvl], idr2=idr2, bc=[(1.0, 0.0, 0.0)] * 6,
             periodic=(False, False, False), dtype=self.cfg.dtype,
-            b_const=[None] * 6)
+            b_const=[None] * 6, n_eps=self.n_eps,
+            eps_bc=[(1.0, 0.0, 0.0)] * 6 if self.n_eps else None)
 
     def _sync_pads(self, arr, lvl):
         # periodic wraps ride the face planes / wrap segments; the pads
@@ -494,6 +501,17 @@ class DenseForestMGSolver(DenseMGSolver):
         for lo, hi in self.geom[lvl].rects:
             m[lo[2]:hi[2], lo[1]:hi[1], lo[0]:hi[0]] = True
         return m
+
+    def set_interior(self, state, lvl, key, values):
+        """Coefficient fields get their garbage (non-footprint) cells
+        pinned to 1.0: zero eps there would make the garbage harmonic
+        means 0/0 = NaN.  Footprint values pass through untouched."""
+        if key.startswith("eps"):
+            values = torch.as_tensor(values).to(self.device, self.cfg.dtype)
+            mask = torch.as_tensor(self.footprint_mask(lvl),
+                                   device=self.device)
+            values = torch.where(mask, values, 1.0)
+        return super().set_interior(state, lvl, key, values)
 
     def _bc_plane_shape(self, lvl: int, nb: int) -> Tuple[int, int]:
         """Shape of the raw boundary-value plane of face nb (unpadded)."""
@@ -714,14 +732,19 @@ class DenseForestMGSolver(DenseMGSolver):
                 tmp[tuple(osl)] = p[psl]
         return tmp
 
-    def _ring_values(self, canvas, bplanes_raw, bcache, lvl
+    def _ring_values(self, canvas, bplanes_raw, bcache, lvl, key="phi"
                      ) -> Dict[int, torch.Tensor]:
         """Synthesized ghost values per ring segment (3D, seg-rect
         shaped), computed from the pre-sweep canvas.  Kept separate from
         the canvas write so concave-corner conflicts (two axes claiming
         one garbage cell — impossible in the reference's per-box ghost
-        storage) can be resolved exactly by the fix-up passes."""
-        bc_phys = self._ring_bc(lvl)
+        storage) can be resolved exactly by the fix-up passes.
+
+        key: coefficient fields (eps*) take Neumann-zero physical ghosts
+        (= own value, m_vlaplacian.f90:25-28) but the same sides_rb
+        refinement faces and periodic wraps as phi."""
+        bc_phys = self._ring_bc(lvl, key)
+        is_eps = key.startswith("eps")
         out = {}
         for i, seg in enumerate(self.segs[lvl]):
             if seg.sink != "ring":
@@ -736,6 +759,10 @@ class DenseForestMGSolver(DenseMGSolver):
             if seg.kind == "rb":
                 c0, c1, c2 = RB_COEFFS
                 b = bcache[i]
+            elif is_eps:
+                # ghost = own value: 1.0*x1, bitwise the boxed copy
+                out[i] = (1.0 * x1).unsqueeze(2 - d)
+                continue
             else:
                 c0, c1, c2 = bc_phys[seg.nb]
                 b = self._seg_bwin(bplanes_raw, seg)
@@ -826,6 +853,18 @@ class DenseForestMGSolver(DenseMGSolver):
                 self._nb_vals(lvl, canvas, vals, planes, 2 * d + 1,
                               fix.dirs[2 * d + 1]))
 
+    def _fix_coeffs(self, lvl, easm, d, fix, rsl):
+        """The two harmonic-mean face coefficients of dim d on a fix rect,
+        ``((2*e0)*e_nb)/(e0 + e_nb)*idr2[d]`` with direction-correct
+        coefficient neighbours — the expression of dk._face_coeffs."""
+        cfg = self._kcfgs[lvl]
+        ec, epl, ev = easm[0 if cfg.n_eps == 1 else d]
+        e0 = ec[rsl]
+        elo, ehi = self._fix_nbrs(lvl, ec, ev, epl, d, fix)
+        idr2 = cfg.rnd(cfg.idr2[d])
+        return (2.0 * e0 * elo / (e0 + elo) * idr2,
+                2.0 * e0 * ehi / (e0 + ehi) * idr2)
+
     def _upd(self, fix, parity):
         """The fix rect's update mask of a parity, on the device."""
         cache = fix.__dict__.setdefault("_upd_t", {})
@@ -834,23 +873,40 @@ class DenseForestMGSolver(DenseMGSolver):
                 fix.upd0 if parity == 0 else ~fix.upd0, device=self.device)
         return cache[parity]
 
-    def _fix_sweep(self, lvl, swept, canvas, vals, planes, rhs, lam, parity):
+    def _fix_sweep(self, lvl, swept, canvas, vals, planes, rhs, lam, parity,
+                   easm=()):
         """Recompute the GSRB update on the conflict rects with correct
         ghosts, in place on ``swept`` — the per-cell expression of
-        dense_kernels._halfsweep, so the result is bitwise the
+        dense_kernels._halfsweep (with coefficients its num/den form,
+        coefficient neighbours first), so the result is bitwise the
         conflict-free value."""
         cfg = self._kcfgs[lvl]
         for fix in self.conflicts[lvl]:
             rsl = self._cansl(fix.lo, fix.hi)
-            acc = -rhs[rsl]
-            for d in range(3):
-                lo_v, hi_v = self._fix_nbrs(lvl, canvas, vals, planes, d, fix)
-                acc = acc + cfg.rnd(cfg.idr2[d]) * (lo_v + hi_v)
-            new = acc * cfg.inv_den(lam)
+            if cfg.n_eps:
+                num = -rhs[rsl]
+                den = cfg.rnd(lam)
+                for d in range(3):
+                    c_lo, c_hi = self._fix_coeffs(lvl, easm, d, fix, rsl)
+                    lo_v, hi_v = self._fix_nbrs(lvl, canvas, vals, planes,
+                                                d, fix)
+                    num = num + c_lo * lo_v
+                    den = den + c_lo
+                    num = num + c_hi * hi_v
+                    den = den + c_hi
+                new = num / den
+            else:
+                acc = -rhs[rsl]
+                for d in range(3):
+                    lo_v, hi_v = self._fix_nbrs(lvl, canvas, vals, planes,
+                                                d, fix)
+                    acc = acc + cfg.rnd(cfg.idr2[d]) * (lo_v + hi_v)
+                new = acc * cfg.inv_den(lam)
             swept[rsl] = torch.where(self._upd(fix, parity), new, swept[rsl])
         return swept
 
-    def _fix_apply(self, lvl, out, canvas, vals, planes, rhs, lam, residual):
+    def _fix_apply(self, lvl, out, canvas, vals, planes, rhs, lam, residual,
+                   easm=()):
         """Recompute A(phi) (or rhs - A(phi)) on the conflict rects, in
         place on ``out`` — the expression of dense_kernels._apply_expr."""
         cfg = self._kcfgs[lvl]
@@ -860,14 +916,20 @@ class DenseForestMGSolver(DenseMGSolver):
             o = (-cfg.rnd(lam)) * p
             for d in range(3):
                 lo_v, hi_v = self._fix_nbrs(lvl, canvas, vals, planes, d, fix)
-                o = o + cfg.rnd(cfg.idr2[d]) * (lo_v + hi_v - 2.0 * p)
+                if cfg.n_eps:
+                    c_lo, c_hi = self._fix_coeffs(lvl, easm, d, fix, rsl)
+                    o = o + c_lo * (lo_v - p)
+                    o = o + c_hi * (hi_v - p)
+                else:
+                    o = o + cfg.rnd(cfg.idr2[d]) * (lo_v + hi_v - 2.0 * p)
             out[rsl] = rhs[rsl] - o if residual else o
         return out
 
-    def _face_planes(self, canvas, bplanes_raw, bcache, lvl):
+    def _face_planes(self, canvas, bplanes_raw, bcache, lvl, key="phi"):
         """The six ghost planes the stencil kernels read with identity
         coefficients (1, 0, 0), in their padded layouts.  Uncovered
-        positions stay zero (they abut garbage cells only)."""
+        positions stay zero (they abut garbage cells only).  key: as in
+        :meth:`_ring_values`."""
         X, Y, Z = self.dims[lvl]
         PZ, PY = dk.PZ, dk.PY
         planes = [self._zeros(s) for s in (
@@ -877,7 +939,8 @@ class DenseForestMGSolver(DenseMGSolver):
         inner = [(slice(PZ, PZ + Z), slice(PY, PY + Y))] * 2 \
             + [(slice(PZ, PZ + Z), slice(None))] * 2 \
             + [(slice(PY, PY + Y), slice(None))] * 2
-        bc_phys = self._ring_bc(lvl)
+        bc_phys = self._ring_bc(lvl, key)
+        is_eps = key.startswith("eps")
         for i, seg in enumerate(self.segs[lvl]):
             if seg.sink != "face":
                 continue
@@ -891,10 +954,12 @@ class DenseForestMGSolver(DenseMGSolver):
                 if seg.kind == "rb":
                     c0, c1, c2 = RB_COEFFS
                     b = bcache[i]
+                elif is_eps:
+                    c0, c1, c2, b = 0.0, 1.0, 0.0, None
                 else:
                     c0, c1, c2 = bc_phys[seg.nb]
                     b = self._seg_bwin(bplanes_raw, seg)
-                vals = c0 * b + c1 * x1
+                vals = 1.0 * x1 if b is None else c0 * b + c1 * x1
                 if c2 != 0.0:
                     vals = vals + c2 * x2
             tdims = [dd for dd in range(3) if dd != d]
@@ -915,10 +980,27 @@ class DenseForestMGSolver(DenseMGSolver):
             bcache = self._rb_cache(state, lvl, key)
         canvas = state[key][lvl]
         raw = state["bc"][lvl]
-        vals = self._ring_values(canvas, raw, bcache, lvl)
+        vals = self._ring_values(canvas, raw, bcache, lvl, key)
         canvas = self._write_ring(canvas, vals, lvl, prefer)
-        planes = self._face_planes(canvas, raw, bcache, lvl)
+        planes = self._face_planes(canvas, raw, bcache, lvl, key)
         return canvas, planes, vals
+
+    def _eps_assemble(self, state, lvl):
+        """Per coefficient field (eps0..): (ringed canvas, face planes,
+        ring values) — the ringed canvases feed the plain route's
+        coefficient reads, the planes its identity ``eps_bc`` synthesis,
+        the ring values the concave-corner fix-ups.  Memoized (see
+        :func:`_dep_memo`) on every coefficient canvas of this level and
+        the coarser ones and on the raw boundary planes, so a level
+        visit builds it once while the coefficients stay unchanged."""
+        if not self.n_eps:
+            return []
+        keys = self._eps_keys
+        deps = tuple(v for k in keys for u, v in state[k].items()
+                     if self._lvl_of(u) <= self._lvl_of(lvl)) \
+            + tuple(pp for ps in state["bc"].values() for pp in ps)
+        return _dep_memo(self, "_easm_memo", lvl, deps, lambda: [
+            self._assemble(state, lvl, k) for k in keys])
 
     def _ext(self, state, lvl, key, bcache=None, prefer=None):
         """[Z+2, Y+2, X+2] canvas with ALL ghosts materialized: interior
@@ -969,10 +1051,10 @@ class DenseForestMGSolver(DenseMGSolver):
 
     def _seg_desc(self, lvl):
         """(descriptors, groups) for the fused-canvas kernels, or None
-        outside the gate: ``seg_fused``, no periodic wrap segment (their
-        sources are not next to the reader; the JAX package excludes
-        them too, so both packages run the same path), and at most
-        ``dk.MAX_SEGS`` ghost layers.
+        outside the gate: ``seg_fused``, constant coefficients, no
+        periodic wrap segment (their sources are not next to the reader;
+        the JAX package excludes both, so both packages run the same
+        path), and at most ``dk.MAX_SEGS`` ghost layers.
 
         descriptors: a ``dk.SegLayers`` of the sorted (d, c, side) ghost
         layers, with their reader table on the solver's device — d the
@@ -984,7 +1066,7 @@ class DenseForestMGSolver(DenseMGSolver):
         if lvl in memo:
             return memo[lvl]
         out = None
-        if self.seg_fused:
+        if self.seg_fused and self.n_eps == 0:
             groups: Optional[Dict] = {}
             for i, seg in enumerate(self.segs[lvl]):
                 if seg.kind == "wrap":
@@ -1086,15 +1168,19 @@ class DenseForestMGSolver(DenseMGSolver):
         canvas = state["phi"][lvl]
         rhs = state["rhs"][lvl]
         plan = self.conflicts.get(lvl)
+        easm = self._eps_assemble(state, lvl)
+        eps = tuple(a[0] for a in easm)
+        epl = [a[1] for a in easm] if easm else None
         for n in range(2 * n_cycle):
             vals = self._ring_values(canvas, raw, bcache, lvl)
             ringed = self._write_ring(canvas, vals, lvl)
             planes = self._face_planes(ringed, raw, bcache, lvl)
             canvas = dk.half_sweep_dense(cfg, ringed, rhs, lam, planes,
-                                         parity=n % 2)
+                                         parity=n % 2, eps=eps,
+                                         eps_planes=epl)
             if plan:
                 canvas = self._fix_sweep(lvl, canvas, ringed, vals, planes,
-                                         rhs, lam, n % 2)
+                                         rhs, lam, n % 2, easm)
         state["phi"][lvl] = canvas
         return state
 
@@ -1106,12 +1192,14 @@ class DenseForestMGSolver(DenseMGSolver):
                 self._seg_kcfg(lvl), state["phi"][lvl], state["rhs"][lvl],
                 lam, None, residual=residual, segs=descs, seg_planes=planes)
         canvas, planes, vals = self._assemble(state, lvl, "phi")
-        out = dk.stencil_apply_dense(self._kcfgs[lvl], canvas,
-                                     state["rhs"][lvl], lam, planes,
-                                     residual=residual)
+        easm = self._eps_assemble(state, lvl)
+        out = dk.stencil_apply_dense(
+            self._kcfgs[lvl], canvas, state["rhs"][lvl], lam, planes,
+            residual=residual, eps=tuple(a[0] for a in easm),
+            eps_planes=[a[1] for a in easm] if easm else None)
         if self.conflicts.get(lvl):
             out = self._fix_apply(lvl, out, canvas, vals, planes,
-                                  state["rhs"][lvl], lam, residual)
+                                  state["rhs"][lvl], lam, residual, easm)
         return out
 
     def _residual(self, state, lvl, lam):
@@ -1235,12 +1323,20 @@ class DenseForestMGSolver(DenseMGSolver):
     # direct coarse solve
     # ------------------------------------------------------------------
     def _build_direct(self):
+        """Constant coefficients: the probe below, which then reads
+        nothing of a state."""
+        return self._build_direct_probe({})
+
+    def _build_direct_probe(self, state):
         """The coarsest cycled level is gated to be a full-domain
         uniform canvas; probe its operator column by column through the
-        forest apply (one stencil launch per column on the card) so the
-        BC synthesis, periodic wraps included, is captured.  A(lam) =
-        A0 - lam*I, so probing at lam = 0 suffices; the affine BC part
-        A(0) is probed too and subtracted."""
+        forest apply (one stencil launch per column on the card; with
+        coefficients the plain route) so the BC synthesis, periodic
+        wraps included, is captured.  Variable-coefficient operators
+        probe through ``state``'s coarse-level coefficient fields, on
+        which the matrix depends.  A(lam) = A0 - lam*I, so probing at
+        lam = 0 suffices; the affine BC part A(0) is probed too and
+        subtracted."""
         lvl = self._unit0(self.levels[0])
         ishape = self._ishape(lvl)
         m = int(np.prod(ishape))
@@ -1248,6 +1344,8 @@ class DenseForestMGSolver(DenseMGSolver):
         inner = phi[_ISL]
         st = {"phi": {lvl: phi}, "rhs": {lvl: self._zeros(phi.shape)},
               "bc": {lvl: self._eval_bc_planes(lvl)}}
+        for k in self._eps_keys:
+            st[k] = {lvl: state[k][lvl]}
         cols = self._zeros((m + 1, m))
         for j in range(m + 1):          # row m: A(0), the affine BC part
             cell = np.unravel_index(min(j, m - 1), ishape)

@@ -586,6 +586,11 @@ ROUTES = {
 #: dense-patch AMR solver in both packages)
 ROUTES.update({f"amr3_{op}": dict(operator=op) for op in (
     "laplacian", "helmholtz", "vlaplacian", "vhelmholtz", "ahelmholtz")})
+#: the three forests with each variable-coefficient operator (the dense
+#: forest in both packages)
+ROUTES.update({f"{kind}_{op}": dict(operator=op)
+               for kind in ("L", "two", "periodic")
+               for op in ("vlaplacian", "vhelmholtz", "ahelmholtz")})
 
 
 def route_tree(name, pkg, tm):
@@ -624,3 +629,5 @@ def test_make_solver_routes_as_the_reference(name):
         assert want == "DenseMultiForestMGSolver"
     if name.startswith("amr3_"):
         assert want == "DenseAMRMGSolver"
+    if name.split("_")[0] in ("L", "two", "periodic"):
+        assert want == "DenseForestMGSolver"

@@ -164,11 +164,12 @@ def test_routing_and_what_raises():
     assert not port.dense_forest_supported(rt, cfg) or \
         port.dense_amr_supported(rt, cfg)
     assert type(port.make_solver(rt, cfg)) is port.DenseAMRMGSolver
-    # variable-coefficient forests and CUDA graphs on a forest
+    # variable-coefficient forests go to the forest too (ROADMAP A14,
+    # tests/test_torch_forest_vcoeff.py); CUDA graphs on a forest raise
     t = forest_tree(port, ptm, "L")
     for op in ("vlaplacian", "vhelmholtz", "ahelmholtz"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            port.make_solver(t, port.MGConfig(operator=op, device="cpu"))
+        assert isinstance(port.make_solver(t, port.MGConfig(
+            operator=op, device="cpu")), port.DenseForestMGSolver)
     with pytest.raises(NotImplementedError, match="fused"):
         port.make_solver(t, port.MGConfig(device="cpu", fmg_mode="fused"))
     # the refined mode has no forest counterpart yet
