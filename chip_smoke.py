@@ -6,6 +6,8 @@
     python3 chip_smoke.py --amr      # build + the AMR solver's part only
     python3 chip_smoke.py --drivers  # build + the free-space, diffusion
                                      # and coefficient-forest part only
+    python3 chip_smoke.py --forests  # build + the multi-canvas forest and
+                                     # refined forest part only
 
 Builds the CUDA kernels of ``octree_mg_tpu_torch`` from the sources in
 this checkout (the first use compiles them with nvcc), then, one JSON
@@ -54,7 +56,8 @@ object per line:
   csrc/apply_faces.cuh with SEG = 1 for the apply and the residual, which
   every case must run): the forest's 256^3 canvas, one with x, y and z
   tails, the smallest and the thinnest the pair's rule takes, 96 layers,
-  readers at tile and chunk edges and readers served on both sides, NaN
+  readers at tile and chunk edges, readers served on both sides and the
+  multi-canvas forest's 256^3 unit with its six face layers, NaN
   pads, each against its plain version and against the design before
   (csrc/seg_sweep.cu built with -DOMG_SEGWIDE=0); the slab apply,
   residual and prolongation (add) (``SLAB_APPLY_SHAPES``: the apply and
@@ -239,6 +242,33 @@ object per line:
   timed on the 512^3 and 256^3 canvases; gates: the residual below 1e-3
   of the first, finite footprint, rows 6 and 7c launched, the plain
   route (half-sweep, apply) taken;
+* ``multiforest_path`` — the multi-canvas forest at full width:
+  forest_tree "sparse" at base 512, box 16 (two 8^3-box corner blobs at
+  level 2; one 512^3 level-1 canvas and two 256^3 level-2 canvases;
+  1.64e8 leaf unknowns) through ``make_solver``, which must give
+  ``DenseMultiForestMGSolver``, float32, Dirichlet 0, a seeded normal rhs
+  on the leaf levels: first every distinct unit canvas with its own ghost
+  layers through the segment checks (0 ulp against the plain version and
+  the old design, each on the design its rule gives), then one
+  zero-guess and eight have-guess FMGs (footprint residuals must fall
+  monotonically below 1e-3 of the first), eight timed have-guess FMGs
+  with one sync (``ms_per_fmg``, ``leaf_unknowns_per_s``, launches per
+  FMG, segment launches by canvas on their designs), the unit canvases
+  per level, peak memory;
+* ``refined_forest_path`` — ``solve_refined`` on forest_path's L tree
+  (float32 inner forest, a seeded float64 rhs on every level, eight
+  outers, rtol 0, one sync): ms per outer, the leaf residual history
+  and its contraction, the device time of the eager double-float step
+  and of the inner FMG, launches, peak memory; gates: the last norm <=
+  1e-9 of the first and the float64 leaf residual of x_hi + x_lo (an
+  independent float64 forest solver on the card) <= 1e-7 of the first
+  norm;
+* ``forests_cpu_agreement`` — card against CPU: the multi-canvas forest
+  (laplacian, vhelmholtz) at base 32, box 4, float64, three FMGs (bounds
+  as cpu_agreement's), and the refined forest on the L tree at base 16,
+  box 4 (laplacian, vhelmholtz n_eps 1, ahelmholtz n_eps 3; six outers):
+  x_hi + x_lo within 1e-11 of max|x| on leaf cells, norms within
+  REFINED_AGREE_NORMS (1e-4) relative;
 * ``sharded_path`` — the main path's problem through
   ``ShardedDenseMGSolver(n_shards=8)`` (K slabs on one card; levels 512
   to 32 sharded, 16 replicated, 8 the direct coarse level): one
@@ -300,7 +330,10 @@ object per line:
   launches and the timed FMGs' per FMG (``amr_path_launches``,
   ``amr_path_launches_per_fmg``), and likewise the launches of the
   driver paths (``free_space_launches``, ``diffusion_launches``,
-  ``forest_vcoeff_launches``, ``forest_vcoeff_launches_per_fmg``);
+  ``forest_vcoeff_launches``, ``forest_vcoeff_launches_per_fmg``) and of
+  the two forest paths (``multiforest_path_launches``,
+  ``multiforest_path_launches_per_fmg``, ``refined_forest_path_launches``,
+  ``refined_forest_path_launches_per_outer``);
 * the ``nvidia-smi`` name and power limit line;
 * ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -647,7 +680,9 @@ def forest_variants(dk, cfg, phi, rhs, planes, lam, phi_f):
 
 
 def seg_layer_set(dims, kind):
-    """Ghost layers (d, c, side) of a canvas: ``faces_and_middle`` both
+    """Ghost layers (d, c, side) of a canvas: ``faces`` both canvas faces
+    of each dim (a multi-canvas forest's corner-blob unit: physical and
+    rb faces only); ``faces_and_middle`` both
     canvas faces of each dim (where phys and rb layers lie) and two
     inside (where ring layers lie); ``both_sides`` readers served by a
     layer on each side (at both canvas faces and in the middle);
@@ -656,7 +691,10 @@ def seg_layer_set(dims, kind):
     the canvas faces, each served on both sides; ``max`` MAX_SEGS layers
     drawn from every one the canvas admits."""
     segs = []
-    if kind == "faces_and_middle":
+    if kind == "faces":
+        for d, n in enumerate(dims):
+            segs += [(d, -1, 0), (d, n, 1)]
+    elif kind == "faces_and_middle":
         for d, n in enumerate(dims):
             segs += [(d, -1, 0), (d, n, 1), (d, n // 2 - 1, 0),
                      (d, n // 2, 1)]
@@ -1687,14 +1725,17 @@ def slab_eps_checks(dk, old_fns, shapes=SLAB_EPS_SHAPES):
 #: the apply's 64 x 16 one, 4 of an 8-plane chunk); on the 132 SMs of an
 #: H100 the smallest canvas the pair's rule takes (one tile, 264 chunks
 #: of 8 planes) and the thinnest (2 planes, 272 tiles); MAX_SEGS layers;
-#: readers at tile and chunk edges; readers served on both sides
+#: readers at tile and chunk edges; readers served on both sides; the
+#: multi-canvas forest's 256^3 corner-blob unit (multiforest_path's level
+#: 2), whose six layers are its canvas faces
 SEG_WIDE_SHAPES = [((256, 256, 256), "faces_and_middle"),
                    ((264, 168, 100), "faces_and_middle"),
                    ((2, 2, 2112), "faces_and_middle"),
                    ((1024, 544, 2), "faces_and_middle"),
                    ((264, 168, 100), "max"),
                    ((264, 168, 100), "edges"),
-                   ((264, 168, 100), "both_sides")]
+                   ((264, 168, 100), "both_sides"),
+                   ((256, 256, 256), "faces")]
 #: the counters of the segment launches on the new designs
 SEG_WIDE = "pair_sweep_dense[segs][wide]"
 SEG_FACES = "stencil_apply_dense[segs][faces]"
@@ -1729,11 +1770,14 @@ def seg_wide_checks(dk, old_fn, shapes=SEG_WIDE_SHAPES):
     """The float32 segment pair (1 and 2 pairs), apply and residual on
     canvases their new designs take, NaN pads: 0 ulp against the plain
     version and against the old design (old_seg_library), and counted
-    under SEG_WIDE / SEG_FACES (``new_design``)."""
+    under SEG_WIDE / SEG_FACES (``new_design``).  ``kind``: a name of
+    seg_layer_set, or the layers themselves."""
     rows, seed, dtype, lam, isl = [], 1300, torch.float32, 0.37, dk._ISL
     for dims, kind in shapes:
         seed += 1
-        segs = seg_layer_set(dims, kind)
+        segs = seg_layer_set(dims, kind) if isinstance(kind, str) \
+            else list(kind)
+        kind = kind if isinstance(kind, str) else "solver"
         cfg, planes, phi, rhs = seg_case(dk, dims, dtype, seed, segs)
         layers = dk.seg_layers(cfg, segs, phi.device)
         for name, mode, n in (("pairs1", 0, 1), ("pairs2", 0, 2),
@@ -5463,6 +5507,375 @@ def driver_rows(rows, paths):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the multi-canvas forest and the refined forest
+# ---------------------------------------------------------------------------
+
+def multiforest_seg_checks(dk, sv):
+    """Every distinct (canvas, ghost layers) that the multi-canvas
+    forest ``sv`` sends to the segment kernels, float32, random planes,
+    NaN pads (seg_wide_checks with the solver's own layer sets): 0 ulp
+    against the plain version and the old design; the apply and the
+    residual must run the face-plane design, the pair the wide one on
+    canvases of 256^3 and up (the rule's reach on these cubes)."""
+    shapes = []
+    for lvl in sv.levels:
+        for u in sv.units_of(lvl):
+            desc = sv._seg_desc(u)
+            if desc is None:
+                continue
+            key = (tuple(int(v) for v in sv.dims[u]), tuple(desc[0].segs))
+            if key not in shapes:
+                shapes.append(key)
+    rows = seg_wide_checks(dk, old_seg_library(dk), shapes)
+    for r in rows:
+        r["want_new"] = not r["kernel"].startswith("pairs") or \
+            min(r["dims"]) >= 256
+    bad = [r for r in rows if r["max_ulp"] != 0
+           or r["new_design"] != r["want_new"]]
+    if bad:
+        fail(f"multiforest segment checks: {bad[:3]}")
+    return rows
+
+
+def phase_multiforest_path(pkg, dk, base=512, box=16, n_have=8, n_timed=8):
+    """The multi-canvas forest at full width: forest_tree "sparse" at base
+    512, box 16 (two 8^3-box corner blobs at level 2: one 512^3 level-1
+    canvas and two 256^3 level-2 canvases, the level-2 fill 3.1 % of its
+    bounding box, 1.64e8 leaf unknowns), through ``make_solver`` (which
+    must give DenseMultiForestMGSolver), float32, Dirichlet 0, laplacian,
+    a seeded normal rhs on the leaf levels; first the segment checks of
+    its unit canvases; one zero-guess and ``n_have`` have-guess FMGs
+    (footprint residuals; launches counted over this run), then
+    ``n_timed`` have-guess FMGs without the residual and one sync at the
+    end (ms per FMG, launches per FMG, segment launches by canvas, peak
+    memory of the solves, and of set-up and checks apart).  Gates: the history (check_fmg_history), finite footprints,
+    every kernel of FOREST_PATH_KERNELS launched, and every timed segment
+    launch on the design its rule gives.  Returns (launches of the run,
+    per timed FMG, the check rows)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = forest_tree(pkg, tm, "sparse", base, box)
+    sv = pkg.make_solver(tree, pkg.MGConfig(dtype=torch.float32))
+    if not isinstance(sv, pkg.DenseMultiForestMGSolver):
+        fail(f"multiforest_path: make_solver gave {type(sv).__name__}")
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    state = sv.allocate()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for lvl in sv.levels[sv.levels.index(1):]:       # the leaf levels
+        for u in sv.units_of(lvl):
+            sv.set_interior(state, u, "rhs", torch.randn(
+                sv._ishape(u), generator=g, device="cuda"))
+    sv._ensure_direct(state)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    checks = multiforest_seg_checks(dk, sv)
+    peak_checks = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dk.reset_launch_counts()
+    hist = []
+    for it in range(1 + n_have):
+        state, r = sv.fas_fmg(state, have_guess=it > 0)
+        hist.append(float(r))
+    launches = dk.launch_counts()
+    finite = all(bool(torch.isfinite(sv.interior(state, u, "phi")[
+        torch.as_tensor(sv.footprint_mask(u), device="cuda")]).all())
+        for u in sv.units_of(sv.levels[-1]))
+    sv.fas_fmg(state, have_guess=True, need_res=False)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    with SegTally(dk) as tally:
+        t1 = time.perf_counter()
+        for _ in range(n_timed):
+            sv.fas_fmg(state, have_guess=True, need_res=False)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / n_timed
+    per_fmg = {k: v / n_timed for k, v in dk.launch_counts().items() if v}
+    by = tally.per(n_timed)
+    n_unk = leaf_unknowns(tree, box)
+    rec = {"model": f"make_solver(forest_tree('sparse', base {base}, box "
+                    f"{box}), float32), laplacian, Dirichlet 0",
+           "solver": type(sv).__name__,
+           "levels": {str(l): [{"unit": list(u), "canvas": list(sv.dims[u]),
+                                "fill": sv.geom[u].n_cells
+                                / float(np.prod(sv.dims[u])),
+                                "path": "seg" if sv._seg_desc(u) is not None
+                                else "sequential",
+                                "ghost_layers": None
+                                if sv._seg_desc(u) is None
+                                else len(sv._seg_desc(u)[0].segs)}
+                               for u in sv.units_of(l)] for l in sv.levels},
+           "unit_canvases_per_level": {str(l): len(sv.units_of(l))
+                                       for l in sv.levels},
+           "leaf_unknowns": n_unk, "residuals": hist, "cycles": len(hist),
+           "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+           "setup_s": setup_s, "ms_per_fmg": 1e3 * dt,
+           "leaf_unknowns_per_s": n_unk / dt,
+           "launches_in_solve": {k: v for k, v in launches.items() if v},
+           "launches_per_fmg": per_fmg,
+           "seg_launches_per_fmg_by_canvas": by,
+           "seg_checks": {"cases": len(checks),
+                          "canvases": sorted({"x".join(map(str, r["dims"]))
+                                              for r in checks}),
+                          "max_ulp": max(r["max_ulp"] for r in checks),
+                          "on_the_rule's_design": sum(
+                              r["new_design"] == r["want_new"]
+                              for r in checks)},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_memory_bytes_with_the_checks": peak_checks}
+    emit({"multiforest_path": rec})
+    if not finite:
+        fail("multiforest_path: non-finite footprint values")
+    check_fmg_history(hist, "multiforest_path")
+    missing = [k for k in FOREST_PATH_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"multiforest_path launched no kernel for {missing}")
+    for entry, counter in (("pair_sweep_dense[segs]", SEG_WIDE),
+                           ("stencil_apply_dense[segs]", SEG_FACES)):
+        rows_ = by.get(entry, {})
+        want = {c: r["launches"] for c, r in rows_.items()
+                if entry.startswith("stencil") or
+                min(int(v) for v in c.split("x")) >= 256}
+        got = {c: rows_[c]["on_the_new_design"] for c in want}
+        if not want or got != want:
+            fail(f"multiforest_path: {entry} per FMG on the new design "
+                 f"{got}, not {want}")
+    del state, sv
+    torch.cuda.empty_cache()
+    return launches, per_fmg, checks
+
+
+def phase_refined_forest_path(pkg, dk, df, base=256, box=16, n_outer=8):
+    """The refined forest at full width: ``solve_refined`` on forest_path's
+    L tree (base 256, box 16: a 256^3 level 1, a 512^3 level-2 canvas with
+    a concave corner, a 256^3 level 3), float32 inner forest, Dirichlet 0,
+    laplacian, a seeded float64 rhs on every level split by ``split_f64``,
+    ``n_outer`` outers with rtol 0 (no host read in the loop) and one sync
+    at the end: ms per outer (the closing residual step included in the
+    total), the leaf residual history and its contraction per outer,
+    launches, peak memory; then the device time of one outer's pieces
+    (CUDA events): the eager double-float step (accumulate, restriction,
+    residuals; ``RefinedForestPoisson._jit_step``) and the inner FMG.
+    Gates (tests/test_refine_forest.py:103-107): norms[-1] <= 1e-9 *
+    norms[0], and the float64 leaf residual of x_hi + x_lo, computed on
+    the card by an independent float64 DenseForestMGSolver of the port,
+    <= 1e-7 * norms[0].  Returns (launches of the solve, per outer)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    from octree_mg_tpu_torch.solve.refine_forest import RefinedForestPoisson
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tree = forest_tree(pkg, tm, "L", base, box)
+    sv = pkg.make_solver(tree, pkg.MGConfig(dtype=torch.float32))
+    if type(sv) is not pkg.DenseForestMGSolver:
+        fail(f"refined_forest_path: make_solver gave {type(sv).__name__}")
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    state = sv.allocate()
+    g = torch.Generator(device="cuda").manual_seed(37)
+    rhs64 = {lvl: torch.randn(sv._ishape(lvl), generator=g,
+                              dtype=torch.float64, device="cuda")
+             for lvl in sv.levels}
+    rh, rl = {}, {}
+    for lvl in sv.levels:
+        rh[lvl], rl[lvl] = df.split_f64(rhs64[lvl])
+    sv._ensure_direct(state)
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    x_pairs, norms, state = pkg.solve_refined(sv, state, rh, rl,
+                                              n_outer=n_outer, rtol=0.0)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dk.launch_counts()
+    peak_solve = torch.cuda.max_memory_allocated()
+    # one outer's pieces, from the solve's end state
+    rp = RefinedForestPoisson(sv)
+    X = {lvl: tuple(a.clone() for a in x_pairs[lvl]) for lvl in sv.levels}
+    shape = {lvl: sv._pshape(sv.dims[lvl]) for lvl in sv.levels}
+    Xp = {}
+    for lvl in sv.levels:
+        Xp[lvl] = tuple(torch.zeros(shape[lvl], device="cuda")
+                        for _ in range(2))
+        for a, b in zip(Xp[lvl], X[lvl]):
+            a[dk._ISL] = b
+    del X
+    RH = {lvl: torch.zeros(shape[lvl], device="cuda") for lvl in sv.levels}
+    RL = {lvl: torch.zeros(shape[lvl], device="cuda") for lvl in sv.levels}
+    for lvl in sv.levels:
+        RH[lvl][dk._ISL], RL[lvl][dk._ISL] = rh[lvl], rl[lvl]
+    E = {lvl: state["phi"][lvl] for lvl in sv.levels}
+    step_ms = [event_ms(lambda: rp._jit_step(Xp, E, RH, RL))
+               for _ in range(3)]
+    lam = sv._lam(0.0)
+    fmg_ms = [event_ms(lambda: sv._fmg(state, lam, False, False))
+              for _ in range(3)]
+    del Xp, RH, RL, E
+    torch.cuda.empty_cache()
+    # the float64 leaf residual of x_hi + x_lo on an independent solver
+    sv64 = pkg.DenseForestMGSolver(forest_tree(pkg, tm, "L", base, box),
+                                   pkg.MGConfig(dtype=torch.float64))
+    sv64.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    st64 = sv64.allocate()
+    worst = 0.0
+    for lvl in sv64.levels:
+        xh, xl = x_pairs[lvl]
+        sv64.set_interior(st64, lvl, "phi", xh.double() + xl.double())
+        sv64.set_interior(st64, lvl, "rhs", rhs64[lvl])
+    for lvl in sv64.levels:
+        st64 = sv64._residual(st64, lvl, 0.0)
+        r = sv64.interior(st64, lvl, "ires")
+        worst = max(worst, float(torch.where(rp.leaf_mask[lvl], r.abs(),
+                                             0.0).max()))
+    n_unk = leaf_unknowns(tree, box)
+    rec = {"model": f"solve_refined(DenseForestMGSolver(forest_tree('L', "
+                    f"base {base}, box {box}), float32)), laplacian, "
+                    f"Dirichlet 0, seeded float64 rhs on every level",
+           "levels": {str(l): {"canvas": list(sv.dims[l]),
+                               "conflicts": sv.conflicts.get(l) is not None,
+                               "leaf_cells": int(rp.leaf_mask[l].sum())}
+                      for l in sv.levels},
+           "leaf_unknowns": n_unk, "n_outer": n_outer, "rtol": 0.0,
+           "norms": norms,
+           "contraction_per_outer": [a / b for a, b in zip(norms, norms[1:])],
+           "solve_s": solve_s, "ms_per_outer": 1e3 * solve_s / n_outer,
+           "step_device_ms": step_ms, "inner_fmg_device_ms": fmg_ms,
+           "f64_leaf_residual": worst,
+           "f64_leaf_residual_over_first_norm": worst / norms[0],
+           "launches_in_solve": {k: v for k, v in launches.items() if v},
+           "launches_per_outer": {k: v / n_outer for k, v in launches.items()
+                                  if v},
+           "peak_memory_bytes_solve": peak_solve,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit({"refined_forest_path": rec})
+    if not all(np.isfinite(norms)) or not norms[-1] <= 1e-9 * norms[0]:
+        fail(f"refined_forest_path: norms fell only {norms}")
+    if not worst <= 1e-7 * norms[0]:
+        fail(f"refined_forest_path: float64 leaf residual {worst} above "
+             f"1e-7 of the first norm {norms[0]}")
+    missing = [k for k in FOREST_PATH_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"refined_forest_path launched no kernel for {missing}")
+    del state, sv, sv64, st64, x_pairs, rp
+    torch.cuda.empty_cache()
+    return launches, {k: v / n_outer for k, v in launches.items() if v}
+
+
+def _multiforest_case(pkg, op, dev, n=32, box=4):
+    """Three FMGs of the multi-canvas forest on forest_tree "sparse" at
+    base n, box ``box``, float64, Dirichlet 0.25, a seeded rhs on the leaf
+    levels (vhelmholtz: lam 0.4, eps 0.5 + U[0,1) on the leaf units,
+    restricted down): ({unit: footprint phi}, residuals)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    sv = pkg.make_solver(forest_tree(pkg, tm, "sparse", n, box),
+                         pkg.MGConfig(operator=op, dtype=torch.float64,
+                                      device=dev))
+    if not isinstance(sv, pkg.DenseMultiForestMGSolver):
+        fail(f"forests_cpu_agreement: make_solver gave {type(sv).__name__}")
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.25)
+    st = sv.allocate()
+    rng = np.random.default_rng(41)
+    for lvl in sv.levels:
+        if lvl < 1:
+            continue
+        for u in sv.units_of(lvl):
+            sv.set_interior(st, u, "rhs", rng.normal(size=sv._ishape(u)))
+            for d in range(sv.n_eps):
+                sv.set_interior(st, u, f"eps{d}",
+                                0.5 + rng.random(sv._ishape(u)))
+    if sv.n_eps:
+        sv.prepare_coefficient(st)
+    lam = 0.4 if sv.n_eps else 0.0
+    res = []
+    for it in range(3):
+        st, r = sv.fas_fmg(st, lam=lam, have_guess=it > 0)
+        res.append(float(r))
+    top = sv.levels[-1]
+    phi = {u: np.where(sv.footprint_mask(u),
+                       sv.interior(st, u, "phi").cpu().numpy(), 0.0)
+           for u in sv.units_of(top)}
+    return phi, res
+
+
+def _refined_forest_case(pkg, op, lam, n_eps, dev, n_outer=6):
+    """solve_refined on the JAX tests' L tree (forest_tree "L" at base 16,
+    box 4), float32 inner, a seeded float64 rhs (and eps 0.5 + U[0,1) per
+    level): ({lvl: x_hi + x_lo in float64, leaf cells}, norms)."""
+    from octree_mg_tpu_torch.core import tree as tm
+    sv = pkg.DenseForestMGSolver(forest_tree(pkg, tm, "L", 16, 4),
+                                 pkg.MGConfig(operator=op,
+                                              dtype=torch.float32,
+                                              device=dev))
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    rng = np.random.default_rng(43)
+    rhs = {l: rng.normal(size=sv._ishape(l)) for l in sv.levels}
+    eps = {l: [0.5 + rng.random(sv._ishape(l)) for _ in range(n_eps)]
+           for l in sv.levels} if n_eps else None
+    from octree_mg_tpu_torch.ops.df32 import split_f64
+    rh = {l: split_f64(rhs[l])[0] for l in sv.levels}
+    rl = {l: split_f64(rhs[l])[1] for l in sv.levels}
+    x, norms, _ = pkg.solve_refined(sv, sv.allocate(), rh, rl,
+                                    n_outer=n_outer, lam=lam, eps=eps)
+    from octree_mg_tpu_torch.solve.refine_forest import RefinedForestPoisson
+    leaf = RefinedForestPoisson(sv, lam=lam, eps=eps).leaf_mask
+    return ({l: np.where(leaf[l].cpu().numpy(),
+                         x[l][0].double().cpu().numpy()
+                         + x[l][1].double().cpu().numpy(), 0.0)
+             for l in sv.levels}, norms)
+
+
+#: card-against-CPU bounds of the refined forest (float32 inner FMGs):
+#: the solutions' leaf cells within AGREE_PHI of max|x|, the norms within
+#: REFINED_AGREE_NORMS relative while above 1e-6 of the first.  The
+#: stencil arithmetic is identical on both; the coarse solve's float32
+#: matrix-vector products sum in another order in cuBLAS.  On the CPU, a
+#: random perturbation of 32 float32 ulp of every coarse solve moved the
+#: six-outer solutions by at most 2.9e-13 of max|x| and the norms by
+#: 5.2e-6 relative (laplacian, vhelmholtz, ahelmholtz on this tree)
+REFINED_AGREE_NORMS = 1e-4
+
+
+def forests_cpu_agreement(pkg):
+    """Card against CPU at small size: the multi-canvas forest (laplacian
+    and vhelmholtz) on forest_tree "sparse" at base 32, box 4, float64,
+    three FMGs (bounds AGREE_PHI, AGREE_RES); the refined forest on the L
+    tree at base 16, box 4 (laplacian, vhelmholtz lam 0.41 with n_eps 1,
+    ahelmholtz lam 0.27 with n_eps 3; float32 inner, six outers): x_hi +
+    x_lo within AGREE_PHI of max|x| on leaf cells and the norms within
+    REFINED_AGREE_NORMS while above 1e-6 of the first."""
+    rows = {}
+    for op in ("laplacian", "vhelmholtz"):
+        rows[f"multiforest_{op}"] = agreement(
+            *(_multiforest_case(pkg, op, dev) for dev in ("cuda", "cpu")))
+    for op, lam, n_eps in (("laplacian", 0.0, 0), ("vhelmholtz", 0.41, 1),
+                           ("ahelmholtz", 0.27, 3)):
+        a, b = (_refined_forest_case(pkg, op, lam, n_eps, dev)
+                for dev in ("cuda", "cpu"))
+        row = agreement((a[0], None), (b[0], None))
+        keep = [i for i, v in enumerate(b[1]) if v > 1e-6 * b[1][0]]
+        row.update(norms_cuda=a[1], norms_cpu=b[1],
+                   norms_max_rel_diff=max(abs(a[1][i] - b[1][i]) / b[1][i]
+                                          for i in keep),
+                   norms_bound=REFINED_AGREE_NORMS)
+        rows[f"refined_forest_{op}"] = row
+    return rows
+
+
+def phase_forests_cpu_agreement(pkg):
+    rows = forests_cpu_agreement(pkg)
+    emit({"forests_cpu_agreement": {"bound": AGREE_PHI,
+                                    "residual_bound": AGREE_RES, **rows}})
+    for k, r in rows.items():
+        if k.startswith("refined"):
+            if not (r["phi_max_rel_diff"] < AGREE_PHI
+                    and r["norms_max_rel_diff"] < REFINED_AGREE_NORMS):
+                fail(f"forests_cpu_agreement: card and CPU disagree ({k}): "
+                     f"{r}")
+        else:
+            check_agreement({k: r}, "forests_cpu_agreement")
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     quick = "--quick" in argv
@@ -5505,6 +5918,14 @@ def main(argv) -> int:
         phase_amr_cpu_agreement(pkg, dk)
         print(smi)
         emit({"ok": True, "amr": True})
+        return 0
+    if "--forests" in argv:
+        # the multi-canvas forest and the refined forest
+        phase_multiforest_path(pkg, dk)
+        phase_refined_forest_path(pkg, dk, df)
+        phase_forests_cpu_agreement(pkg)
+        print(smi)
+        emit({"ok": True, "forests": True})
         return 0
     if "--drivers" in argv:
         # the free-space and diffusion drivers and the coefficient forest
@@ -5561,6 +5982,13 @@ def main(argv) -> int:
                "diffusion_launches": phase_diffusion_path(pkg, dk)}
     (drivers["forest_vcoeff_launches"],
      drivers["forest_vcoeff_launches_per_fmg"]) = phase_forest_vcoeff(pkg, dk)
+    (drivers["multiforest_path_launches"],
+     drivers["multiforest_path_launches_per_fmg"],
+     _) = phase_multiforest_path(pkg, dk)
+    (drivers["refined_forest_path_launches"],
+     drivers["refined_forest_path_launches_per_outer"]) = \
+        phase_refined_forest_path(pkg, dk, df)
+    phase_forests_cpu_agreement(pkg)
     rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
                                         vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,

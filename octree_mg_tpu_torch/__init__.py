@@ -8,7 +8,10 @@ helmholtz and the variable-coefficient vlaplacian, vhelmholtz,
 ahelmholtz; FAS V-cycle and FMG, GSRB pair smoothing, direct eigenbasis
 coarse solve, assembled or probed), its f64-class refined mode
 (double-float residual around the float32 FMG) and the dense forest
-(any 2:1-balanced 3D octree, the five operators) and the
+(any 2:1-balanced 3D octree, the five operators; one canvas per
+connected component of a level for sparse trees,
+``DenseMultiForestMGSolver``; its f64-class refined mode
+``RefinedForestPoisson``) and the
 dense-patch AMR solver (rectangular AMR patches, the five operators),
 whose stencil,
 restriction, prolongation and double-float residual passes are CUDA
@@ -35,10 +38,13 @@ from .solve.multigrid import MGConfig, MGExperimental, MGSolver
 from .solve.dense import DenseMGSolver, dense_supported, make_solver
 from .solve.dense_amr import DenseAMRMGSolver, dense_amr_supported
 from .solve.dense_forest import DenseForestMGSolver, dense_forest_supported
+from .solve.dense_multiforest import (DenseMultiForestMGSolver,
+                                      dense_multiforest_supported)
 from .solve.dense_shard import ShardedDenseMGSolver
 from .models.poisson import PoissonSolver
 from .solve.refine import (RefinedPoisson, ShardedRefinedPoisson,
                            solve_refined)
+from .solve.refine_forest import RefinedForestPoisson
 from .ops.df32 import df32_ok, df32_vcoeff_ok, split_f64
 from .convert import (state_from_numpy, state_to_numpy, direct_from_numpy,
                       df_pair_from_numpy, df_pair_to_numpy,
@@ -50,8 +56,11 @@ __all__ = [
     "Tree", "build_rectangle", "build_amr_centered", "box_r_min",
     "MGConfig", "MGExperimental", "MGSolver", "DenseMGSolver", "dense_supported", "make_solver",
     "DenseAMRMGSolver", "dense_amr_supported",
-    "DenseForestMGSolver", "dense_forest_supported", "ShardedDenseMGSolver",
-    "PoissonSolver", "RefinedPoisson", "ShardedRefinedPoisson",
+    "DenseForestMGSolver", "dense_forest_supported",
+    "DenseMultiForestMGSolver", "dense_multiforest_supported",
+    "ShardedDenseMGSolver",
+    "PoissonSolver", "RefinedPoisson", "RefinedForestPoisson",
+    "ShardedRefinedPoisson",
     "solve_refined", "df32_ok",
     "df32_vcoeff_ok", "split_f64", "state_from_numpy", "state_to_numpy",
     "direct_from_numpy", "df_pair_from_numpy", "df_pair_to_numpy",

@@ -100,7 +100,7 @@ def state_from_numpy(solver, np_state: Dict) -> Dict:
                          f"{solver.cfg.operator!r})")
     state: Dict = {k: {} for k in keys}
     state["bc"] = {}
-    for lvl in solver.levels:
+    for lvl in solver._kcfgs:   # level keys (unit keys on multi-canvas)
         want = solver._field_shape(lvl)
         for k in keys:
             a = np.asarray(np_state[k][lvl])
@@ -138,7 +138,7 @@ def direct_from_numpy(solver, package: Dict) -> Dict:
     """The eigenbasis package of the direct coarse solve on the solver's
     device in its dtype.  ``V`` and ``Vinv`` are [m, m], ``d`` is [m] with
     m the cell count of the coarsest cycled level; ``tiny`` is a scalar."""
-    m = int(np.prod(solver.dims[solver.levels[0]]))
+    m = int(np.prod(solver.dims[solver._unit0(solver.levels[0])]))
     V, Vinv, d = (np.asarray(package[k]) for k in ("V", "Vinv", "d"))
     if V.shape != (m, m) or Vinv.shape != (m, m) or d.shape != (m,):
         raise ValueError(f"eigenbasis shapes {V.shape}, {Vinv.shape}, "

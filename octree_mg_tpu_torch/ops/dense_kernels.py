@@ -1181,8 +1181,8 @@ def half_sweep_dense(cfg: DenseStencilConfig, phi, rhs, lam, bplanes,
         return _half_plain(cfg, phi, rhs, lam, bplanes, parity, eps)
     if eps:
         raise NotImplementedError("half_sweep_dense: the kernel has constant "
-                                  "coefficients only (variable-coefficient "
-                                  "forests: ROADMAP A9)")
+                                  "coefficients only; coefficient fields "
+                                  "take the plain route (an eps_bc config)")
     _check_field(cfg, phi, "phi")
     _check_field(cfg, rhs, "rhs")
     P = _params(cfg, lam, bplanes, parity, 1)

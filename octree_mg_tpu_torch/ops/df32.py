@@ -62,8 +62,11 @@ not own are read from the z pads of x_hi and x_lo, which the caller's
 halo exchange filled (ops/dense_kernels module docstring); on the card
 the kernel's slab variant, counted under ``residual_df32_dense[z_gates]``.
 
-Still to come with their callers: ``interp_rb_strip_df`` (forests), the
-2D forms, and the ``nch``-chunked evaluation.
+``interp_rb_strip_df`` is the double-float coarse-strip interpolation of
+the refinement-boundary ghosts, for the refined forest solve
+(``solve/refine_forest.py``); its 2D branch waits for its caller, the 2D
+refined forest (ROADMAP A10).  Still to come with their callers: the 2D
+residual forms and the ``nch``-chunked evaluation.
 """
 from __future__ import annotations
 
@@ -571,3 +574,66 @@ def residual_df32_vcoeff(cfg: dk.DenseStencilConfig, xhi, xlo, rhshi,
     if lam_pair is not None:
         acc = df_add(acc, df_mul(x, lam_pair))
     return acc[0]
+
+
+# ---------------------------------------------------------------------------
+# double-float refinement-boundary ghost synthesis (forest trees)
+# ---------------------------------------------------------------------------
+
+def interp_rb_strip_df(th, tl, ndim: int):
+    """Double-float rendering of ``ops.ghost.interp_rb_strip``: the
+    coarse strip pair (th, tl) -> the interpolated plane pair next to the
+    fine points (box_gc_for_fine_neighbor, m_ghost_cells.f90:557-576).
+
+    Every weight is 0.125 or 1 (exact powers of two) and every sum is a
+    TwoSum with its error folded into the lo channel, so the pair holds
+    the exact interpolation of the exact strip values to the ~2^-48
+    double-float class.  ``th``/``tl`` are [m, t + 2] in 2D and
+    [m, t_hi + 2, t_lo + 2] in 3D, as for the float32 form; the operation
+    order is the JAX package's."""
+    def pair_add(ah, al, bh, bl):
+        s, e = two_sum(ah, bh)
+        return s, al + bl + e
+
+    def pair_sub(ah, al, bh, bl):
+        s, e = two_sum(ah, -bh)
+        return s, al - bl + e
+
+    if ndim == 2:
+        mh, ml = th[:, 1:-1], tl[:, 1:-1]
+        dh, de = two_sum(th[:, 2:], -th[:, :-2])
+        gh = 0.125 * dh
+        gl = 0.125 * (tl[:, 2:] - tl[:, :-2] + de)
+        lo_h, lo_l = pair_sub(mh, ml, gh, gl)
+        hi_h, hi_l = pair_add(mh, ml, gh, gl)
+
+        def ilv(a, b):
+            return torch.stack([a, b], dim=-1).reshape(a.shape[0], -1)
+
+        return ilv(lo_h, hi_h), ilv(lo_l, hi_l)
+    mh, ml = th[:, 1:-1, 1:-1], tl[:, 1:-1, 1:-1]
+    dh, de = two_sum(th[:, 1:-1, 2:], -th[:, 1:-1, :-2])
+    glo_h = 0.125 * dh
+    glo_l = 0.125 * (tl[:, 1:-1, 2:] - tl[:, 1:-1, :-2] + de)
+    dh, de = two_sum(th[:, 2:, 1:-1], -th[:, :-2, 1:-1])
+    ghi_h = 0.125 * dh
+    ghi_l = 0.125 * (tl[:, 2:, 1:-1] - tl[:, :-2, 1:-1] + de)
+    m = th.shape[0]
+
+    def combo(slo, shi):
+        h, l = (pair_sub, pair_add)[slo](mh, ml, glo_h, glo_l)
+        return (pair_sub, pair_add)[shi](h, l, ghi_h, ghi_l)
+
+    c00, c10, c01, c11 = combo(0, 0), combo(1, 0), combo(0, 1), combo(1, 1)
+
+    def ilv_last(a, b):  # interleave along the last axis
+        return torch.stack([a, b], dim=-1).reshape(*a.shape[:-1],
+                                                   2 * a.shape[-1])
+
+    def assemble(i):
+        row_lo = ilv_last(c00[i], c10[i])    # t_hi even
+        row_hi = ilv_last(c01[i], c11[i])    # t_hi odd
+        return torch.stack([row_lo, row_hi], dim=2).reshape(
+            m, 2 * mh.shape[1], 2 * mh.shape[2])
+
+    return assemble(0), assemble(1)

@@ -91,17 +91,18 @@ def make_solver(tree: Tree, config: Optional[MGConfig] = None):
     """The solver the JAX package's ``make_solver`` would pick, in its
     order: the dense fast path for a uniform 3D tree, the dense-patch AMR
     solver for 3D trees whose levels are nested rectangular patches, the
-    dense forest for other 2:1-balanced 3D octrees (both with the five
-    operators), and the boxed ``MGSolver`` for what no dense path takes
-    (1D, the Jacobi smoother, operators or geometries the 2D paths
-    reject, fully periodic sparse trees).  What it would dispatch to a
-    path still to be ported raises, naming its ROADMAP item: sparse
-    multi-canvas forests (A9) and every 2D configuration some 2D dense
-    path's operator gate admits (A10) — whether that path would take the
+    dense forest for other 2:1-balanced 3D octrees, the multi-canvas
+    dense forest for sparse ones (one canvas per connected component of a
+    level; all three with the five operators), and the boxed
+    ``MGSolver`` for what no dense path takes (1D, the Jacobi smoother,
+    operators or geometries the 2D paths reject, fully periodic sparse
+    trees).  Every 2D configuration some 2D dense path's operator gate
+    admits raises, naming ROADMAP A10, whether that path would take the
     tree or leave it to the boxed solver."""
     from .dense_amr import DenseAMRMGSolver, dense_amr_supported
     from .dense_forest import DenseForestMGSolver, dense_forest_supported
-    from .dense_multiforest import dense_multiforest_supported
+    from .dense_multiforest import (DenseMultiForestMGSolver,
+                                    dense_multiforest_supported)
     from .multigrid import MGSolver
     cfg = config or MGConfig()
     if dense_supported(tree, cfg):
@@ -113,7 +114,7 @@ def make_solver(tree: Tree, config: Optional[MGConfig] = None):
     elif dense_forest_supported(tree, cfg):
         return DenseForestMGSolver(tree, cfg)
     elif dense_multiforest_supported(tree, cfg):
-        what = "the multi-canvas dense forest (ROADMAP A9)"
+        return DenseMultiForestMGSolver(tree, cfg)
     else:
         return MGSolver(tree, cfg)
     raise NotImplementedError(
@@ -285,9 +286,9 @@ class DenseMGSolver:
 
     @staticmethod
     def _lvl_of(u) -> int:
-        """Real tree level of a level key (an int here; the JAX package's
-        multi-canvas forest uses (lvl, c) keys), for per-level tree
-        attributes (dr, box size)."""
+        """Real tree level of a level key (an int here; the multi-canvas
+        forest uses (lvl, c) unit keys), for per-level tree attributes
+        (dr, box size)."""
         return u if isinstance(u, int) else u[0]
 
     def _unit0(self, lvl):
@@ -396,13 +397,16 @@ class DenseMGSolver:
         for i in range(self.n_eps):
             key = f"eps{i}"
             for lvl in range(self.levels[-1], self.levels[0], -1):
-                # keep the coarse field's identity (a captured graph
-                # holds its address)
-                coarse = state[key][lvl - 1]
+                # keep the coarse fields' identity (a captured graph
+                # holds their addresses); a level may have several
+                # canvases (the multi-canvas forest's unit keys)
+                coarse = {u: v for u, v in state[key].items()
+                          if self._lvl_of(u) == lvl - 1}
                 state = self._restrict_into(state, lvl, key)
-                if state[key][lvl - 1] is not coarse:
-                    coarse.copy_(state[key][lvl - 1])
-                    state[key][lvl - 1] = coarse
+                for u, v in coarse.items():
+                    if state[key][u] is not v:
+                        v.copy_(state[key][u])
+                        state[key][u] = v
         self._direct = None
         self._graphs = {}
         self._graph_epoch += 1
@@ -513,7 +517,7 @@ class DenseMGSolver:
         vlaplacian, which ignore it like the boxed dispatch)."""
         if self.cfg.operator in ("laplacian", "vlaplacian"):
             lam = 0.0
-        return self._kcfgs[self.levels[-1]].rnd(lam)
+        return self._kcfgs[self._unit0(self.levels[-1])].rnd(lam)
 
     def _eps(self, state, lvl):
         """The level's coefficient fields for the kernels (empty for the

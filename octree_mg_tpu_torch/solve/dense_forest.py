@@ -196,8 +196,10 @@ class _LevelGeom:
     def __init__(self, tree: Tree, lvl: int, ids=None):
         """ids: a subset of the level's boxes (one connected component,
         for the multi-canvas gate); all of them by default."""
+        self.lvl = lvl
         self.nc = nc = tree.box_size_lvl[lvl]
         ids = tree.lvls[lvl].ids if ids is None else np.asarray(ids)
+        self.ids = ids
         ix = tree.ix[ids] - 1                     # [n, 3] 0-based box coords
         self.box_lo = ix.min(axis=0)              # canvas origin, box units
         box_hi = ix.max(axis=0) + 1
@@ -1001,6 +1003,16 @@ class DenseForestMGSolver(DenseMGSolver):
             + tuple(pp for ps in state["bc"].values() for pp in ps)
         return _dep_memo(self, "_easm_memo", lvl, deps, lambda: [
             self._assemble(state, lvl, k) for k in keys])
+
+    def _drop_eps_memos(self):
+        """Forget the memoized coefficient assemblies and coefficient rb
+        strips: after new coefficient values their entries could never
+        match again (they are keyed on the old versions) and would only
+        hold device memory until evicted."""
+        self.__dict__.pop("_easm_memo", None)
+        rbc = self.__dict__.get("_rbc_memo", {})
+        for k in [k for k in rbc if k[1].startswith("eps")]:
+            del rbc[k]
 
     def _ext(self, state, lvl, key, bcache=None, prefer=None):
         """[Z+2, Y+2, X+2] canvas with ALL ghosts materialized: interior

@@ -26,9 +26,11 @@ and the hi parts are installed on the inner solver.
 (``ShardedDenseMGSolver``): the same outer loop on the slab layout, the
 halos of x_hi and x_lo exchanged before the double-float residual runs
 slab by slab with each slab's z gates, its norm a max over the slabs.
-Constant coefficients only, as in the JAX package.  Forests and 2D
-solvers have refinement classes in the JAX package that are still to be
-ported; ``solve_refined`` raises for them.
+Constant coefficients only, as in the JAX package.  The single-canvas
+dense forest refines through ``RefinedForestPoisson``
+(solve/refine_forest.py), which ``solve_refined`` picks for it; a
+multi-canvas forest is refused, as in the JAX package, and the 2D solvers
+wait for ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -88,8 +90,9 @@ class RefinedPoisson:
         from .dense_forest import DenseForestMGSolver
         if isinstance(solver, DenseForestMGSolver):
             raise NotImplementedError(
-                "RefinedPoisson: the refined forest solve "
-                "(RefinedForestPoisson) waits for ROADMAP A9")
+                "RefinedPoisson refines a single top level; a forest "
+                "solver refines through RefinedForestPoisson "
+                "(solve/refine_forest.py; solve_refined picks it)")
         self.solver = solver
         self.lam = float(lam)
         self.lam_pair = split_lam(lam)
@@ -353,30 +356,40 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
                   rtol: float = 0.0, nch: Optional[int] = None,
                   bc_values: Optional[List[float]] = None,
                   lam: float = 0.0, eps=None):
-    """One-shot convenience wrapper.  The JAX package picks the forest,
-    sharded, 2D or plain refinement class by solver type; here the
-    z-slab solver takes :class:`ShardedRefinedPoisson` (bc_values and lam
-    only, as there), the uniform 3D dense solver and the dense-patch AMR
-    solver :class:`RefinedPoisson` (which refuses the AMR solver's top
-    level with :class:`Df32GateError`, its refinement faces being
-    plane-valued, as the JAX package's asserts do); anything else
-    raises.  lam != 0 = f64-class
-    Helmholtz (a helmholtz-family inner solver); eps = the float64
-    coefficient fields of a variable-coefficient solver (see
-    RefinedPoisson)."""
+    """One-shot convenience wrapper that picks the refinement class by
+    solver type, as the JAX package's does: a multi-canvas forest raises
+    (the JAX package's text), a single-canvas forest takes
+    :class:`RefinedForestPoisson` (rhs_hi/rhs_lo are then {lvl: interior}
+    dicts, the solution {lvl: (x_hi, x_lo)}, eps per level), the z-slab
+    solver :class:`ShardedRefinedPoisson` (bc_values and lam only, as
+    there), the uniform 3D dense solver and the dense-patch AMR solver
+    :class:`RefinedPoisson` (which refuses the AMR solver's top level
+    with :class:`Df32GateError`, its refinement faces being
+    plane-valued, as the JAX package's asserts do).  Anything else, the
+    2D solvers among them, raises, naming ROADMAP A10.  lam != 0 =
+    f64-class Helmholtz (a helmholtz-family inner solver); eps = the
+    float64 coefficient fields of a variable-coefficient solver."""
     from .dense_forest import DenseForestMGSolver
+    from .dense_multiforest import DenseMultiForestMGSolver
     from .dense_shard import ShardedDenseMGSolver
+    from .refine_forest import MULTI_CANVAS_REFUSAL, RefinedForestPoisson
+    if isinstance(solver, DenseMultiForestMGSolver):
+        raise NotImplementedError(MULTI_CANVAS_REFUSAL)
+    if isinstance(solver, DenseForestMGSolver):
+        return RefinedForestPoisson(solver, bc_values=bc_values, lam=lam,
+                                    eps=eps).solve(state, rhs_hi, rhs_lo,
+                                                   n_outer=n_outer,
+                                                   rtol=rtol)
     if isinstance(solver, ShardedDenseMGSolver):
         return ShardedRefinedPoisson(solver, bc_values=bc_values,
                                      lam=lam).solve(state, rhs_hi, rhs_lo,
                                                     n_outer=n_outer,
                                                     rtol=rtol)
-    if not isinstance(solver, DenseMGSolver) \
-            or isinstance(solver, DenseForestMGSolver):
+    if not isinstance(solver, DenseMGSolver):
         raise NotImplementedError(
             f"solve_refined: no refinement class for "
-            f"{type(solver).__name__} yet: forests wait for ROADMAP A9, 2D "
-            f"for A10")
+            f"{type(solver).__name__}; the 2D solvers wait for ROADMAP "
+            f"A10")
     return RefinedPoisson(solver, nch=nch, bc_values=bc_values, lam=lam,
                           eps=eps).solve(state, rhs_hi, rhs_lo,
                                          n_outer=n_outer, rtol=rtol)

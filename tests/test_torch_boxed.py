@@ -591,6 +591,13 @@ ROUTES.update({f"amr3_{op}": dict(operator=op) for op in (
 ROUTES.update({f"{kind}_{op}": dict(operator=op)
                for kind in ("L", "two", "periodic")
                for op in ("vlaplacian", "vhelmholtz", "ahelmholtz")})
+#: the sparse trees of tests/test_dense_multiforest.py and "sparse" with
+#: the other operators and the Jacobi smoother (the multi-canvas forest
+#: in both packages, the boxed solver for Jacobi)
+ROUTES.update({kind: dict() for kind in ("eight", "mixed", "threelvl")})
+ROUTES.update({f"sparse_{op}": dict(operator=op) for op in (
+    "helmholtz", "vlaplacian", "vhelmholtz", "ahelmholtz")})
+ROUTES["sparse_jacobi"] = dict(smoother="jacobi")
 
 
 def route_tree(name, pkg, tm):
@@ -602,6 +609,9 @@ def route_tree(name, pkg, tm):
         return build("cyl2", pkg, tm)
     if base in ("uniform3", "amr1", "amr3"):
         return build(base, pkg, tm)
+    if base in ("eight", "mixed", "threelvl"):
+        from test_torch_multiforest import sparse_tree
+        return sparse_tree(pkg, tm, base)
     return forest_tree(pkg, tm, base, 16, 4)
 
 
@@ -614,7 +624,7 @@ def test_make_solver_routes_as_the_reference(name):
     want = type(ref_make_solver(route_tree(name, ref, rtm),
                                 ref.MGConfig(**kw))).__name__
     ported = ("DenseMGSolver", "DenseAMRMGSolver", "DenseForestMGSolver",
-              "MGSolver")
+              "DenseMultiForestMGSolver", "MGSolver")
     tree = route_tree(name, port, ptm)
     cfg = port.MGConfig(device="cpu", **kw)
     if want in ported:
@@ -625,8 +635,12 @@ def test_make_solver_routes_as_the_reference(name):
     if name in ("sparse_periodic", "amr1", "uniform3_jacobi",
                 "uniform2_jacobi", "cyl2_helmholtz"):
         assert want == "MGSolver"
-    if name == "sparse":
+    if name in ("sparse", "eight", "mixed", "threelvl") or (
+            name.startswith("sparse_") and name not in (
+                "sparse_periodic", "sparse_jacobi")):
         assert want == "DenseMultiForestMGSolver"
+    if name == "sparse_jacobi":
+        assert want == "MGSolver"
     if name.startswith("amr3_"):
         assert want == "DenseAMRMGSolver"
     if name.split("_")[0] in ("L", "two", "periodic"):

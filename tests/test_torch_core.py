@@ -191,7 +191,7 @@ def test_solve_refined_names_what_is_missing():
     rhs = np.zeros((16,) * 3)
     with pytest.raises(ValueError, match="float32"):
         ps.solve_refined(rhs)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A10"):
         port.solve_refined(object(), None, rhs, rhs)
     ps32 = port.PoissonSolver(3, (16,) * 3, 8, dtype=torch.float32,
                               device="cpu")

@@ -172,11 +172,29 @@ def test_routing_and_what_raises():
             operator=op, device="cpu")), port.DenseForestMGSolver)
     with pytest.raises(NotImplementedError, match="fused"):
         port.make_solver(t, port.MGConfig(device="cpu", fmg_mode="fused"))
-    # the refined mode has no forest counterpart yet
+    # the refined mode runs on a forest (RefinedForestPoisson,
+    # tests/test_torch_refine_forest.py); a multi-canvas forest refuses
+    # it with the JAX package's text
     ps = port.make_solver(t, port.MGConfig(device="cpu",
                                            dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="A9"):
-        port.solve_refined(ps, None, None, None)
+    ps.set_bc(0, port.BCType.DIRICHLET, 0.0)
+    rhs = {lvl: np.ones(ps._ishape(lvl)) for lvl in ps.levels}
+    zero = {lvl: np.zeros(ps._ishape(lvl)) for lvl in ps.levels}
+    x, norms, _ = port.solve_refined(ps, ps.allocate(), rhs, zero,
+                                     n_outer=2)
+    assert len(norms) == 3 and norms[2] < 0.1 * norms[0]
+    assert set(x) == set(ps.levels)
+    st = shared_forest_tree(port, ptm, "sparse", 16, 4)
+    rt = shared_forest_tree(ref, rtm, "sparse", 16, 4)
+    ms = port.make_solver(st, port.MGConfig(device="cpu",
+                                            dtype=torch.float32))
+    assert isinstance(ms, port.DenseMultiForestMGSolver)
+    with pytest.raises(NotImplementedError) as want:
+        ref.solve_refined(ref.make_solver(rt, ref.MGConfig(
+            dtype=jnp.float32)), None, {}, {})
+    with pytest.raises(NotImplementedError) as got:
+        port.solve_refined(ms, None, {}, {})
+    assert str(got.value) == str(want.value)
     # the default device is the card
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

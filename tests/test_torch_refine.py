@@ -221,7 +221,7 @@ def test_gate_errors():
     _, odd = solver_pair(size=24)
     with pytest.raises(ValueError, match="df32 gate"):
         RefinedPoisson(odd)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A10"):
         solve_refined(object(), None, None, None)
 
 
