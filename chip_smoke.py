@@ -8,6 +8,7 @@
                                      # and coefficient-forest part only
     python3 chip_smoke.py --forests  # build + the multi-canvas forest and
                                      # refined forest part only
+    python3 chip_smoke.py --twod     # build + the 2D dense paths only
 
 Builds the CUDA kernels of ``octree_mg_tpu_torch`` from the sources in
 this checkout (the first use compiles them with nvcc), then, one JSON
@@ -293,6 +294,38 @@ object per line:
   512^2 x 64 and 256^2 x 32 slabs included, by slab from one more FMG);
   ``cpu_agreement.sharded`` — 32^3 over 8 slabs, float64, card against
   CPU;
+* ``dense2d_path_8192`` / ``dense2d_path_2048`` — bench.py run_2d's
+  problem (``build_rectangle(2, (n, n), 16)``, laplacian, Dirichlet 0,
+  float32) through ``make_solver``, which must give ``Dense2DMGSolver``:
+  bench.py's ones and a seeded normal rhs, one zero-guess and eight
+  have-guess FMGs each (histories; the float32 one must fall
+  monotonically to its floor), eight timed have-guess FMGs
+  (``ms_per_fmg``, ``unknowns_per_s``), the same in
+  ``fmg_mode="fused"`` bitwise the split mode, peak memory; at 8192^2 the
+  1e-3 convergence gate on the same problem in float64
+  (``residuals_float64``);
+* ``refined2d_path`` — ``solve_refined`` on the 8192^2 solver (seeded
+  float64 rhs, bc_values (0.3, 0, 0.5, -0.25), ten outers, rtol 0): ms per
+  outer, norms to 1e-10 of the first, the float64 residual of x_hi + x_lo
+  on the card within 1e-8 of the first norm, the device time of one
+  eager step and of one inner FMG;
+* ``amr2d_path`` — ``build_amr_centered(2, 3, (8192, 8192), 16)`` (three
+  8192^2 levels, 1.68e8 leaf unknowns; the tree build clocked apart)
+  through ``make_solver``, which must give ``Dense2DAMRMGSolver``: a
+  seeded normal rhs on every level, one zero-guess and eight have-guess
+  FMGs, eight timed ones (``ms_per_fmg``, ``leaf_unknowns_per_s``), fused
+  mode bitwise, peak memory, the float64 gate as above;
+* ``twod_op_costs`` — one eager ``pair_sweep_2d``, residual, restriction
+  and ``residual_df32_2d`` at 8192^2 float32 (CUDA events; device
+  launches from ``torch.profiler``) beside their byte bounds;
+* ``twod_cpu_agreement`` — the 2D solvers at <= 64^2 in float64 on the
+  card and on the CPU (the uniform solver with the five operators,
+  periodic and not, and the cylindrical laplacian; the AMR solver with the
+  five operators and the cylindrical laplacian; three FMGs; phi within 64
+  eps of max|phi|, residuals within 1e-9 of the first) and
+  ``RefinedPoisson2D`` (lam 0 and 0.53, float32; x within 1e-12 of max|x|,
+  norms within 1e-4 above 1e-9 of the first).  No 2D phase may move a
+  counter of ``ops.dense_kernels``: the 2D paths are torch ops only;
 * ``kernels``  — per kernel entry point at the main path's 512^3 float32
   shape, and per coefficient variant ``name[n_eps=k]``: launches on its
   path (the float32 solve for the six stencil kernels, the refined solve
@@ -3169,9 +3202,10 @@ def forest_tree(pkg, tm, kind, base, box):
 
 
 def leaf_unknowns(t, box):
-    """Leaf cells of the tree (experiments/probe_forest_perf.py:53-55)."""
+    """Leaf cells of the tree (experiments/probe_forest_perf.py:53-55;
+    in 2D experiments/probe_dense_amr2d_perf.py's count)."""
     return sum(len(t.lvls[l].leaves)
-               for l in range(1, t.highest_lvl + 1)) * box ** 3
+               for l in range(1, t.highest_lvl + 1)) * box ** t.ndim
 
 
 def footprint_finite(sv, state, lvl):
@@ -4682,12 +4716,12 @@ AMR_PATH_KERNELS = ("pair_sweep_dense", "stencil_apply_dense",
                     RR_FACES)
 
 
-def amr_fused_check(sv, state, n_fmg=3, n_timed=8):
+def amr_fused_check(sv, state, n_fmg=3, n_timed=8, what="amr_path"):
     """``fmg_mode="fused"`` (one CUDA graph per FMG) against the eager
     cycle from one state: ``n_fmg`` have-guess FMGs each way (the first
     fused call runs eagerly, the second captures and replays, the third
     replays), every level's phi compared bitwise; then ms per replayed
-    FMG."""
+    FMG (``what`` names the phase in a failure)."""
     keys = sv._field_keys
     twin = {k: {lvl: t.clone() for lvl, t in state[k].items()} for k in keys}
     twin["bc"] = {lvl: list(p) for lvl, p in state["bc"].items()}
@@ -4717,7 +4751,7 @@ def amr_fused_check(sv, state, n_fmg=3, n_timed=8):
         sv._graphs = {}
         torch.cuda.empty_cache()
     if any(u != 0 for u in ulps.values()):
-        fail(f"amr_path: fmg_mode='fused' differs from the eager FMG: "
+        fail(f"{what}: fmg_mode='fused' differs from the eager FMG: "
              f"ulps by level {ulps}")
     return {"max_ulp_by_level": ulps, "ms_per_fmg_fused": ms}
 
@@ -5876,6 +5910,475 @@ def phase_forests_cpu_agreement(pkg):
             check_agreement({k: r}, "forests_cpu_agreement")
 
 
+# ---------------------------------------------------------------------------
+# the 2D dense paths (plain torch ops: no kernel of the library)
+# ---------------------------------------------------------------------------
+
+#: bc_values of the 2D refined phases (tests/test_df32.py:458)
+BVALS_2D = (0.3, 0.0, 0.5, -0.25)
+#: card against CPU, 2D: phi within 64 eps of max|phi| on every level,
+#: residuals within 1e-9 of the first residual; the refined solve's x
+#: within 1e-12 of max|x| and its norms within 1e-4 relative where the
+#: CPU norm is above 1e-9 of its first.  Calibrated on the CPU by
+#: ``experiments/twod_bounds_cpu.py agreement``: perturbing the direct
+#: coarse solve's result by 32 ulp (the card's and the CPU's matrix
+#: products differ there and nowhere else) moves phi by at most 55 eps,
+#: the residuals by 1.2e-10 of the first (AMR; 1.8e-13 uniform), the
+#: refined x by 3.6e-14 and its norms by 3.3e-5
+AGREE_2D_PHI = 64 * float(np.finfo(np.float64).eps)
+AGREE_2D_RES = 1e-9
+AGREE_2D_X, AGREE_2D_NORMS = 1e-12, 1e-4
+
+
+def check_floor_history(hist, what):
+    """A float32 history at full width in 2D: finite, falling at the
+    second FMG, and monotone until within 10x of its floor
+    (check_fmg_history without its 1e-3 test).  The float32 floor of a
+    2D solve rises with n (h^-2 times a solution of size ~h): on the CPU
+    (``experiments/twod_bounds_cpu.py floor``) it is 3.3e-4 of the first
+    FMG's residual at 256^2, 7.2e-4 at 512^2, 3.2e-3 at 1024^2 and 3.6e-3
+    at 2048^2, so the 1e-3 gate runs on a float64 solve of the same
+    problem (twod_f64_gate)."""
+    if not all(np.isfinite(hist)):
+        fail(f"{what}: non-finite residuals {hist}")
+    if not hist[1] < hist[0]:
+        fail(f"{what}: the residual did not fall: {hist}")
+    floor = 10.0 * min(hist)
+    for a, b in zip(hist, hist[1:]):
+        if a > floor and not b < a:
+            fail(f"{what}: residual history not monotone: {hist}")
+
+
+def twod_f64_gate(pkg, tree, rhs_of, n_fmg, what):
+    """The convergence gate of a 2D path at full width in float64:
+    ``make_solver`` on ``tree`` with dtype float64 (Dirichlet 0), the rhs
+    ``rhs_of(sv, lvl)`` (the float32 run's, widened) on its levels, one
+    zero-guess and ``n_fmg - 1`` have-guess FMGs; check_fmg_history (below
+    1e-3 of the first, monotone until the floor).  Returns the history."""
+    sv = pkg.make_solver(tree, pkg.MGConfig(dtype=torch.float64))
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    st = sv.allocate()
+    for lvl in sv.levels:
+        r = rhs_of(sv, lvl)
+        if r is not None:
+            sv.set_interior(st, lvl, "rhs", r.to(torch.float64))
+    hist = run_fmgs(sv, st, n_fmg)
+    del st, sv
+    torch.cuda.empty_cache()
+    check_fmg_history(hist, what)
+    return hist
+
+
+def no_library_launches(dk, what):
+    """Fail if any kernel counter or plain-route counter of
+    ops.dense_kernels moved since the last reset: the 2D paths are torch
+    ops only, and a 3D kernel launched by mistake would show here."""
+    moved = {k: v for k, v in dk.launch_counts().items() if v}
+    moved.update({k: v for k, v in dk.plain_route_counts().items() if v})
+    if moved:
+        fail(f"{what}: the 2D path launched library kernels {moved}")
+    return 0
+
+
+def phase_dense2d_path(pkg, dk, sizes=(8192, 2048), box=16, n_have=8,
+                       n_timed=8):
+    """bench.py run_2d's problem at full width: ``build_rectangle(2, (n,
+    n), 16)``, laplacian, float32, Dirichlet 0, through ``make_solver``
+    (which must give Dense2DMGSolver), n = 8192 (2^26 cells, a field 0.27
+    GB) and 2048 (bench.py's default).  bench.py's ones as rhs: one
+    zero-guess and ``n_have`` have-guess FMGs (history, printed); a seeded
+    normal rhs, the same (the gate: check_fmg_history); ``n_timed``
+    have-guess FMGs without the residual and one sync (``ms_per_fmg``,
+    ``unknowns_per_s`` n^2/s as bench.py:272); the same in
+    ``fmg_mode="fused"``, bitwise the split mode; peak memory.  No library
+    counter may move.  Returns the 8192^2 solver and its state."""
+    out = None
+    for n in sizes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dsz = np.full(2, n)
+        tree = pkg.build_rectangle(2, dsz, box, 1.0 / dsz, np.zeros(2))
+        sv = pkg.make_solver(tree, pkg.MGConfig(dtype=torch.float32))
+        if type(sv) is not pkg.Dense2DMGSolver:
+            fail(f"dense2d_path: make_solver gave {type(sv).__name__}")
+        sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+        state = sv.allocate()
+        top = sv.levels[-1]
+        sv.set_interior(state, top, "rhs", torch.ones(
+            (n, n), dtype=torch.float32, device="cuda"))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        dk.reset_launch_counts()
+        dk.reset_plain_route_counts()
+        hist_ones = run_fmgs(sv, state, 1 + n_have)
+        g = torch.Generator(device="cuda").manual_seed(41)
+        sv.set_interior(state, top, "rhs", torch.randn(
+            (n, n), generator=g, dtype=torch.float32, device="cuda"))
+        rhs = state["rhs"][top].clone()
+        hist = run_fmgs(sv, state, 1 + n_have)
+        phi = sv.interior(state, top, "phi")
+        finite = tuple(phi.shape) == (n, n) and bool(torch.isfinite(phi).all())
+        lib = no_library_launches(dk, "dense2d_path")
+        hist64 = None
+        if n == max(sizes):
+            hist64 = twod_f64_gate(
+                pkg, tree, lambda s, l: rhs if l == s.levels[-1] else None,
+                1 + n_have, f"dense2d_path {n}^2 float64")
+            no_library_launches(dk, "dense2d_path (float64)")
+        del rhs
+        ms, per_fmg = timed_fmgs(sv, state, n_timed)
+        no_library_launches(dk, "dense2d_path (timed)")
+        peak = torch.cuda.max_memory_allocated()
+        fused = amr_fused_check(sv, state, what=f"dense2d_path {n}^2")
+        rec = {"model": f"bench.py run_2d: make_solver(build_rectangle(2, "
+                        f"({n}, {n}), {box}), float32), laplacian, "
+                        f"Dirichlet 0",
+               "solver": type(sv).__name__,
+               "levels": [list(sv.dims[l]) for l in sv.levels],
+               "setup_s": setup_s, "residuals_ones": hist_ones,
+               "residuals": hist,
+               "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+               "floor_over_first": min(hist) / hist[0],
+               "residuals_float64": hist64,
+               "ms_per_fmg": ms, "unknowns_per_s": n * n / (1e-3 * ms),
+               "library_kernel_launches": lib,
+               "fused_mode": fused, "peak_memory_bytes": peak}
+        emit({f"dense2d_path_{n}": rec})
+        if not finite:
+            fail(f"dense2d_path {n}^2: phi has a wrong shape or non-finite "
+                 f"values")
+        check_floor_history(hist, f"dense2d_path {n}^2")
+        if n == max(sizes):
+            out = (sv, state)
+        else:
+            del sv, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_refined2d_path(pkg, dk, df, sv, state, n_outer=10, seed=43):
+    """The 2D f64-class mode at full width: ``solve_refined`` on the
+    8192^2 float32 solver of dense2d_path (Dirichlet 0 on the inner
+    solver), a seeded float64 rhs split by ``split_f64``, ``bc_values``
+    BVALS_2D, ``n_outer`` outers, rtol 0 (no host read in the loop), one
+    sync: ms per outer (warm, then the best of three timed solves), the
+    norm history and its contraction, the device time of one eager step
+    (accumulate + double-float residual) and of one inner FMG (CUDA
+    events), peak memory.  Gates (tests/test_df32.py:453-480): the last
+    norm <= 1e-10 of the first, and the float64 residual of x_hi + x_lo,
+    computed on the card by the port's float64 ``stencil_apply_2d`` with
+    the true boundary values, <= 1e-8 of the first norm.  No library
+    counter may move."""
+    from octree_mg_tpu_torch.ops import dense2d as d2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    top = sv.levels[-1]
+    n = sv.dims[top][0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rhs64 = torch.randn((n, n), generator=g, dtype=torch.float64,
+                        device="cuda")
+    rh, rl = df.split_f64(rhs64)
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    xh, xl, norms, _ = pkg.solve_refined(sv, state, rh, rl, n_outer=n_outer,
+                                         bc_values=list(BVALS_2D))
+    lib = no_library_launches(dk, "refined2d_path")
+    cfg = sv._kcfgs[top]
+    cfg64 = d2.Dense2DConfig(dims=cfg.dims, idr2=cfg.idr2, bc=cfg.bc,
+                             periodic=cfg.periodic, dtype=torch.float64,
+                             b_const=list(BVALS_2D))
+    x64 = xh.double() + xl.double()
+    r64 = float(d2.stencil_apply_2d(cfg64, x64, rhs64, 0.0, [None] * 4,
+                                    residual=True).abs().max())
+    del x64, rhs64
+    rp = pkg.RefinedPoisson2D(sv, bc_values=list(BVALS_2D))
+    dt, norms_t = timed_refined(rp, state, rh, rl, n_outer)
+    e32 = state["phi"][top].clone()
+    step_ms = event_ms(lambda: rp._step(state, e32))
+    fmg_ms = event_ms(lambda: sv.fas_fmg(state, need_res=False))
+    no_library_launches(dk, "refined2d_path (timed)")
+    emit({"refined2d_path": {
+        "model": f"solve_refined(dense2d_path's {n}^2 float32 solver, "
+                 f"seeded float64 rhs, bc_values={list(BVALS_2D)}, "
+                 f"n_outer={n_outer}, rtol=0)",
+        "norms": norms, "norms_timed_solve": norms_t,
+        "contraction_factors": [a / b for a, b in zip(norms, norms[1:])],
+        "f64_residual_over_first_norm": r64 / norms[0],
+        "ms_per_outer": 1e3 * dt / n_outer,
+        "step_device_ms": step_ms, "inner_fmg_device_ms": fmg_ms,
+        "library_kernel_launches": lib,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
+    check_refined_history(norms, "refined2d_path")
+    if not r64 <= 1e-8 * norms[0]:
+        fail(f"refined2d_path: the float64 residual of x_hi + x_lo is "
+             f"{r64}, over 1e-8 of the first norm {norms[0]}")
+    del rp, xh, xl, e32
+    torch.cuda.empty_cache()
+
+
+def phase_amr2d_path(pkg, dk, n=8192, box=16, n_have=8, n_timed=8,
+                     seed=47):
+    """The 2D dense-patch AMR solver at full width: the tree of
+    experiments/probe_dense_amr2d_perf.py, ``build_amr_centered(2, 3,
+    (n, n), 16)`` (levels 1, 2 and 3 each 8192^2: level 1 the whole
+    domain, levels 2 and 3 centred patches with four refinement faces;
+    1.68e8 leaf unknowns; the tree build clocked apart), through
+    ``make_solver`` (which must give Dense2DAMRMGSolver), laplacian,
+    float32, Dirichlet 0, a seeded normal rhs on every level: one
+    zero-guess and ``n_have`` have-guess FMGs (the gate:
+    check_fmg_history, as amr_path), ``n_timed`` have-guess FMGs without
+    the residual and one sync (``ms_per_fmg``, ``leaf_unknowns_per_s``),
+    ``fmg_mode="fused"`` bitwise the split mode, peak memory.  No library
+    counter may move."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = pkg.build_amr_centered(2, 3, np.full(2, n), box,
+                                  np.full(2, 1.0 / n))
+    build_s = time.perf_counter() - t0
+    sv = pkg.make_solver(tree, pkg.MGConfig(dtype=torch.float32))
+    if type(sv) is not pkg.Dense2DAMRMGSolver:
+        fail(f"amr2d_path: make_solver gave {type(sv).__name__}")
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    state = sv.allocate()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for lvl in sv.levels:
+        sv.set_interior(state, lvl, "rhs", torch.randn(
+            sv._ishape(lvl), generator=g, dtype=torch.float32, device="cuda"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0 - build_s
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    rhs = {lvl: state["rhs"][lvl].clone() for lvl in sv.levels}
+    hist = run_fmgs(sv, state, 1 + n_have)
+    top = sv.levels[-1]
+    finite = bool(torch.isfinite(sv.interior(state, top, "phi")).all())
+    lib = no_library_launches(dk, "amr2d_path")
+    hist64 = twod_f64_gate(pkg, tree, lambda s, l: rhs[l], 1 + n_have,
+                           "amr2d_path float64")
+    no_library_launches(dk, "amr2d_path (float64)")
+    del rhs
+    ms, _ = timed_fmgs(sv, state, n_timed)
+    no_library_launches(dk, "amr2d_path (timed)")
+    peak = torch.cuda.max_memory_allocated()
+    fused = amr_fused_check(sv, state, what="amr2d_path")
+    n_unk = leaf_unknowns(tree, box)
+    emit({"amr2d_path": {
+        "model": f"experiments/probe_dense_amr2d_perf.py: make_solver("
+                 f"build_amr_centered(2, 3, ({n}, {n}), {box}, 1/{n}), "
+                 f"float32), laplacian, Dirichlet 0",
+        "solver": type(sv).__name__,
+        "levels": {str(lvl): {"dims": list(sv.dims[lvl]),
+                              "offset": [int(v) for v in sv.offsets[lvl]],
+                              "faces": sv.face_kind[lvl],
+                              "whole_region": sv._whole_region(lvl)}
+                   for lvl in sv.levels},
+        "leaf_unknowns": n_unk, "tree_build_s": build_s, "setup_s": setup_s,
+        "residuals": hist,
+        "contraction_factors": [a / b for a, b in zip(hist, hist[1:])],
+        "floor_over_first": min(hist) / hist[0],
+        "residuals_float64": hist64,
+        "ms_per_fmg": ms, "leaf_unknowns_per_s": n_unk / (1e-3 * ms),
+        "library_kernel_launches": lib, "fused_mode": fused,
+        "peak_memory_bytes": peak}})
+    if not finite:
+        fail("amr2d_path: non-finite phi on the top patch")
+    check_floor_history(hist, "amr2d_path")
+    del state, sv
+    torch.cuda.empty_cache()
+
+
+def _twod_solver_case(pkg, kind, op, geom, periodic, dev):
+    """(phi by level, residual history) of three FMGs (float64, lam 0.7
+    for the helmholtz family) on a small 2D solver: "uniform" 64^2 box 8
+    (r_min (0.5, 0) for the cylindrical laplacian), "amr"
+    build_amr_centered(2, 3, 32^2, 8); Dirichlet faces from a function
+    unless periodic; seeded rhs and coefficients on every level."""
+    def bc_fn(x):
+        return 0.25 + np.sin(3 * x[..., 0]) * np.cos(2 * x[..., 1])
+
+    if kind == "amr":
+        tree = pkg.build_amr_centered(2, 3, np.full(2, 32), 8,
+                                      np.full(2, 1.0 / 32))
+        want = pkg.Dense2DAMRMGSolver
+    else:
+        tree = pkg.build_rectangle(
+            2, np.full(2, 64), 8, np.full(2, 1.0 / 64),
+            np.array([0.5, 0.0]) if geom == "cylindrical" else np.zeros(2),
+            periodic=[periodic] * 2)
+        want = pkg.Dense2DMGSolver
+    sv = pkg.make_solver(tree, pkg.MGConfig(
+        operator=op, geometry=geom, dtype=torch.float64, device=dev))
+    if type(sv) is not want:
+        fail(f"twod_cpu_agreement: make_solver gave {type(sv).__name__}")
+    if not periodic:
+        sv.set_bc(0, pkg.BCType.DIRICHLET, fn=bc_fn)
+    st = sv.allocate()
+    rng = np.random.default_rng(64)
+    for lvl in sv.levels:
+        sv.set_interior(st, lvl, "rhs", rng.normal(size=sv._ishape(lvl)))
+        x = sv.cell_centers(lvl)
+        for d in range(sv.n_eps):
+            sv.set_coefficient(st, 1.0 + 0.5 * np.cos(
+                2 * np.pi * (x[..., d] + 0.1 * d)), d, lvl=lvl)
+    if sv.n_eps:
+        sv.prepare_coefficient(st)
+    lam = 0.7 if op.endswith("helmholtz") else 0.0
+    hist = []
+    for i in range(3):
+        st, r = sv.fas_fmg(st, lam=lam, have_guess=i > 0)
+        hist.append(float(r))
+    return ({lvl: sv.interior(st, lvl, "phi").cpu().numpy()
+             for lvl in sv.levels}, hist)
+
+
+def _twod_refined_case(pkg, lam, dev, n=64, n_outer=8):
+    """x_hi + x_lo (float64) and the norms of a 2D refined solve: 64^2
+    float32, laplacian with BVALS_2D (lam 0) or helmholtz lam 0.53 with
+    zero boundary values, a seeded float64 rhs."""
+    tree = pkg.build_rectangle(2, np.full(2, n), 16, np.full(2, 1.0 / n),
+                               np.zeros(2))
+    sv = pkg.make_solver(tree, pkg.MGConfig(
+        operator="helmholtz" if lam else "laplacian", dtype=torch.float32,
+        device=dev))
+    rng = np.random.default_rng(n + 1)
+    rh, rl = pkg.split_f64(rng.normal(size=(n, n)))
+    xh, xl, norms, _ = pkg.solve_refined(
+        sv, sv.allocate(), rh, rl, n_outer=n_outer, lam=lam,
+        bc_values=None if lam else list(BVALS_2D))
+    return (xh.double() + xl.double()).cpu().numpy(), norms
+
+
+def phase_twod_cpu_agreement(pkg, dk):
+    """The 2D solvers at <= 64^2 on the card against the CPU: the uniform
+    solver with the five operators (periodic and not) and the cylindrical
+    laplacian, the AMR solver with the five operators and the cylindrical
+    laplacian (float64, three FMGs; bounds AGREE_2D_PHI on every level,
+    residuals within AGREE_2D_RES of the first), and RefinedPoisson2D
+    with lam 0 and 0.53 (float32, eight outers; AGREE_2D_X,
+    AGREE_2D_NORMS).  No library counter may move."""
+    dk.reset_launch_counts()
+    dk.reset_plain_route_counts()
+    rows = {}
+    cases = [("uniform", op, "cartesian", per)
+             for op in ("laplacian", "helmholtz", "vlaplacian", "vhelmholtz",
+                        "ahelmholtz") for per in (False, True)]
+    cases += [("uniform", "laplacian", "cylindrical", False)]
+    cases += [("amr", op, "cartesian", False)
+              for op in ("laplacian", "helmholtz", "vlaplacian", "vhelmholtz",
+                         "ahelmholtz")]
+    cases += [("amr", "laplacian", "cylindrical", False)]
+    for kind, op, geom, per in cases:
+        cuda = _twod_solver_case(pkg, kind, op, geom, per, "cuda")
+        cpu = _twod_solver_case(pkg, kind, op, geom, per, "cpu")
+        name = f"{kind}_{op}" + ("_cyl" if geom == "cylindrical" else "") + \
+            ("_periodic" if per else "")
+        rows[name] = agreement(cuda, cpu, res_scale=abs(cpu[1][0]),
+                               res_bound=AGREE_2D_RES)
+        rows[name]["phi_max_rel_diff_eps"] = (rows[name]["phi_max_rel_diff"]
+                                              / float(np.finfo(float).eps))
+    refined = {}
+    for lam in (0.0, 0.53):
+        (xa, na), (xb, nb) = (_twod_refined_case(pkg, lam, "cuda"),
+                              _twod_refined_case(pkg, lam, "cpu"))
+        keep = [i for i, v in enumerate(nb) if v > 1e-9 * nb[0]]
+        refined[f"lam_{lam}"] = {
+            "x_max_rel_diff": float(np.abs(xa - xb).max()
+                                    / np.abs(xb).max()),
+            "norms_max_rel_diff": float(max(abs(na[i] - nb[i]) / nb[i]
+                                            for i in keep)),
+            "norms_compared": len(keep), "norms_cuda": na, "norms_cpu": nb}
+    lib = no_library_launches(dk, "twod_cpu_agreement")
+    for r in rows.values():
+        r["within_bounds"] = bool(
+            r["phi_max_rel_diff"] <= AGREE_2D_PHI
+            and r["residual_max_rel_diff"] <= AGREE_2D_RES)
+    emit({"twod_cpu_agreement": {
+        "trees": "build_rectangle(2, 64^2, 8); build_amr_centered(2, 3, "
+                 "32^2, 8); refined: build_rectangle(2, 64^2, 16) float32",
+        "dtype": "float64 (refined: float32 inner solver)", "fmgs": 3,
+        "bound_phi": AGREE_2D_PHI, "bound_residual_over_first": AGREE_2D_RES,
+        "bound_refined_x": AGREE_2D_X, "bound_refined_norms": AGREE_2D_NORMS,
+        "library_kernel_launches": lib, **rows, "refined": refined}})
+    for k, r in rows.items():
+        if not r["within_bounds"]:
+            fail(f"twod_cpu_agreement: card and CPU disagree ({k}): {r}")
+    for k, r in refined.items():
+        if not (r["x_max_rel_diff"] <= AGREE_2D_X
+                and r["norms_max_rel_diff"] <= AGREE_2D_NORMS):
+            fail(f"twod_cpu_agreement: the refined solve differs ({k}): {r}")
+
+
+def phase_twod_op_costs(pkg, df, n=8192, reps=5):
+    """The eager 2D ops at n^2 float32 against their byte bounds: one
+    ``pair_sweep_2d`` and one residual (12 B a cell: read phi and rhs,
+    write the result), the restriction (5 B a fine cell), one
+    ``residual_df32_2d`` (20 B a cell: four inputs, one output); each the
+    median of ``reps`` calls timed with CUDA events (starting
+    synchronised, the host ahead), and its device launches counted by
+    ``torch.profiler`` (CUDA kernel and memset/memcpy events of one call;
+    "not measured" if the profiler records none)."""
+    from octree_mg_tpu_torch.ops import dense2d as d2
+    torch.cuda.empty_cache()
+    dsz = np.full(2, n)
+    tree = pkg.build_rectangle(2, dsz, 16, 1.0 / dsz, np.zeros(2))
+    sv = pkg.make_solver(tree, pkg.MGConfig(dtype=torch.float32))
+    sv.set_bc(0, pkg.BCType.DIRICHLET, 0.0)
+    top = sv.levels[-1]
+    cfg = sv._kcfgs[top]
+    g = torch.Generator(device="cuda").manual_seed(53)
+    f = [torch.randn((n, n), generator=g, device="cuda") for _ in range(4)]
+    bp = [torch.zeros((n,), device="cuda") for _ in range(4)]
+    coarse = torch.empty((n // 2, n // 2), device="cuda")
+    cbs = df._cb_pairs(cfg)
+    ops = {
+        "pair_sweep_2d": (lambda: d2.pair_sweep_2d(cfg, f[0], f[1], 0.0, bp,
+                                                   1), 12),
+        "stencil_apply_2d (residual)": (lambda: d2.stencil_apply_2d(
+            cfg, f[0], f[1], 0.0, bp, residual=True), 12),
+        "restrict_2d": (lambda: d2.restrict_2d(f[0], out=coarse), 5),
+        "residual_df32_2d": (lambda: df.residual_df32_2d(
+            cfg, f[0], 1e-8 * f[1], f[2], 1e-8 * f[3], cbs=cbs), 20),
+    }
+    rows = {}
+    for name, (fn, b_cell) in ops.items():
+        fn()
+        ms = statistics.median(event_ms(fn) for _ in range(reps))
+        launches = "not measured"
+        try:
+            from torch.autograd import DeviceType
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            k = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+            launches = k if k else "not measured"
+        except Exception as exc:   # the profiler is not guaranteed here
+            launches = f"not measured ({type(exc).__name__})"
+        bound = b_cell * n * n / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": ms, "bound_ms": bound, "x_bound": ms / bound,
+                      "bytes_per_cell_bound": b_cell,
+                      "device_launches": launches}
+    emit({"twod_op_costs": {"shape": [n, n], "dtype": "float32",
+                            "hbm_bytes_per_s": HBM_BYTES_PER_S, **rows}})
+    del f, bp, coarse, sv
+    torch.cuda.empty_cache()
+
+
+def run_twod(pkg, dk, df):
+    """The 2D part (``--twod``, and in the full run): the phases above in
+    order, the 8192^2 solver shared by dense2d_path and refined2d_path."""
+    sv, state = phase_dense2d_path(pkg, dk)
+    phase_refined2d_path(pkg, dk, df, sv, state)
+    del sv, state
+    torch.cuda.empty_cache()
+    phase_amr2d_path(pkg, dk)
+    phase_twod_op_costs(pkg, df)
+    phase_twod_cpu_agreement(pkg, dk)
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     quick = "--quick" in argv
@@ -5926,6 +6429,12 @@ def main(argv) -> int:
         phase_forests_cpu_agreement(pkg)
         print(smi)
         emit({"ok": True, "forests": True})
+        return 0
+    if "--twod" in argv:
+        # the uniform 2D path, its refined mode and the 2D AMR solver
+        run_twod(pkg, dk, df)
+        print(smi)
+        emit({"ok": True, "twod": True})
         return 0
     if "--drivers" in argv:
         # the free-space and diffusion drivers and the coefficient forest
@@ -5989,6 +6498,7 @@ def main(argv) -> int:
      drivers["refined_forest_path_launches_per_outer"]) = \
         phase_refined_forest_path(pkg, dk, df)
     phase_forests_cpu_agreement(pkg)
+    run_twod(pkg, dk, df)
     rows, copy_bps = phase_kernel_times(dk, df, launches, launches_refined,
                                         vcoeff)
     emit({"measured_copy_bytes_per_s": copy_bps,

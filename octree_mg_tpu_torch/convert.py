@@ -7,6 +7,10 @@ plain numpy arrays:
      "eps0" .. "eps{n_eps-1}": {...}   (variable-coefficient operators),
      "bc": {lvl: [6 boundary-value planes]}}
 
+The 2D dense solvers (``Dense2DMGSolver``, ``Dense2DAMRMGSolver``) keep
+unpadded ``[Y, X]`` fields (an AMR level's patch) and four boundary
+vectors per level: x faces [Y], y faces [X], periodic faces [1].
+
 The z-slab solver (``ShardedDenseMGSolver``) has the JAX package's
 sharded layout: a sharded level's fields are ``[K, Zl+16, Y+16, X]`` and
 its non-periodic x/y-face planes stacked per slab (``[K, Zl+16, ...]``);
@@ -24,8 +28,9 @@ or probed it from the coefficients.
 
 The refined solve's state crosses the same way: ``df_pair_from_numpy``
 puts a padded double-float pair (the solution ``(x_hi, x_lo)`` or the
-right-hand side) into a ``RefinedPoisson``'s own buffers, and
-``df_pair_to_numpy`` reads one back.
+right-hand side) into a ``RefinedPoisson``'s own buffers (a
+``RefinedPoisson2D``'s: unpadded [Y, X]), and ``df_pair_to_numpy`` reads
+one back.
 
 The free-space drivers' FFT state crosses with
 ``free_space_cache_from_numpy``: the JAX driver's cache (``kernel_hat``
@@ -109,8 +114,9 @@ def state_from_numpy(solver, np_state: Dict) -> Dict:
                                  f"has {want}")
             state[k][lvl] = _to_tensor(solver, a)
         planes = list(np_state["bc"][lvl])
-        if len(planes) != 6:
-            raise ValueError(f"bc[{lvl}]: expected 6 planes")
+        if len(planes) != 2 * solver.ndim:
+            raise ValueError(f"bc[{lvl}]: expected {2 * solver.ndim} "
+                             f"planes")
         out = []
         for nb, p in enumerate(planes):
             p = np.asarray(p)
@@ -200,8 +206,9 @@ def free_space_cache_from_numpy(driver, np_cache: Dict):
 def df_pair_from_numpy(refined, which: str, hi, lo):
     """Write a padded double-float pair into ``refined``'s buffers, in
     place: ``which`` is "x" for the solution pair or "rhs" for the
-    right-hand side.  ``hi``/``lo``: float32 arrays of the padded shape
-    [Z+16, Y+16, X].  Returns the two tensors."""
+    right-hand side.  ``hi``/``lo``: float32 arrays of the instance's
+    field shape (padded [Z+16, Y+16, X]; [Y, X] for ``RefinedPoisson2D``).
+    Returns the two tensors."""
     if which not in ("x", "rhs"):
         raise ValueError(f"which must be 'x' or 'rhs', got {which!r}")
     refined._alloc()

@@ -23,7 +23,8 @@ class PoissonSolver:
     passed as ``tree``, with the solver ``make_solver`` picks.
 
     For a dense solver ``solve``/``phi`` return the assembled global
-    interior array [Z, Y, X] — on a forest the top level's canvas, whose
+    interior array [Z, Y, X] ([Y, X] in 2D; a 2D AMR solver's top patch)
+    — on a forest the top level's canvas, whose
     cells outside ``solver.footprint_mask(top)`` are garbage, and
     ``solve``'s residual is the max-norm over the footprint cells.  For
     the boxed solver (``MGSolver``: 1D, Jacobi, fully periodic sparse
@@ -169,23 +170,28 @@ class PoissonSolver:
                       bc_values: Optional[Sequence[float]] = None
                       ) -> Tuple[np.ndarray, dict]:
         """Iteratively refined solve to the f64 accuracy class with
-        float32 kernels and float32 fields (solve/refine.RefinedPoisson;
-        the reference is float64 throughout, m_data_structures.f90:8).
+        float32 kernels and float32 fields (solve/refine.RefinedPoisson,
+        or RefinedPoisson2D for a dense 2D solver, as the JAX package
+        picks; the reference is float64 throughout,
+        m_data_structures.f90:8).
 
-        ``rhs``: a float64 interior array [Z, Y, X] (split into an
-        exact float32 pair), or an (rhs_hi, rhs_lo) float32 pair.
+        ``rhs``: a float64 interior array [Z, Y, X] ([Y, X] in 2D; split
+        into an exact float32 pair), or an (rhs_hi, rhs_lo) float32 pair.
         Requires ``dtype=torch.float32`` and the df32 gate (power-of-two
         1/dx^2, constant-coefficient laplacian —
-        ``octree_mg_tpu_torch.df32_ok``).  Inhomogeneous boundary values
-        go through ``bc_values`` (6 face constants); the solver's own
-        BCs must be set with value 0 (the inner loop solves the
-        homogeneous error equation).  Returns (phi as float64 numpy
-        [Z, Y, X], info with the f64-class outer-residual history).
+        ``octree_mg_tpu_torch.df32_ok`` / ``df32_ok_2d``; a 2D AMR
+        solver's refinement faces fail the 2D gate, as in the JAX
+        package).  Inhomogeneous boundary values go through
+        ``bc_values`` (2*ndim face constants); the solver's own BCs must
+        be set with value 0 (the inner loop solves the homogeneous error
+        equation).  Returns (phi as float64 numpy, info with the
+        f64-class outer-residual history).
 
-        The ``RefinedPoisson`` and its buffers are kept between calls
+        The refinement instance and its buffers are kept between calls
         with the same ``bc_values``."""
         from ..ops.df32 import split_f64
-        from ..solve.refine import RefinedPoisson
+        from ..solve.dense2d import Dense2DMGSolver
+        from ..solve.refine import RefinedPoisson, RefinedPoisson2D
         if not self.dense:
             raise ValueError("solve_refined requires a dense fast path")
         state = self._ensure_state()
@@ -195,8 +201,10 @@ class PoissonSolver:
             rhs_hi, rhs_lo = split_f64(np.asarray(rhs, np.float64))
         key = None if bc_values is None else tuple(float(v) for v in bc_values)
         if self._refined is None or self._refined[0] != key:
-            self._refined = (key, RefinedPoisson(self.solver,
-                                                 bc_values=bc_values))
+            cls = (RefinedPoisson2D
+                   if isinstance(self.solver, Dense2DMGSolver)
+                   else RefinedPoisson)
+            self._refined = (key, cls(self.solver, bc_values=bc_values))
         rp = self._refined[1]
         xhi, xlo, norms, state = rp.solve(state, rhs_hi, rhs_lo,
                                           n_outer=n_outer, rtol=rtol)

@@ -65,8 +65,14 @@ the kernel's slab variant, counted under ``residual_df32_dense[z_gates]``.
 ``interp_rb_strip_df`` is the double-float coarse-strip interpolation of
 the refinement-boundary ghosts, for the refined forest solve
 (``solve/refine_forest.py``); its 2D branch waits for its caller, the 2D
-refined forest (ROADMAP A10).  Still to come with their callers: the 2D
-residual forms and the ``nch``-chunked evaluation.
+refined forest (ROADMAP A10b).
+
+``df32_ok_2d`` and ``residual_df32_2d`` are the 2D forms for the dense
+``[Y, X]`` path (``RefinedPoisson2D``): the same error-free
+transformations over unpadded arrays whose periodic wraps are exact
+rolls, as plain PyTorch ops on every device (the JAX package leaves the
+2D path to XLA; no kernel).  Still to come with its caller: the
+``nch``-chunked evaluation.
 """
 from __future__ import annotations
 
@@ -637,3 +643,108 @@ def interp_rb_strip_df(th, tl, ndim: int):
             m, 2 * mh.shape[1], 2 * mh.shape[2])
 
     return assemble(0), assemble(1)
+
+
+# ---------------------------------------------------------------------------
+# 2D (the dense [Y, X] path: no pads, rolls wrap exactly)
+# ---------------------------------------------------------------------------
+
+def df32_ok_2d(cfg) -> bool:
+    """The 2D gate: the cartesian constant-coefficient operator with equal
+    power-of-two 1/dx^2 and exact BC coefficient classes with constant
+    boundary values (the 2D den0 = 4/dx^2 is itself a power of two: no
+    split needed)."""
+    if cfg.n_eps or cfg.cyl_w is not None:
+        return False
+    if len(set(cfg.idr2)) != 1 or not _is_pow2(cfg.idr2[0]):
+        return False
+    for d in range(2):
+        if cfg.periodic[d]:
+            continue
+        for nb in (2 * d, 2 * d + 1):
+            c0, c1, c2 = cfg.bc[nb]
+            if c1 not in _OK_C or c2 not in _OK_C:
+                return False
+            if cfg.b_const[nb] is None:
+                return False
+    return True
+
+
+def residual_df32_2d(cfg, xhi, xlo, rhshi, rhslo, cbs=None, lam_pair=None,
+                     out=None):
+    """r_hi ~= (rhshi + rhslo) - A(xhi + xlo) on the dense 2D [Y, X]
+    layout: the 2D rendering of :func:`residual_df32` (the same
+    error-free transformations, exactness argument and TwoSum operand
+    order; the ghost recipe of ops/dense2d._neighbor_ops), in the JAX
+    package's operation order, each operation one eager torch op.
+    ``out``: a float32 [Y, X] tensor that receives r_hi (the final sum
+    writes it), else a new one."""
+    from . import dense2d as d2
+    if cfg.dtype != torch.float32:
+        raise TypeError(f"residual_df32_2d: the double-float residual is "
+                        f"float32 only, the config has {cfg.dtype}")
+    if not df32_ok_2d(cfg):
+        raise ValueError("residual_df32_2d called outside its gate "
+                         "(df32_ok_2d)")
+    if cbs is None:
+        cbs = _cb_pairs(cfg)
+    masks = d2._face_masks(cfg, xhi.device)
+    idr2 = cfg.idr2[0]
+
+    comp = torch.zeros_like(xhi)
+    s = rhshi
+    alo = torch.zeros_like(xhi)
+    for d in (0, 1):
+        axis = 1 - d
+        rlo_h = torch.roll(xhi, 1, axis)
+        rhi_h = torch.roll(xhi, -1, axis)
+        rlo_l = torch.roll(xlo, 1, axis)
+        rhi_l = torch.roll(xlo, -1, axis)
+        vlo_h, vhi_h, vlo_l, vhi_l = rlo_h, rhi_h, rlo_l, rhi_l
+        if masks[d] is not None:
+            m_lo, m_hi = masks[d]
+            c0l, c1l, c2l = cfg.bc[2 * d]
+            c0h, c1h, c2h = cfg.bc[2 * d + 1]
+            cbl_h, cbl_l = cbs[2 * d]
+            cbh_h, cbh_l = cbs[2 * d + 1]
+
+            gv, ge = two_sum(c1l * xhi, cbl_h)
+            if c2l != 0.0:
+                gv, e2 = two_sum(gv, c2l * rhi_h)
+                ge = ge + e2
+            ge = ge + cbl_l
+            vlo_h = torch.where(m_lo, gv, rlo_h)
+            vlo_l = torch.where(m_lo, c1l * xlo
+                                + (c2l * rhi_l if c2l != 0.0 else 0.0),
+                                rlo_l)
+            e_lo = torch.where(m_lo, ge, 0.0)
+
+            gv, ge = two_sum(c1h * xhi, cbh_h)
+            if c2h != 0.0:
+                gv, e2 = two_sum(gv, c2h * rlo_h)
+                ge = ge + e2
+            ge = ge + cbh_l
+            vhi_h = torch.where(m_hi, gv, rhi_h)
+            vhi_l = torch.where(m_hi, c1h * xlo
+                                + (c2h * rlo_l if c2h != 0.0 else 0.0),
+                                rhi_l)
+            e_hi = torch.where(m_hi, ge, 0.0)
+            comp = comp - idr2 * (e_lo + e_hi)
+        sd, ed = two_sum(vlo_h, vhi_h)
+        s, e = two_sum(s, -(idr2 * sd))
+        comp = comp + (e - idr2 * ed)
+        alo = alo + idr2 * (vlo_l + vhi_l)
+
+    # + den0 * x with den0 = 4*idr2 (a power of two: one exact product)
+    s, e = two_sum(s, (4.0 * idr2) * xhi)
+    comp = comp + e
+    comp = comp + rhslo - (alo - (4.0 * idr2) * xlo)
+    if lam_pair is not None:
+        lam_h, lam_l = lam_pair
+        p, pe = two_prod(xhi, lam_h)
+        s, e = two_sum(s, p)
+        comp = comp + (e + pe) + (lam_h * xlo + lam_l * xhi)
+    # the TwoSum's sum is all of r_hi
+    if out is None:
+        return s + comp
+    return torch.add(s, comp, out=out)

@@ -37,12 +37,13 @@ the coarsest level's operator column by column (its matrix depends on
 the coefficients).
 
 Gating: 3D cartesian GSRB on uniform trees.  ``make_solver`` routes as
-the JAX package does: uniform trees here, rectangular AMR patch trees to
-the dense-patch AMR solver (solve/dense_amr.py), every other
-2:1-balanced 3D octree the dense forest's gate admits to the dense
-forest (solve/dense_forest.py; both subclasses of this solver), what no
-dense path takes to the boxed solver (solve/multigrid.py); paths still to
-be ported (sparse multi-canvas forests, 2D) raise.
+the JAX package does: uniform 3D trees here, uniform 2D trees to the
+dense 2D solver (solve/dense2d.py), rectangular AMR patch trees to the
+dense-patch AMR solvers (solve/dense_amr.py, solve/dense_amr2d.py), other
+2:1-balanced 3D octrees to the dense forests (solve/dense_forest.py,
+solve/dense_multiforest.py; all subclasses of this solver), what no
+dense path takes to the boxed solver (solve/multigrid.py); the 2D
+forests, still to be ported, raise.
 """
 from __future__ import annotations
 
@@ -75,51 +76,50 @@ def dense_supported(tree: Tree, cfg: MGConfig) -> bool:
             and cfg.smoother in ("gsrb", "gs"))
 
 
-def _dense2d_ops(cfg: MGConfig) -> bool:
-    """Whether the operator, geometry and smoother gate shared by the JAX
-    package's 2D dense paths (``dense2d``, ``dense_amr2d``,
-    ``dense_forest2d``, ``dense_multiforest2d``) passes: the five
-    cartesian operators, or the cylindrical laplacian, with GSRB."""
-    geom_ok = (cfg.geometry == "cartesian"
-               or (cfg.geometry == "cylindrical"
-                   and cfg.operator == "laplacian"))
-    return (cfg.operator in _OP_N_EPS and geom_ok
-            and cfg.smoother in ("gsrb", "gs"))
-
-
 def make_solver(tree: Tree, config: Optional[MGConfig] = None):
     """The solver the JAX package's ``make_solver`` would pick, in its
-    order: the dense fast path for a uniform 3D tree, the dense-patch AMR
-    solver for 3D trees whose levels are nested rectangular patches, the
-    dense forest for other 2:1-balanced 3D octrees, the multi-canvas
-    dense forest for sparse ones (one canvas per connected component of a
-    level; all three with the five operators), and the boxed
-    ``MGSolver`` for what no dense path takes (1D, the Jacobi smoother,
-    operators or geometries the 2D paths reject, fully periodic sparse
-    trees).  Every 2D configuration some 2D dense path's operator gate
-    admits raises, naming ROADMAP A10, whether that path would take the
-    tree or leave it to the boxed solver."""
+    order (its solve/dense.py:68-98): the dense fast path for a uniform 3D
+    tree, the dense 2D path for a uniform 2D one, the dense-patch AMR
+    solvers for trees whose levels are nested rectangular patches (3D,
+    then 2D), the dense forest for other 2:1-balanced 3D octrees, the 2D
+    dense forest, the multi-canvas dense forest for sparse 3D trees and
+    its 2D form, and the boxed ``MGSolver`` for what no dense path takes
+    (1D, the Jacobi smoother, operators or geometries the dense paths
+    reject, fully periodic sparse trees).  The two 2D forests raise,
+    naming ROADMAP A10b, where the JAX package would pick them."""
+    from .dense2d import Dense2DMGSolver, dense2d_supported
     from .dense_amr import DenseAMRMGSolver, dense_amr_supported
+    from .dense_amr2d import Dense2DAMRMGSolver, dense_amr2d_supported
     from .dense_forest import DenseForestMGSolver, dense_forest_supported
+    from .dense_forest2d import dense_forest2d_supported
     from .dense_multiforest import (DenseMultiForestMGSolver,
+                                    dense_multiforest2d_supported,
                                     dense_multiforest_supported)
     from .multigrid import MGSolver
     cfg = config or MGConfig()
     if dense_supported(tree, cfg):
         return DenseMGSolver(tree, cfg)
-    if tree.ndim == 2 and _dense2d_ops(cfg):
-        what = "2D paths (ROADMAP A10)"
-    elif dense_amr_supported(tree, cfg):
+    if dense2d_supported(tree, cfg):
+        return Dense2DMGSolver(tree, cfg)
+    if dense_amr_supported(tree, cfg):
         return DenseAMRMGSolver(tree, cfg)
-    elif dense_forest_supported(tree, cfg):
+    if dense_amr2d_supported(tree, cfg):
+        return Dense2DAMRMGSolver(tree, cfg)
+    if dense_forest_supported(tree, cfg):
         return DenseForestMGSolver(tree, cfg)
-    elif dense_multiforest_supported(tree, cfg):
+    if dense_forest2d_supported(tree, cfg):
+        raise NotImplementedError(
+            "octree_mg_tpu_torch: the JAX package sends this configuration "
+            "to its 2D dense forest (DenseForest2DMGSolver), which waits "
+            "for ROADMAP A10b")
+    if dense_multiforest_supported(tree, cfg):
         return DenseMultiForestMGSolver(tree, cfg)
-    else:
-        return MGSolver(tree, cfg)
-    raise NotImplementedError(
-        f"octree_mg_tpu_torch: the JAX package may send this "
-        f"configuration to {what}, which is still to be ported")
+    if dense_multiforest2d_supported(tree, cfg):
+        raise NotImplementedError(
+            "octree_mg_tpu_torch: the JAX package sends this configuration "
+            "to its 2D multi-canvas forest (DenseMultiForest2DMGSolver), "
+            "which waits for ROADMAP A10b")
+    return MGSolver(tree, cfg)
 
 
 _ISL = (slice(dk.PZ, -dk.PZ), slice(dk.PY, -dk.PY), slice(None))
@@ -580,6 +580,12 @@ class DenseMGSolver:
                                       eps=self._eps(state, lvl),
                                       eps_planes=self._eps_planes(state, lvl))
 
+    def _kernel_apply(self, cfg, phi, rhs, lam, bplanes, eps):
+        """A(phi) on explicit arrays (the probed coarse matrix's columns;
+        the 2D solver applies its own operator)."""
+        return dk.stencil_apply_dense(cfg, phi, rhs, lam, bplanes,
+                                      residual=False, eps=eps)
+
     def _max_residual(self, state, lvl, lam):
         """(state, max |residual|) — a 0-dim tensor on the state's
         device, not read back here."""
@@ -737,21 +743,25 @@ class DenseMGSolver:
             return [(0.0, 1.0, 0.0)] * (2 * self.ndim)
         return self._bc_static(lvl)
 
+    #: pads of the state's fields per array axis (z, y, x), which
+    #: _var_with_ring and the boundary planes share
+    _RING_PADS = (dk.PZ, dk.PY, 0)
+
     def _var_with_ring(self, state, lvl, key, lo=None, hi=None):
-        """One variable with a one-cell ghost ring [Z+2, Y+2, X+2]: ring
-        faces from the bc_to_gc formula (ghost = c0*b + c1*x1 + c2*x2,
-        m_ghost_cells.f90:682-698) or the periodic wrap; on AMR patches
-        refinement faces take (0.5, 0.75, -0.25) with the coarse
-        interpolation plane (_ring_bc, _planes).  The ring's edges and
-        corners are 0.  lo/hi (per axis z, y, x, in the ringed array's
+        """One variable with a one-cell ghost ring [Z+2, Y+2, X+2] ([Y+2,
+        X+2] in 2D): ring faces from the bc_to_gc formula (ghost = c0*b +
+        c1*x1 + c2*x2, m_ghost_cells.f90:682-698) or the periodic wrap; on
+        AMR patches refinement faces take (0.5, 0.75, -0.25) with the
+        coarse interpolation plane (_ring_bc, _planes).  The ring's edges
+        and corners are 0.  lo/hi (per array axis, in the ringed array's
         coordinates): only the window [lo:hi], computed on its own cells
         (the same values; the planes are read only if a ring face of the
         window needs them)."""
-        X, Y, Z = self.dims[lvl]
-        n = (Z, Y, X)
-        lo = (0, 0, 0) if lo is None else tuple(lo)
-        hi = (Z + 2, Y + 2, X + 2) if hi is None else tuple(hi)
-        pads = (dk.PZ, dk.PY, 0)        # field and plane pads per axis
+        D = self.ndim
+        n = tuple(int(v) for v in self.dims[lvl][::-1])
+        lo = (0,) * D if lo is None else tuple(lo)
+        hi = tuple(m + 2 for m in n) if hi is None else tuple(hi)
+        pads = self._RING_PADS        # field and plane pads per axis
         arr = state[key][lvl]
         out = torch.zeros(tuple(h - l for l, h in zip(lo, hi)),
                           dtype=arr.dtype, device=arr.device)
@@ -764,16 +774,16 @@ class DenseMGSolver:
                           for a, b, p in zip(tl, th, pads))]
         bc = self._ring_bc(lvl, key)
         bp = None
-        for nbd in range(6):
+        for nbd in range(2 * D):
             d = nbd // 2
-            ax = 2 - d
+            ax = D - 1 - d
             lowside = nbd % 2 == 0
             c = 0 if lowside else n[ax] + 1
             if not (lo[ax] <= c < hi[ax]
-                    and all(tl[a] < th[a] for a in range(3) if a != ax)):
+                    and all(tl[a] < th[a] for a in range(D) if a != ax)):
                 continue
             tsl = [slice(tl[a] - 1 + pads[a], th[a] - 1 + pads[a])
-                   for a in range(3)]
+                   for a in range(D)]
 
             def pick(idx):
                 sl = list(tsl)
@@ -785,12 +795,12 @@ class DenseMGSolver:
             else:
                 if bp is None:
                     bp = self._planes(state, lvl, key)
-                bpl = bp[nbd][tuple(tsl[a] for a in range(3) if a != ax)]
+                bpl = bp[nbd][tuple(tsl[a] for a in range(D) if a != ax)]
                 c0, c1, c2 = bc[nbd]
                 ring = c0 * bpl + c1 * pick(0 if lowside else n[ax] - 1)
                 if c2 != 0.0:
                     ring = ring + c2 * pick(1 if lowside else n[ax] - 2)
-            osl = [slice(tl[a] - lo[a], th[a] - lo[a]) for a in range(3)]
+            osl = [slice(tl[a] - lo[a], th[a] - lo[a]) for a in range(D)]
             osl[ax] = c - lo[ax]
             out[tuple(osl)] = ring
         return out
@@ -912,8 +922,7 @@ class DenseMGSolver:
             if j < m:
                 inner[cell] = 1.0
             self._sync_pads(phi, lvl)
-            out = dk.stencil_apply_dense(cfg, phi, phi, 0.0, bp,
-                                         residual=False, eps=eps)
+            out = self._kernel_apply(cfg, phi, phi, 0.0, bp, eps)
             cols[j] = out[self._isl].reshape(-1)
             inner[cell] = 0.0
         cols = cols.cpu().numpy().astype(np.float64)

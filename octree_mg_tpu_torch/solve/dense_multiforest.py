@@ -27,7 +27,9 @@ whole-level fill requirement, with a fill of at least ``min_fill`` per
 COMPONENT bounding box and no fully periodic tree (its mean removal would
 need cross-component plumbing; ``_subtract_mean`` raises, as in the JAX
 package).  Forest transfers never fuse.  Not here: the GSPMD placement
-``shard_state`` (ROADMAP A13b) and the 2D solver (ROADMAP A10).
+``shard_state`` (ROADMAP A13b) and the 2D solver (ROADMAP A10b), whose
+gate ``dense_multiforest2d_supported`` is here already so that
+``make_solver`` routes as the JAX package does.
 """
 from __future__ import annotations
 
@@ -94,6 +96,29 @@ def dense_multiforest_supported(tree: Tree, cfg: MGConfig,
             return False
         for ids in _components(tree, lvl):
             g = _LevelGeom(tree, lvl, ids)
+            if g.n_cells < min_fill * int(np.prod(g.dims)):
+                return False
+    return True
+
+
+def dense_multiforest2d_supported(tree: Tree, cfg: MGConfig,
+                                  min_fill: float = 0.01) -> bool:
+    """2D form of :func:`dense_multiforest_supported` (sparse quadtree
+    forests; the same component, fill and wrap rules with the 2D forest's
+    operator and geometry gate, the cylindrical laplacian included).  Its
+    solver waits for ROADMAP A10b."""
+    from .dense_forest2d import _forest2d_ops, _LevelGeom2D
+    if not (tree.ndim == 2 and tree.highest_lvl > 1 and _forest2d_ops(cfg)):
+        return False
+    if tree.subtract_mean:
+        return False
+    if not _forest_balanced(tree):
+        return False
+    for lvl in range(tree.lowest_lvl, tree.highest_lvl + 1):
+        if len(tree.lvls[lvl].ids) == 0:
+            return False
+        for ids in _components(tree, lvl):
+            g = _LevelGeom2D(tree, lvl, ids)
             if g.n_cells < min_fill * int(np.prod(g.dims)):
                 return False
     return True

@@ -29,8 +29,13 @@ slab by slab with each slab's z gates, its norm a max over the slabs.
 Constant coefficients only, as in the JAX package.  The single-canvas
 dense forest refines through ``RefinedForestPoisson``
 (solve/refine_forest.py), which ``solve_refined`` picks for it; a
-multi-canvas forest is refused, as in the JAX package, and the 2D solvers
-wait for ROADMAP A10.
+multi-canvas forest is refused, as in the JAX package.
+
+``RefinedPoisson2D`` refines the uniform dense 2D solver
+(``Dense2DMGSolver``): the same loop on unpadded [Y, X] fields with the
+2D double-float residual (``ops.df32.residual_df32_2d``), its step eager
+torch ops.  The 2D dense-patch AMR solver, which the JAX package rebuilds
+as a 2D forest for this, and the 2D forests wait for ROADMAP A10b.
 """
 from __future__ import annotations
 
@@ -40,9 +45,10 @@ import numpy as np
 import torch
 
 from ..ops import dense_kernels as dk
-from ..ops.df32 import (_cb_pairs, accumulate_df32_, df32_ok,
-                        df32_vcoeff_ok, residual_df32_dense,
-                        residual_df32_vcoeff, split_f64, split_lam)
+from ..ops.df32 import (_cb_pairs, accumulate_df32_, df32_ok, df32_ok_2d,
+                        df32_vcoeff_ok, residual_df32_2d,
+                        residual_df32_dense, residual_df32_vcoeff,
+                        split_f64, split_lam)
 from .dense import DenseMGSolver, _ISL
 
 
@@ -352,6 +358,109 @@ class ShardedRefinedPoisson(RefinedPoisson):
         return solver.comm.max(per_slab)
 
 
+class RefinedPoisson2D:
+    """Iterative refinement on the dense 2D [Y, X] path (the JAX
+    package's ``RefinedPoisson2D``): the outer loop of
+    :class:`RefinedPoisson` with the 2D double-float residual, each step
+    (accumulate, residual, its max) eager torch ops on the solver's
+    device; the inner FMG is the solver's own ``fas_fmg`` (a CUDA graph
+    with ``fmg_mode="fused"``).
+
+    The instance owns the double-float solution pair, the right-hand-side
+    pair, the first (zero) correction and the accumulation's scratch
+    (eight float32 [Y, X] fields), allocated once and reused across
+    ``solve`` calls; the solver's state is updated in place.  Its gates
+    raise as the JAX package's do: ``ValueError`` for lam without a
+    helmholtz solver, a float64 solver and inhomogeneous inner BCs, and
+    :class:`Df32GateError` (an ``AssertionError``) outside
+    ``df32_ok_2d``, which refuses every refinement face (a 2D dense-patch
+    AMR solver's top level)."""
+
+    def __init__(self, solver, bc_values: Optional[List[float]] = None,
+                 lam: float = 0.0):
+        from .dense2d import Dense2DMGSolver
+        if not isinstance(solver, Dense2DMGSolver):
+            raise AssertionError(f"RefinedPoisson2D refines a "
+                                 f"Dense2DMGSolver, got "
+                                 f"{type(solver).__name__}")
+        self.solver = solver
+        self.lam = float(lam)
+        self.lam_pair = split_lam(lam)
+        if self.lam != 0.0 and solver.cfg.operator != "helmholtz":
+            raise ValueError("lam != 0 needs an operator='helmholtz' "
+                             "inner solver (got %r)" % solver.cfg.operator)
+        top = solver.levels[-1]
+        self.top = top
+        cfg = solver._kcfgs[top]
+        if cfg.dtype != torch.float32:
+            raise ValueError("RefinedPoisson2D refines an f32 inner "
+                             "solver; got %s" % cfg.dtype)
+        if not df32_ok_2d(cfg):
+            raise Df32GateError("rhs/operator outside the 2D df32 gate")
+        for nb in range(4):
+            if cfg.periodic[nb // 2]:
+                continue
+            if float(cfg.b_const[nb]) != 0.0:
+                raise ValueError(
+                    "inner solver must have homogeneous (b=0) BCs; pass "
+                    "the true values via bc_values= (face %d has b=%r)"
+                    % (nb, cfg.b_const[nb]))
+        self.cbs = _cb_pairs(cfg, bc_values)
+        self.cfg = cfg
+        self.shape = self.pshape = (cfg.Y, cfg.X)
+        self._buffers = None
+
+    def _alloc(self):
+        if self._buffers is None:
+            self._buffers = [
+                torch.zeros(self.pshape, dtype=torch.float32,
+                            device=self.solver.device) for _ in range(8)]
+        (self.x_hi, self.x_lo, self.rhs_hi, self.rhs_lo, self._e0,
+         *self._scratch) = self._buffers
+
+    def _step(self, state, e32):
+        """Accumulate the correction, then the exact residual into the
+        inner solver's top-level rhs; returns max |r| as a 0-dim tensor
+        on the device."""
+        accumulate_df32_(self.x_hi, self.x_lo, e32, self._scratch)
+        r = residual_df32_2d(self.cfg, self.x_hi, self.x_lo, self.rhs_hi,
+                             self.rhs_lo, cbs=self.cbs,
+                             lam_pair=self.lam_pair,
+                             out=state["rhs"][self.top])
+        return r.abs().amax()
+
+    @torch.no_grad()
+    def solve(self, state, rhs_hi, rhs_lo, n_outer: int = 8,
+              rtol: float = 0.0):
+        """rhs_hi/rhs_lo: the [Y, X] float32 pair (``ops.df32.split_f64``
+        splits a float64 rhs).  Returns (x_hi, x_lo, residual-max
+        history, state); x_hi and x_lo are the instance's buffers.  With
+        ``rtol == 0`` nothing is read back inside the loop; with ``rtol >
+        0`` each outer reads its norm and the loop ends at the first one
+        at or below ``rtol * norms[0]``."""
+        solver, top = self.solver, self.top
+        self._alloc()
+        for buf, v in ((self.rhs_hi, rhs_hi), (self.rhs_lo, rhs_lo)):
+            if not isinstance(v, torch.Tensor):
+                v = torch.as_tensor(np.asarray(v))
+            buf.copy_(v.to(buf.device, torch.float32))
+        for buf in (self.x_hi, self.x_lo, self._e0):
+            buf.zero_()
+        e32 = self._e0
+        norms_dev: List[torch.Tensor] = []
+        for i in range(n_outer + 1):
+            mx = self._step(state, e32)
+            norms_dev.append(mx)
+            if i == n_outer:
+                break
+            if rtol and float(mx) <= rtol * float(norms_dev[0]):
+                break
+            state, _ = solver.fas_fmg(state, lam=self.lam, need_res=False)
+            e32 = state["phi"][top]
+        norms = [float(m) for m in torch.stack(norms_dev).cpu()]
+        return self.x_hi, self.x_lo, norms, state
+
+
 def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
                   rtol: float = 0.0, nch: Optional[int] = None,
                   bc_values: Optional[List[float]] = None,
@@ -362,13 +471,17 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
     :class:`RefinedForestPoisson` (rhs_hi/rhs_lo are then {lvl: interior}
     dicts, the solution {lvl: (x_hi, x_lo)}, eps per level), the z-slab
     solver :class:`ShardedRefinedPoisson` (bc_values and lam only, as
-    there), the uniform 3D dense solver and the dense-patch AMR solver
-    :class:`RefinedPoisson` (which refuses the AMR solver's top level
-    with :class:`Df32GateError`, its refinement faces being
-    plane-valued, as the JAX package's asserts do).  Anything else, the
-    2D solvers among them, raises, naming ROADMAP A10.  lam != 0 =
-    f64-class Helmholtz (a helmholtz-family inner solver); eps = the
-    float64 coefficient fields of a variable-coefficient solver."""
+    there), the uniform dense 2D solver :class:`RefinedPoisson2D`
+    (bc_values and lam), the uniform 3D dense solver and the dense-patch
+    AMR solver :class:`RefinedPoisson` (which refuses the AMR solver's top
+    level with :class:`Df32GateError`, its refinement faces being
+    plane-valued, as the JAX package's asserts do).  The 2D dense-patch
+    AMR solver (which the JAX package rebuilds as a 2D forest) and
+    anything else raise, naming ROADMAP A10b.  lam != 0 = f64-class
+    Helmholtz (a helmholtz-family inner solver); eps = the float64
+    coefficient fields of a variable-coefficient solver."""
+    from .dense2d import Dense2DMGSolver
+    from .dense_amr2d import Dense2DAMRMGSolver
     from .dense_forest import DenseForestMGSolver
     from .dense_multiforest import DenseMultiForestMGSolver
     from .dense_shard import ShardedDenseMGSolver
@@ -385,11 +498,20 @@ def solve_refined(solver, state, rhs_hi, rhs_lo, n_outer: int = 8,
                                      lam=lam).solve(state, rhs_hi, rhs_lo,
                                                     n_outer=n_outer,
                                                     rtol=rtol)
+    if isinstance(solver, Dense2DAMRMGSolver):
+        raise NotImplementedError(
+            "solve_refined: the JAX package refines a 2D dense-patch AMR "
+            "solver by rebuilding it as a 2D dense forest "
+            "(RefinedForest2DPoisson), which waits for ROADMAP A10b")
+    if isinstance(solver, Dense2DMGSolver):
+        return RefinedPoisson2D(solver, bc_values=bc_values,
+                                lam=lam).solve(state, rhs_hi, rhs_lo,
+                                               n_outer=n_outer, rtol=rtol)
     if not isinstance(solver, DenseMGSolver):
         raise NotImplementedError(
             f"solve_refined: no refinement class for "
-            f"{type(solver).__name__}; the 2D solvers wait for ROADMAP "
-            f"A10")
+            f"{type(solver).__name__}; the 2D forests' refinement waits "
+            f"for ROADMAP A10b")
     return RefinedPoisson(solver, nch=nch, bc_values=bc_values, lam=lam,
                           eps=eps).solve(state, rhs_hi, rhs_lo,
                                          n_outer=n_outer, rtol=rtol)

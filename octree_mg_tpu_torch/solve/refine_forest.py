@@ -44,7 +44,7 @@ constant homogeneous boundary values on the inner solver (the true
 values go through ``bc_values``), not fully periodic.  Not here: the
 relaxed ``"pair"`` inner ghost cadence (a measured-negative knob of the
 JAX package), the GSPMD placement (ROADMAP A13b), multi-canvas forests
-(refused, as in the JAX package) and the 2D driver (ROADMAP A10).
+(refused, as in the JAX package) and the 2D driver (ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -598,6 +598,56 @@ ROUTES.update({kind: dict() for kind in ("eight", "mixed", "threelvl")})
 ROUTES.update({f"sparse_{op}": dict(operator=op) for op in (
     "helmholtz", "vlaplacian", "vhelmholtz", "ahelmholtz")})
 ROUTES["sparse_jacobi"] = dict(smoother="jacobi")
+#: 2D: the uniform tree with each operator and the cylindrical laplacian
+#: (the dense 2D solver), the 3-level centred AMR tree likewise (the 2D
+#: dense-patch AMR solver), its periodic form and an L forest (the JAX
+#: package's 2D dense forest), a sparse tree (its 2D multi-canvas forest),
+#: and what goes to the boxed solver: the periodic sparse tree, Jacobi
+ROUTES.update({f"uniform2_{op}": dict(operator=op) for op in (
+    "helmholtz", "vlaplacian", "vhelmholtz", "ahelmholtz")})
+ROUTES["cyl2_laplacian"] = dict(geometry="cylindrical")
+ROUTES.update({f"amr2c_{op}": dict(operator=op) for op in (
+    "laplacian", "helmholtz", "vlaplacian", "vhelmholtz", "ahelmholtz")})
+ROUTES["amr2c_cyl"] = dict(geometry="cylindrical")
+ROUTES["amr2c_jacobi"] = dict(smoother="jacobi")
+ROUTES["amr2p"] = dict()
+ROUTES.update({"L2": dict(), "L2_cyl": dict(geometry="cylindrical"),
+               "L2_vhelmholtz": dict(operator="vhelmholtz"),
+               "sparse2": dict(), "sparse2_ahelmholtz": dict(
+                   operator="ahelmholtz"),
+               "sparse2p": dict(), "sparse2_jacobi": dict(smoother="jacobi")})
+
+
+def forest_tree_2d(pkg, tm, kind, base=16, box=4):
+    """2D trees for the routing cases: "L2" (level 2 over an L of three
+    quarters of the domain, level 3 over its corner), "sparse2" /
+    "sparse2p" (two corner patches of a quarter of the extent, closed or
+    fully periodic), "amr2p" (the centred 3-level AMR tree, periodic)."""
+    if kind == "amr2p":
+        return pkg.build_amr_centered(2, 3, np.full(2, base), box,
+                                      np.full(2, 1.0 / base),
+                                      periodic=[True] * 2)
+    nb = base // box
+    h, q = (nb + 1) // 2, nb // 4
+    t = pkg.build_rectangle(2, np.full(2, base), box, np.full(2, 1.0 / base),
+                            np.zeros(2), periodic=[kind == "sparse2p"] * 2)
+
+    def refine(lvl, pred):
+        ids = t.lvls[lvl].ids
+        pick = [int(b) for b in ids if pred(t.ix[int(b)])]
+        tm.add_children_bulk(t, np.array(pick, np.int64))
+        tm.set_leaves_parents(t, lvl)
+        tm.set_next_level_ids(t, lvl)
+        tm.set_neighbors_lvl(t, lvl + 1)
+
+    if kind == "L2":
+        refine(1, lambda ix: ix[0] <= h or ix[1] <= h)
+        refine(2, lambda ix: np.all(ix <= h))
+        tm.finalize_amr(t, 3)
+        return t
+    refine(1, lambda ix: np.all(ix <= q) or np.all(ix > nb - q))
+    tm.finalize_amr(t, 2)
+    return t
 
 
 def route_tree(name, pkg, tm):
@@ -609,6 +659,11 @@ def route_tree(name, pkg, tm):
         return build("cyl2", pkg, tm)
     if base in ("uniform3", "amr1", "amr3"):
         return build(base, pkg, tm)
+    if base == "amr2c":
+        return pkg.build_amr_centered(2, 3, np.full(2, 16), 4,
+                                      np.full(2, 1 / 16))
+    if base in ("L2", "sparse2", "sparse2p", "amr2p"):
+        return forest_tree_2d(pkg, tm, base)
     if base in ("eight", "mixed", "threelvl"):
         from test_torch_multiforest import sparse_tree
         return sparse_tree(pkg, tm, base)
@@ -624,13 +679,14 @@ def test_make_solver_routes_as_the_reference(name):
     want = type(ref_make_solver(route_tree(name, ref, rtm),
                                 ref.MGConfig(**kw))).__name__
     ported = ("DenseMGSolver", "DenseAMRMGSolver", "DenseForestMGSolver",
-              "DenseMultiForestMGSolver", "MGSolver")
+              "DenseMultiForestMGSolver", "MGSolver", "Dense2DMGSolver",
+              "Dense2DAMRMGSolver")
     tree = route_tree(name, port, ptm)
     cfg = port.MGConfig(device="cpu", **kw)
     if want in ported:
         assert type(port.make_solver(tree, cfg)).__name__ == want
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
             port.make_solver(tree, cfg)
     if name in ("sparse_periodic", "amr1", "uniform3_jacobi",
                 "uniform2_jacobi", "cyl2_helmholtz"):
@@ -645,3 +701,15 @@ def test_make_solver_routes_as_the_reference(name):
         assert want == "DenseAMRMGSolver"
     if name.split("_")[0] in ("L", "two", "periodic"):
         assert want == "DenseForestMGSolver"
+    if name.startswith("uniform2") and name != "uniform2_jacobi" or \
+            name in ("uniform2", "cyl2_laplacian"):
+        assert want == "Dense2DMGSolver"
+    if name.startswith("amr2c_"):
+        assert want == ("MGSolver" if name == "amr2c_jacobi"
+                        else "Dense2DAMRMGSolver")
+    if name in ("amr2p", "L2", "L2_cyl", "L2_vhelmholtz"):
+        assert want == "DenseForest2DMGSolver"
+    if name in ("sparse2", "sparse2_ahelmholtz"):
+        assert want == "DenseMultiForest2DMGSolver"
+    if name in ("sparse2p", "sparse2_jacobi"):
+        assert want == "MGSolver"

@@ -124,15 +124,30 @@ def _tree3(n=16, box=8, per=False):
 
 @pytest.mark.parametrize("case", ["2d", "amr", "jacobi", "cylindrical"])
 def test_make_solver_raises_for_what_waits(case):
-    """2D dense paths still wait and raise; rectangular AMR patches go to
-    the dense-patch AMR solver; a uniform 3D tree with the Jacobi
-    smoother or cylindrical geometry is no dense path's and goes to the
-    boxed MGSolver, as in the JAX package."""
+    """A uniform 2D tree goes to the dense 2D solver, and the 2D forests
+    still wait and raise (a 2:1 quadtree with a level over an L, ROADMAP
+    A10b); rectangular AMR patches go to the dense-patch AMR solver; a
+    uniform 3D tree with the Jacobi smoother or cylindrical geometry is
+    no dense path's and goes to the boxed MGSolver, as in the JAX
+    package."""
     cfg = port.MGConfig(device="cpu")
     tree = _tree3()
     if case == "2d":
         dsz = np.full(2, 16)
         tree = port.build_rectangle(2, dsz, 8, 1.0 / dsz, np.zeros(2))
+        assert type(port.make_solver(tree, cfg)) is port.Dense2DMGSolver
+        from octree_mg_tpu_torch.core import tree as ptm
+        tree = port.build_rectangle(2, dsz, 4, 1.0 / dsz, np.zeros(2))
+        ids = [int(b) for b in tree.lvls[1].ids
+               if tree.ix[int(b)][0] <= 2 or tree.ix[int(b)][1] <= 2]
+        ptm.add_children_bulk(tree, np.array(ids, np.int64))
+        ptm.set_leaves_parents(tree, 1)
+        ptm.set_next_level_ids(tree, 1)
+        ptm.set_neighbors_lvl(tree, 2)
+        ptm.finalize_amr(tree, 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+            port.make_solver(tree, cfg)
+        return
     elif case == "amr":
         tree = build_amr_centered(3, 2, (16, 16, 16), 8, np.full(3, 1 / 16))
     elif case == "jacobi":
@@ -184,14 +199,16 @@ def test_make_solver_dispatch_and_levels():
 
 def test_solve_refined_names_what_is_missing():
     """The refined solve is there (its own tests are
-    tests/test_torch_refine.py and tests/test_torch_df32_vcoeff.py); what
-    is not names its ROADMAP item, a float64 solver is told what the
-    refined mode needs, and a constant-coefficient solver refuses eps=."""
+    tests/test_torch_refine.py, tests/test_torch_df32_vcoeff.py and, in
+    2D, tests/test_torch_refine2d.py); what is not (a solver with no
+    refinement class: the 2D forests') names its ROADMAP item, A10b, a
+    float64 solver is told what the refined mode needs, and a
+    constant-coefficient solver refuses eps=."""
     ps = port.PoissonSolver(3, (16,) * 3, 8, device="cpu")
     rhs = np.zeros((16,) * 3)
     with pytest.raises(ValueError, match="float32"):
         ps.solve_refined(rhs)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         port.solve_refined(object(), None, rhs, rhs)
     ps32 = port.PoissonSolver(3, (16,) * 3, 8, dtype=torch.float32,
                               device="cpu")

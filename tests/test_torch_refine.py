@@ -205,6 +205,10 @@ def test_refined_solve_variants_match_reference(lam, bvals):
 
 
 def test_gate_errors():
+    """RefinedPoisson's refusals (lam without a helmholtz solver, eps= on
+    a constant-coefficient one, inhomogeneous inner BCs, a float64
+    solver, spacing outside the df32 gate), and solve_refined's for a
+    solver it has no class for, naming ROADMAP A10b (the 2D forests)."""
     _, ts = solver_pair("dirichlet0")
     with pytest.raises(ValueError, match="helmholtz"):
         RefinedPoisson(ts, lam=0.37)
@@ -221,7 +225,7 @@ def test_gate_errors():
     _, odd = solver_pair(size=24)
     with pytest.raises(ValueError, match="df32 gate"):
         RefinedPoisson(odd)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         solve_refined(object(), None, None, None)
 
 
